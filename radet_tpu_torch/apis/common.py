@@ -1,0 +1,82 @@
+"""Assembly helpers shared by the APIs (RADet branches of
+``radet_tpu/apis/common.py``)."""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import numpy as np
+
+from ..core.anchors import AnchorConfig, generate_anchors
+from ..engine.infer_step import build_infer_step
+from ..models.builder import build_detector
+
+
+def _to_dict(x) -> Dict:
+    return x.to_dict() if hasattr(x, "to_dict") else dict(x or {})
+
+
+def assignment_cfg_from(cfg) -> Dict | None:
+    """Label-assignment params: ``cfg.label_assignment`` when present, else
+    the params of a reference in-pipeline ``LabelAssignment`` entry of the
+    train pipeline (the anchor config may take strides and regress ranges
+    from it)."""
+    la = cfg.get("label_assignment")
+    if la is not None:
+        return _to_dict(la)
+    try:
+        pipe = cfg.data["train"]["pipeline"]
+    except (KeyError, TypeError, AttributeError):
+        return None
+    for t_cfg in pipe or []:
+        if isinstance(t_cfg, dict) and t_cfg.get("type") == "LabelAssignment":
+            return {k: v for k, v in t_cfg.items() if k != "type"}
+    return None
+
+
+def anchor_cfg_from_model(model_cfg: Dict, label_assignment_cfg: Dict | None = None) -> AnchorConfig:
+    head = model_cfg.get("bbox_head", {})
+    agen = dict(head.get("anchor_generator", {}))
+    if label_assignment_cfg:
+        # a reference pipeline LabelAssignment carries its own
+        # anchor_generator_cfg: fill in what the head config leaves out
+        for k, v in dict(label_assignment_cfg.get("anchor_generator_cfg") or {}).items():
+            if k != "type":
+                agen.setdefault(k, v)
+        if "regress_ranges" in label_assignment_cfg:
+            agen["regress_ranges"] = label_assignment_cfg["regress_ranges"]
+    return AnchorConfig.from_cfg(agen)
+
+
+def build_model_and_anchors(cfg, dtype: Any = None) -> Tuple[Any, np.ndarray, np.ndarray, list]:
+    """(model, anchors, regress ranges, level counts) for ``cfg.input_size``.
+
+    ``dtype`` is the compute dtype; None reads ``cfg.compute_dtype``."""
+    model_cfg = _to_dict(cfg.model)
+    if dtype is None:
+        dtype = cfg.get("compute_dtype", "float32")
+    model = build_detector(model_cfg, dtype=dtype)
+    input_size = tuple(cfg.get("input_size", (480, 640)))
+    anchors, ranges, _, counts = generate_anchors(
+        input_size, anchor_cfg_from_model(model_cfg, assignment_cfg_from(cfg))
+    )
+    return model, anchors, ranges, counts
+
+
+def normalizer_from_cfg(cfg) -> float:
+    coder = cfg.model.bbox_head.get("bbox_coder")
+    if coder is not None and "normalizer" in coder:
+        return float(coder["normalizer"])
+    return 1.0 / 8.0
+
+
+def build_infer_for_cfg(cfg, model, anchors, counts):
+    """The inference step of a RADet config (vote-NMS postprocess)."""
+    return build_infer_step(
+        model,
+        anchors,
+        counts,
+        img_norm=_to_dict(cfg.img_norm_cfg),
+        test_cfg=_to_dict(cfg.test_cfg),
+        normalizer=normalizer_from_cfg(cfg),
+    )

@@ -1,0 +1,104 @@
+"""Programmatic inference (port of ``radet_tpu/apis/inference.py``'s
+``init_detector`` / ``inference_detector``)."""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..utils.config import Config
+from .common import build_infer_for_cfg, build_model_and_anchors
+
+_RESIZE_ITEM = "ROADMAP.md Queue 1 item 7, host preprocessing without cv2"
+
+
+class Detector:
+    """Bundled (config, model on its device, inference step) handle."""
+
+    def __init__(self, cfg, model, anchors, level_counts, classes=()):
+        self.cfg = cfg
+        self.model = model
+        self.anchors = anchors
+        self.level_counts = level_counts
+        self.input_size = tuple(cfg.get("input_size", (480, 640)))
+        self.classes = tuple(classes)
+        self._infer = build_infer_for_cfg(cfg, model, anchors, level_counts)
+
+
+def init_detector(
+    config,
+    checkpoint: Optional[str] = None,
+    cfg_options=None,
+    *,
+    device="cuda",
+    seed: int = 0,
+) -> Detector:
+    """Build the detector of ``config`` (a path or a Config) on ``device``.
+
+    ``checkpoint``: a torch ``.pth`` holding an mmdet-named state dict, or
+    ``{"state_dict": ...}``, loaded with ``strict=True``; None means a random
+    init from ``seed``.  ``device`` is used as given: with no GPU, pass
+    ``device="cpu"``.  Convolutions run in the config's ``compute_dtype`` on
+    the card and in float32 on the CPU."""
+    cfg = config if isinstance(config, Config) else Config.fromfile(config, cfg_options)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
+    dtype = None if device.type == "cuda" else "float32"
+    model, anchors, _, counts = build_model_and_anchors(cfg, dtype=dtype)
+    classes = tuple(cfg.data.test.get("classes", ()) or ()) if "data" in cfg else ()
+    if checkpoint is None:
+        model.init_weights(torch.Generator().manual_seed(seed))
+    else:
+        ckpt = torch.load(checkpoint, map_location="cpu", weights_only=True)
+        state_dict = ckpt.get("state_dict", ckpt)
+        model.load_state_dict(state_dict, strict=True)
+        classes = classes or tuple((ckpt.get("meta") or {}).get("CLASSES", ()) or ())
+    model.to(device).eval()
+    return Detector(cfg, model, anchors, counts, classes)
+
+
+def _prepare_batch(detector: Detector, imgs):
+    """Stack RGB uint8 images of exactly the config's input size.
+
+    Returns (images (B, H, W, 3) uint8, img_shapes (B, 2), scale_factors
+    (B, 4)); at the input size the resize is the identity."""
+    h, w = detector.input_size
+    for im in imgs:
+        if not isinstance(im, np.ndarray):
+            raise ValueError(
+                f"images are RGB uint8 ndarrays; reading {type(im).__name__} inputs "
+                f"needs imread, which is not ported ({_RESIZE_ITEM})"
+            )
+        if im.shape != (h, w, 3) or im.dtype != np.uint8:
+            raise ValueError(
+                f"image of shape {im.shape} and dtype {im.dtype}: only uint8 images of "
+                f"the input size ({h}, {w}, 3) are accepted; Resize/Pad are not "
+                f"ported ({_RESIZE_ITEM})"
+            )
+    n = len(imgs)
+    shapes = np.tile(np.asarray([[h, w]], np.float32), (n, 1))
+    return np.stack(imgs), shapes, np.ones((n, 4), np.float32)
+
+
+def _gather_results(det, n: int) -> List[Dict[str, np.ndarray]]:
+    boxes, scores, labels, valid = (t.cpu().numpy() for t in det[:4])
+    return [
+        dict(boxes=boxes[i][valid[i]], scores=scores[i][valid[i]], labels=labels[i][valid[i]])
+        for i in range(n)
+    ]
+
+
+def inference_detector(detector: Detector, imgs):
+    """Detect on one RGB uint8 ndarray or a list of them.
+
+    Returns per-image dicts {boxes (M, 4) xyxy, scores (M,), labels (M,)}
+    of numpy arrays (one dict for a single image)."""
+    single = not isinstance(imgs, (list, tuple))
+    if single:
+        imgs = [imgs]
+    det = detector._infer(detector.model, *_prepare_batch(detector, imgs))
+    out = _gather_results(det, len(imgs))
+    return out[0] if single else out
