@@ -13,7 +13,16 @@ Run from the repository root, with one card:  python3 chip_smoke.py
    through the plain version on the CPU, the float32 forward against the CPU
    forward, and the untouched random init for NaNs;
 4. times the main path at batch 8 and 128 and the kernel against the plain
-   version at B=128, K=512 with CUDA events.
+   version at B=128, K=512 with CUDA events;
+5. trains: ``train_detector`` on the flagship config at full width, batch 16,
+   bf16, for 30 steps, from an in-memory synthetic BOP source (filled
+   rectangles at 480x640 with visible masks, through the port's transforms,
+   sample packing and loader), checking losses, frozen stages, moved
+   weights and the checkpoint; runs ``inference_detector`` with the trained
+   weights, counting the kernel's launches; overfits one fixed batch of 16
+   with the train step; times the train step at batch 16; and holds one
+   float32 step on the card against the CPU at batch 1 (same weights, batch,
+   assignment noise and ReLU decisions).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero before it.  Without a CUDA card, or outside the repository, the
@@ -22,20 +31,33 @@ script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import logging
+import math
+import os
+import os.path as osp
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 CONFIG = "configs/bop/r50_ycbv_pbr.py"
 SEED = 0
 BOX_ATOL = 1e-2  # px; keep sets, labels and scores must match exactly
 BOX_TAIL = 0.005  # share of voted coordinates allowed past BOX_ATOL (1-sigma flips)
 MAP_RTOL = 1e-3  # float32 card forward vs CPU forward, relative to each map's max
+TRAIN_STEPS = 30
+LOSS_RTOL = 1e-4  # float32 train step, card vs CPU, relative
+GRAD_RTOL = 1e-3  # its gradients, relative to each tensor's max abs
+FLIP_RTOL = 1e-5  # |x| / max |x| of a ReLU input the two sides put on opposite sides of 0
+WEIGHT_ATOL = 1e-6  # assignment weights, card vs CPU
 
 
 def fail(msg: str) -> None:
@@ -107,6 +129,289 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def synthetic_bop_records(rng, n, hw, num_classes=21, max_objects=6):
+    """In-memory BOP-style training records: uint8 RGB images with filled
+    rectangles (as tests/fixtures.py draws them), their xyxy boxes, labels
+    and binary visible masks (a later rectangle hides what it covers)."""
+    h, w = hw
+    lo, hi = max(16, min(h, w) // 8), max(24, min(h, w) // 3)
+    records = []
+    for _ in range(n):
+        img = rng.randint(0, 80, (h, w, 3), dtype=np.uint8)
+        boxes, labels, masks = [], [], []
+        for _ in range(rng.randint(1, max_objects + 1)):
+            bw, bh = (int(v) for v in rng.randint(lo, hi, 2))
+            x1, y1 = int(rng.randint(0, w - bw)), int(rng.randint(0, h - bh))
+            c = int(rng.randint(num_classes))
+            img[y1:y1 + bh, x1:x1 + bw] = [(60 + 60 * c) % 256, (200 - 50 * c) % 256, 255]
+            for m in masks:
+                m[y1:y1 + bh, x1:x1 + bw] = 0
+            m = np.zeros((h, w), np.uint8)
+            m[y1:y1 + bh, x1:x1 + bw] = 1
+            boxes.append([x1, y1, x1 + bw, y1 + bh])
+            labels.append(c)
+            masks.append(m)
+        records.append(dict(img=img, gt_bboxes=np.asarray(boxes, np.float32),
+                            gt_labels=np.asarray(labels, np.int64), gt_masks=np.stack(masks)))
+    return records
+
+
+class LogLines(logging.Handler):
+    """Keeps the messages of the trainer's logger."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+@contextlib.contextmanager
+def relu_decisions(masks, replay: bool):
+    """Within the block, ``F.relu`` records which inputs are > 0 into
+    ``masks`` (``replay=False``), or applies the recorded decisions in the
+    same call order (``replay=True``: x * mask), so that two runs of one
+    network take every ReLU on the same side.  Yields the replayed calls'
+    disagreements: (count, max |x| there / max |x|)."""
+    relu = F.relu
+    recorded = iter(masks)
+    flips = []
+
+    def shared_relu(x, inplace=False):
+        if not replay:
+            masks.append((x > 0).detach().cpu())
+            return relu(x, inplace=inplace)
+        m = next(recorded).to(x.device)
+        other = (x > 0) != m
+        if other.any():
+            flips.append((int(other.sum()), float(x.detach()[other].abs().max() / x.detach().abs().max())))
+        return x * m.to(x.dtype)
+
+    F.relu = shared_relu
+    try:
+        yield flips
+    finally:
+        F.relu = relu
+
+
+def parity_steps(cfg, one, anchors, ranges, model_args, runs):
+    """One train step (zero-lr SGD, no clip, in the model's dtype) of each
+    (name, model, device) in ``runs`` on the numpy batch ``one`` with the
+    same assignment noise; returns {name: (assignment, metrics, gradients
+    on the CPU)}."""
+    from radet_tpu_torch.apis.common import assignment_cfg_from
+    from radet_tpu_torch.core.assignment import gumbel
+    from radet_tpu_torch.engine import build_optimizer, build_train_step
+    from radet_tpu_torch.engine.train_step import TrainState, batch_to_device
+
+    acfg = assignment_cfg_from(cfg)
+    cap = int(acfg.get("positive_num", 10)) * (4 if acfg.get("adapt_positive_num") else 1)
+    _, n, g = one["dist_vals"].shape
+    gen = torch.Generator().manual_seed(SEED + 3)
+    noise = (gumbel((1, g, n), gen, "cpu"), gumbel((1, g, cap, cap), gen, "cpu"))
+    out = {}
+    for name, m, d in runs:
+        st = build_train_step(m, anchors, ranges, **model_args)
+        b1 = batch_to_device(one, d)
+        nz = tuple(t.to(d) for t in noise)
+        assign = st.assign(b1, nz)
+        sgd0, _ = build_optimizer(dict(type="SGD", lr=0.0), dict(policy="fixed"), None, m)
+        metrics = st(TrainState(m, sgd0), b1, nz)
+        out[name] = (assign, {k: float(v) for k, v in metrics.items()},
+                     {k: p.grad.cpu() for k, p in m.named_parameters() if p.requires_grad})
+    return out
+
+
+def grad_errors(grads, ref):
+    """[(max |g - ref| / max |ref|, name)] over the tensors, worst first."""
+    return sorted(((float((grads[k] - ref[k]).abs().max() / ref[k].abs().max().clamp(min=1e-30)), k)
+                   for k in ref), reverse=True)
+
+
+def train_phases(config: str, gpu: str) -> None:
+    """Training on the card: the trainer, an overfit batch, card-vs-CPU
+    parity, the train step's time, and inference with the trained weights."""
+    import radet_tpu_torch.ops.vote_nms_cuda as vnc
+    from radet_tpu_torch import inference_detector, init_detector, train_detector
+    from radet_tpu_torch.apis.common import (
+        assignment_cfg_from,
+        build_model_and_anchors,
+        loss_cfg_from,
+        normalizer_from_cfg,
+    )
+    from radet_tpu_torch.data import InMemoryBOPDataset, collate, train_transforms
+    from radet_tpu_torch.engine import build_optimizer, build_train_step, load_weights, save_weights
+    from radet_tpu_torch.engine.train_step import TrainState, batch_to_device
+    from radet_tpu_torch.utils import Config, get_root_logger
+
+    dev = torch.device("cuda")
+    cfg = Config.fromfile(config, [f"runner.max_iters={TRAIN_STEPS}",
+                                   "checkpoint_config.interval=10", "log_config.interval=1"])
+    h, w = cfg.input_size
+    batch_size = int(cfg.data.samples_per_gpu)
+    max_gt = int(assignment_cfg_from(cfg).get("max_gt", 32))
+    seed = int(cfg.get("seed", 0))
+
+    # 5a. the in-memory source: the port's transforms, packing and loader
+    t0 = time.perf_counter()
+    records = synthetic_bop_records(np.random.RandomState(SEED + 2), 64, (h, w))
+    dataset = InMemoryBOPDataset(records, train_transforms((h, w), max_gt=max_gt, seed=SEED),
+                                 max_gt=max_gt, classes=cfg.CLASS_NAMES)
+    n_gt = [len(r["gt_bboxes"]) for r in records]
+    print(f"train: synthetic BOP source, {len(records)} images {h}x{w}, {sum(n_gt)} objects "
+          f"({min(n_gt)}-{max(n_gt)} per image, labels 0-20), built in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def init_model(dtype):
+        model = build_model_and_anchors(cfg, dtype=dtype)[0]
+        model.init_weights(torch.Generator().manual_seed(seed))
+        return model
+
+    # 5b. the trainer at full width, batch 16, bf16
+    with tempfile.TemporaryDirectory() as tmp:
+        work_dir = osp.join(tmp, "work_dir")
+        logs = LogLines()
+        get_root_logger().addHandler(logs)
+        t0 = time.perf_counter()
+        state = train_detector(cfg, work_dir=work_dir, dataset=dataset, device="cuda")
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        get_root_logger().removeHandler(logs)
+        iters = [ln for ln in logs.lines if ln.startswith("iter ")]
+        history = [
+            {k: float(v) for k, v in re.findall(r"(loss_cls|loss_bbox|loss_iou|loss|grad_norm) (\S+)", ln)}
+            for ln in iters
+        ]
+        model = state.model
+        print(f"train: train_detector({CONFIG!r}) batch {batch_size}, compute dtype {model.dtype}, "
+              f"{state.step} steps in {train_s:.1f} s (model build and data included) [{gpu}]")
+        for ln in (iters[0], iters[len(iters) // 2], iters[-1]):
+            print(f"  {ln}")
+        if state.step != TRAIN_STEPS or len(history) != TRAIN_STEPS:
+            fail(f"the trainer took {state.step} steps and logged {len(history)}, not {TRAIN_STEPS}")
+        if model.dtype != torch.bfloat16 or batch_size != 16:
+            fail(f"the trainer ran {model.dtype} at batch {batch_size}; the flagship is bf16 at 16")
+        bad = [(i + 1, k, v) for i, m in enumerate(history) for k, v in m.items() if not math.isfinite(v)]
+        if bad or any(len(m) != 5 for m in history):
+            fail(f"non-finite or missing losses/grad_norm in the trainer's log: {bad[:5]}")
+        init = init_model("float32").state_dict()
+        frozen = [n for n, p in model.named_parameters() if not p.requires_grad]
+        now = model.state_dict()
+        changed = [n for n in frozen + [b for b, _ in model.named_buffers()]
+                   if not torch.equal(now[n].cpu(), init[n])]
+        moved = sum(not torch.equal(p.detach().cpu(), init[n])
+                    for n, p in model.named_parameters() if p.requires_grad)
+        n_train = sum(p.requires_grad for p in model.parameters())
+        print(f"  frozen parameters (stem, layer1): {len(frozen)}, unchanged bit for bit: "
+              f"{not changed}; trainable tensors moved: {moved} of {n_train}")
+        if changed:
+            fail(f"frozen parameters or buffers changed: {changed[:5]}")
+        if moved == 0:
+            fail("no trainable parameter moved")
+        ckpts = sorted(int(d) for d in os.listdir(osp.join(work_dir, "checkpoints")) if d.isdigit())
+        print(f"  checkpoints written at steps {ckpts}")
+        if TRAIN_STEPS not in ckpts:
+            fail("no checkpoint of the last step was written")
+        weights = osp.join(tmp, "trained.pth")
+        save_weights(weights, load_weights(osp.join(work_dir, "checkpoints")),
+                     meta=dict(CLASSES=list(cfg.CLASS_NAMES)))
+        del state, model
+        torch.cuda.empty_cache()
+
+        # 5c. inference with the trained weights
+        det = init_detector(cfg, checkpoint=weights, device="cuda")
+        imgs = [r["img"] for r in records[:8]]
+        vnc.LAUNCHES = 0
+        results = inference_detector(det, imgs)
+        torch.cuda.synchronize()
+        launches = vnc.LAUNCHES
+        print(f"inference after training: inference_detector on 8 images, vote_nms kernel launches "
+              f"{launches}, detections per image {[len(r['boxes']) for r in results]}")
+        if launches < 1:
+            fail("inference with the trained weights did not launch the vote_nms kernel")
+        for r in results:
+            if not (np.isfinite(r["boxes"]).all() and np.isfinite(r["scores"]).all()):
+                fail("NaN in the trained model's detections")
+        raw = det._infer(det.model, np.stack(imgs), np.tile([[h, w]], (8, 1)), np.ones((8, 4)))
+        if any(torch.isnan(t.float()).any() for t in raw[:4]):
+            fail("NaN in the trained model's inference output")
+        del det, raw
+
+    model_args = dict(
+        img_norm=cfg.img_norm_cfg.to_dict(), num_classes=int(cfg.model.bbox_head.num_classes),
+        assignment_cfg=assignment_cfg_from(cfg), normalizer=normalizer_from_cfg(cfg),
+        loss_cfg=loss_cfg_from(cfg),
+    )
+    _, anchors, ranges, _ = build_model_and_anchors(cfg)
+
+    # 5d. overfit one fixed batch of 16: flagship AdamW and clip at a constant lr
+    model = init_model(None).to(dev)
+    tx, _ = build_optimizer(dict(cfg.optimizer.to_dict(), lr=1e-4), dict(policy="fixed"),
+                            cfg.grad_clip.to_dict(), model)
+    state = TrainState(model, tx, seed=seed + 1)
+    step = build_train_step(model, anchors, ranges, **model_args)
+    batch = batch_to_device(collate([dataset[i] for i in range(batch_size)]), dev)
+    losses = torch.stack([step(state, batch)["loss"] for _ in range(TRAIN_STEPS)]).tolist()
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    print(f"train: overfit one batch of {batch_size}, {TRAIN_STEPS} steps (AdamW lr 1e-4, clip 35): "
+          f"mean loss of the first 5 steps {first:.4f}, of the last 5 {last:.4f}")
+    if not all(math.isfinite(v) for v in losses) or not last < first:
+        fail("the loss did not fall on the overfit batch")
+
+    # 5e. the train step's time at batch 16 (batch already on the card)
+    for _ in range(3):
+        step(state, batch)
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: step(state, batch), 10)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"timing: train step batch {batch_size} {str(model.dtype)[6:]} (batch on the card): "
+          f"{ms:.2f} ms/step, "
+          f"{batch_size * 1000.0 / ms:.1f} img/s, peak memory {peak:.2f} GiB [{gpu}]")
+    del state, model, tx, step, batch
+    torch.cuda.empty_cache()
+
+    # 5f. float32 step at batch 1, card vs CPU: same weights, batch and
+    # assignment noise, and the same side of every ReLU (a pre-activation
+    # within rounding of 0 otherwise moves a channel's gradient by several
+    # percent: PERF.md, PR 2)
+    cpu_model = init_model("float32")
+    gpu_model = init_model("float32").to(dev)
+    raw_model = init_model("float32")
+    one = collate([dataset[0]])
+    cpu = torch.device("cpu")
+    masks = []
+    with relu_decisions(masks, replay=False):
+        out = parity_steps(cfg, one, anchors, ranges, model_args, (("card", gpu_model, dev),))
+    with relu_decisions(masks, replay=True) as flips:
+        out.update(parity_steps(cfg, one, anchors, ranges, model_args, (("cpu", cpu_model, cpu),)))
+    out.update(parity_steps(cfg, one, anchors, ranges, model_args, (("raw", raw_model, cpu),)))
+    (ac, mc, gc), (ag, mg, gg) = out["cpu"], out["card"]
+    if not torch.equal(ag.gt_idx.cpu(), ac.gt_idx):
+        fail(f"assignment gt_idx differs between card and CPU in "
+             f"{int((ag.gt_idx.cpu() != ac.gt_idx).sum())} cells")
+    w_err = float((ag.weight.cpu() - ac.weight).abs().max())
+    loss_err = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in mc)
+    errs = grad_errors(gg, gc)
+    raw = grad_errors(out["raw"][2], gg)
+    flip_max = max((r for _, r in flips), default=0.0)
+    print(f"train parity, float32 batch 1, card vs CPU (TF32 off, same noise and ReLU sides): "
+          f"assignment gt_idx equal ({int((ac.gt_idx >= 0).sum())} positives), weight max abs err "
+          f"{w_err:.3g}; losses max rel err {loss_err:.3g} (loss {mg['loss']:.6f} vs {mc['loss']:.6f}); "
+          f"gradients max err {errs[0][0]:.3g} of the tensor's max abs ({errs[0][1]}) [{gpu}]")
+    print(f"  ReLU inputs on opposite sides of 0: {sum(c for c, _ in flips)} of "
+          f"{sum(m.numel() for m in masks)} in {len(masks)} calls, at most {flip_max:.3g} of their tensor's max |x|; with each side's own "
+          f"ReLU decisions the gradients differ by up to {raw[0][0]:.3g} ({raw[0][1]}), "
+          f"{sum(e > GRAD_RTOL for e, _ in raw)} tensors past {GRAD_RTOL}")
+    if flip_max > FLIP_RTOL:
+        fail(f"a ReLU input differs in sign by more than rounding ({flip_max:.3g} > {FLIP_RTOL})")
+    if w_err > WEIGHT_ATOL or loss_err > LOSS_RTOL or errs[0][0] > GRAD_RTOL:
+        fail(f"card vs CPU train step beyond tolerance (weights {WEIGHT_ATOL}, losses {LOSS_RTOL}, "
+             f"gradients {GRAD_RTOL})")
+    del cpu_model, gpu_model, raw_model, out, masks
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -283,6 +588,8 @@ def main() -> None:
     plain_ms = float(np.mean(runs["plain"]))
     print(f"timing: vote_nms B=128 K=512: kernel {kernel_ms:.4f} ms (runs {runs['kernel']}), "
           f"plain {plain_ms:.3f} ms (runs {runs['plain']}) [{gpu}]")
+
+    train_phases(config, gpu)
 
     print(f"card: {gpu}")
     print(json.dumps({"kernels": [{

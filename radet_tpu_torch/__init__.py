@@ -5,10 +5,11 @@ The package mirrors ``radet_tpu``'s layout (``core/``, ``models/``, ``ops/``,
 ``engine/``, ``apis/``, ``utils/``) so each module's counterpart has the same
 path.  It imports torch and numpy only: never jax, never ``radet_tpu``.
 
-Inference entry points: :func:`radet_tpu_torch.apis.init_detector` and
-:func:`radet_tpu_torch.apis.inference_detector`.
+Entry points: :func:`radet_tpu_torch.apis.init_detector` and
+:func:`radet_tpu_torch.apis.inference_detector` for inference,
+:func:`radet_tpu_torch.apis.train_detector` for training.
 """
 
-from .apis import Detector, inference_detector, init_detector
+from .apis import Detector, inference_detector, init_detector, train_detector
 
-__all__ = ["Detector", "inference_detector", "init_detector"]
+__all__ = ["Detector", "inference_detector", "init_detector", "train_detector"]

@@ -63,6 +63,53 @@ def build_model_and_anchors(cfg, dtype: Any = None) -> Tuple[Any, np.ndarray, np
     return model, anchors, ranges, counts
 
 
+def head_type_from_cfg(cfg_or_model) -> str:
+    """The bbox head type of a full config or a model config; only
+    'RADetHead' is ported."""
+    model = cfg_or_model.get("model", cfg_or_model)
+    head_type = model.get("bbox_head", {}).get("type", "RADetHead")
+    if head_type != "RADetHead":
+        raise NotImplementedError(
+            f"bbox_head type {head_type!r} is not ported (ROADMAP.md Queue 1 item 12, other families)"
+        )
+    return head_type
+
+
+def loss_cfg_from(cfg) -> Dict[str, Any]:
+    """The ``bbox_head`` loss dicts of a config as the flat kwargs of
+    ``engine.train_step.build_train_step``; raises on loss types the RADet
+    head cannot honour."""
+    from ..ops.losses import BBOX_LOSS_FNS
+
+    head = cfg.model.get("bbox_head", {})
+    out: Dict[str, Any] = {}
+    lcls = head.get("loss_cls")
+    if lcls:
+        lcls = _to_dict(lcls)
+        if lcls.get("type", "FocalLoss") != "FocalLoss" or not lcls.get("use_sigmoid", True):
+            raise ValueError(f"unsupported loss_cls {lcls!r} (the RADet head is sigmoid-focal)")
+        out["focal_gamma"] = float(lcls.get("gamma", 2.0))
+        out["focal_alpha"] = float(lcls.get("alpha", 0.25))
+        out["cls"] = float(lcls.get("loss_weight", 1.0))
+    lbox = head.get("loss_bbox")
+    if lbox:
+        lbox = _to_dict(lbox)
+        btype = lbox.get("type", "GIoULoss")
+        if btype not in BBOX_LOSS_FNS:
+            raise ValueError(f"unsupported loss_bbox type {btype!r} (known: {sorted(BBOX_LOSS_FNS)})")
+        out["bbox_type"] = btype
+        out["bbox"] = float(lbox.get("loss_weight", 2.0))
+        extra = {k: v for k, v in lbox.items() if k not in ("type", "loss_weight", "reduction")}
+        out["bbox_extra"] = tuple(sorted(extra.items()))
+    liou = head.get("loss_centerness")
+    if liou:
+        liou = _to_dict(liou)
+        if liou.get("type", "CrossEntropyLoss") != "CrossEntropyLoss" or not liou.get("use_sigmoid", True):
+            raise ValueError(f"unsupported loss_centerness {liou!r} (binary CE on the IoU branch)")
+        out["iou"] = float(liou.get("loss_weight", 1.0))
+    return out
+
+
 def normalizer_from_cfg(cfg) -> float:
     coder = cfg.model.bbox_head.get("bbox_coder")
     if coder is not None and "normalizer" in coder:

@@ -111,3 +111,11 @@ def generate_anchors(
         np.concatenate(all_strides, 0),
         counts,
     )
+
+
+def anchor_centers(anchors: np.ndarray) -> np.ndarray:
+    """(N, 2) centers (x, y) of xyxy anchor boxes."""
+    return np.stack(
+        [(anchors[:, 0] + anchors[:, 2]) * 0.5, (anchors[:, 1] + anchors[:, 3]) * 0.5],
+        axis=-1,
+    )

@@ -1,0 +1,141 @@
+"""The training step (port of ``radet_tpu/engine/train_step.py::build_train_step``).
+
+One call does what the JAX package's jitted step does: uint8 -> normalized
+input, the forward pass with autograd (convolutions in ``model.dtype``,
+GroupNorm, head outputs and the loss in float32), batched label assignment
+under ``no_grad``, the RADet loss, backward, global-norm clip, the
+optimizer update and the schedule's step.
+
+The assignment noise comes from a device generator seeded by (seed, step),
+the counterpart of ``fold_in(rng_key, step)``: a run resumed from a
+checkpoint draws the same noise as one that was never interrupted.  Nothing
+in a step waits for the device: the metrics are device tensors, read (one
+sync) only when the caller converts them.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core.assignment import AssignResult, assign_labels
+from ..models.detector import flatten_head_outputs, preprocess_images
+from ..models.radet_loss import radet_loss
+from .optim import ClippedOptimizer
+
+BATCH_KEYS = ("image", "gt_boxes", "gt_labels", "gt_valid", "dist_vals")
+
+
+class TrainState:
+    """Mutable training state: the model, its optimizer (with schedule and
+    clip), the number of steps taken, and the seed of the assignment noise."""
+
+    def __init__(self, model: torch.nn.Module, tx: ClippedOptimizer, step: int = 0, seed: int = 0):
+        self.model = model
+        self.tx = tx
+        self.step = int(step)
+        self.seed = int(seed)
+        device = next(model.parameters()).device
+        self.generator = torch.Generator(device=device)
+
+    def step_generator(self) -> torch.Generator:
+        """The generator of this step's assignment noise, seeded by (seed, step)."""
+        return self.generator.manual_seed((self.seed * 1_000_003 + self.step) % 2**63)
+
+
+def batch_to_device(batch: Dict[str, Any], device, keys=BATCH_KEYS) -> Dict[str, torch.Tensor]:
+    """Stage numpy (or tensor) batch arrays on ``device``; from pinned host
+    memory when the device is a card, so the copy does not wait for it."""
+    device = torch.device(device)
+    out = {}
+    for k in keys:
+        t = torch.as_tensor(batch[k])
+        if device.type == "cuda" and t.device.type == "cpu":
+            t = t.pin_memory()
+        out[k] = t.to(device, non_blocking=True)
+    return out
+
+
+def build_train_step(
+    model,
+    anchors: np.ndarray,
+    regress_ranges: np.ndarray,
+    *,
+    img_norm: Dict[str, Any],
+    num_classes: int,
+    assignment_cfg: Dict[str, Any] | None = None,
+    normalizer: float = 1.0 / 8.0,
+    loss_cfg: Dict[str, Any] | None = None,
+) -> "TrainStep":
+    """Returns ``train_step(state, batch, noise=None) -> metrics`` for
+    models on the device of ``model``'s parameters.
+
+    ``batch``: device tensors under :data:`BATCH_KEYS` (see
+    :func:`batch_to_device`).  ``noise``: optional (gumbel_pool,
+    gumbel_draw) for the assignment (``core.assignment.assign_labels``)."""
+    return TrainStep(model, anchors, regress_ranges, img_norm=img_norm, num_classes=num_classes,
+                     assignment_cfg=assignment_cfg, normalizer=normalizer, loss_cfg=loss_cfg)
+
+
+class TrainStep:
+    def __init__(self, model, anchors, regress_ranges, *, img_norm, num_classes,
+                 assignment_cfg=None, normalizer=1.0 / 8.0, loss_cfg=None):
+        acfg = dict(assignment_cfg or {})
+        self.assign_kwargs = dict(
+            positive_num=int(acfg.get("positive_num", 10)),
+            neg_threshold=float(acfg.get("neg_threshold", 0.2)),
+            balance_sample=bool(acfg.get("balance_sample", True)),
+            adapt_positive_num=bool(acfg.get("adapt_positive_num", False)),
+            random_sample_by_distance=bool(acfg.get("random_sample_by_distance", True)),
+            multiply_samplepro_for_weight=bool(acfg.get("multiply_samplepro_for_weight", False)),
+            ambiguous_sample=str(acfg.get("ambiguous_sample", "min_area")),
+            impl=str(acfg.get("impl", "auto")),
+        )
+        lc = dict(cls=1.0, bbox=2.0, iou=1.0, focal_gamma=2.0, focal_alpha=0.25,
+                  bbox_type="GIoULoss", bbox_extra=())
+        lc.update(loss_cfg or {})
+        self.loss_kwargs = dict(
+            num_classes=num_classes, normalizer=normalizer,
+            focal_gamma=lc["focal_gamma"], focal_alpha=lc["focal_alpha"],
+            cls_loss_weight=lc["cls"], bbox_loss_weight=lc["bbox"], iou_loss_weight=lc["iou"],
+            bbox_loss_type=lc["bbox_type"], bbox_loss_extra=tuple(lc["bbox_extra"]),
+        )
+        device = next(model.parameters()).device
+        self.anchors = torch.as_tensor(anchors, dtype=torch.float32, device=device)
+        self.ranges = torch.as_tensor(regress_ranges, dtype=torch.float32, device=device)
+        self.mean = torch.tensor(img_norm["mean"], dtype=torch.float32, device=device)
+        self.std = torch.tensor(img_norm["std"], dtype=torch.float32, device=device)
+
+    @torch.no_grad()
+    def assign(self, batch, noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+               generator: Optional[torch.Generator] = None) -> AssignResult:
+        pool, draw = noise if noise is not None else (None, None)
+        return assign_labels(
+            self.anchors, self.ranges, batch["gt_boxes"], batch["gt_valid"], batch["dist_vals"],
+            gumbel_pool=pool, gumbel_draw=draw, generator=generator, **self.assign_kwargs,
+        )
+
+    def loss(self, model, batch, assign: AssignResult) -> Dict[str, torch.Tensor]:
+        """The RADet losses of ``model``'s forward on ``batch``, with autograd."""
+        x = preprocess_images(batch["image"], self.mean, self.std, model.dtype)
+        cls_flat, reg_flat, iou_flat = flatten_head_outputs(*model(x))
+        return radet_loss(
+            cls_flat, reg_flat, iou_flat, self.anchors, batch["gt_boxes"], batch["gt_labels"],
+            assign.gt_idx, assign.weight, **self.loss_kwargs,
+        )
+
+    def __call__(self, state: TrainState, batch, noise=None) -> Dict[str, torch.Tensor]:
+        generator = None if noise is not None else state.step_generator()
+        assign = self.assign(batch, noise, generator)
+        state.tx.zero_grad()
+        losses = self.loss(state.model, batch, assign)
+        total = losses["loss_cls"] + losses["loss_bbox"] + losses["loss_iou"]
+        total.backward()
+        grad_norm = state.tx.step()
+        state.step += 1
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["loss"] = total.detach()
+        metrics["grad_norm"] = grad_norm
+        return metrics

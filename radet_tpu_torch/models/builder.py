@@ -17,7 +17,7 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.bf
 
 _OTHER_FAMILIES = "ROADMAP.md Queue 1 item 12, other families"
 _INT8 = "ROADMAP.md Queue 1 item 14, int8 deploy family"
-_TRAINING = "ROADMAP.md Queue 1 item 10, training path"
+_TRAINING = "ROADMAP.md Queue 1 item 18, live BatchNorm and checkpointing"
 
 
 def _require(ok: bool, what: str, item: str) -> None:

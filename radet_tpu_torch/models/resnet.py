@@ -93,7 +93,7 @@ class ResNet(nn.Module):
         if not norm_eval:
             raise NotImplementedError(
                 "norm_eval=False updates BatchNorm statistics while training "
-                "(ROADMAP.md Queue 1 item 10, training path)"
+                "(ROADMAP.md Queue 1 item 18, live BatchNorm and checkpointing)"
             )
         self.out_indices = tuple(out_indices)
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)

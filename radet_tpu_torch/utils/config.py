@@ -151,6 +151,14 @@ class Config:
     def to_dict(self) -> Dict[str, Any]:
         return copy.deepcopy(self._data)
 
+    def dump(self, path: str) -> None:
+        """Write the resolved config as ``key = value`` lines."""
+        import pprint
+
+        with open(path, "w") as f:
+            for k, v in self._data.items():
+                f.write(f"{k} = {pprint.pformat(v, width=100)}\n")
+
     def __repr__(self) -> str:
         import pprint
 

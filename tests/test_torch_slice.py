@@ -27,19 +27,9 @@ from radet_tpu_torch.apis.common import build_model_and_anchors
 from radet_tpu_torch.engine.infer_step import build_infer_step
 from radet_tpu_torch.models.postprocess import get_bboxes
 from radet_tpu_torch.utils.config import Config
-from torch_parity import IMG_HW, flax_and_port_models
+from torch_parity import FLAGSHIP, IMG_HW, NARROW, flax_and_port_models
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
-FLAGSHIP = osp.join(REPO, "configs/bop/r50_ycbv_pbr.py")
-NARROW = [
-    "model.neck.out_channels=64",
-    "model.bbox_head.in_channels=64",
-    "model.bbox_head.feat_channels=64",
-    "model.bbox_head.stacked_convs=2",
-    "model.bbox_head.num_classes=4",
-    f"input_size={IMG_HW}",
-    "compute_dtype='float32'",
-]
 N_PAIRS = 129 * 4  # anchors at 64x96 (96 + 24 + 6 + 2 + 1) x classes
 
 

@@ -3,6 +3,8 @@
 variables randomised with numpy, and the port's model holding the same
 weights through ``radet_tpu_torch.engine.convert.state_dict_from_flax``."""
 
+import os.path as osp
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +22,17 @@ SMALL_MODEL = dict(
 )
 IMG_HW = (64, 96)
 TOL = dict(rtol=1e-4, atol=1e-4)  # tests/test_detector_parity.py's bar, float32
+FLAGSHIP = osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))), "configs/bop/r50_ycbv_pbr.py")
+# config overrides giving SMALL_MODEL's widths at IMG_HW, in float32
+NARROW = [
+    "model.neck.out_channels=64",
+    "model.bbox_head.in_channels=64",
+    "model.bbox_head.feat_channels=64",
+    "model.bbox_head.stacked_convs=2",
+    "model.bbox_head.num_classes=4",
+    f"input_size={IMG_HW}",
+    "compute_dtype='float32'",
+]
 
 
 def randomize(tree, rng, path=()):
@@ -63,3 +76,19 @@ def flax_and_port_models(jax_model, port_model, img_hw=IMG_HW, seed=0):
     port_model.load_state_dict(state_dict_from_flax(variables), strict=True)
     port_model.eval()
     return variables
+
+
+def jax_assignment_noise(key, b, g, n, cap):
+    """The noise ``radet_tpu``'s assignment draws for a batch under ``key``,
+    as numpy: per image ``split(key, b)``, per GT ``split(image_key, g)``,
+    then ``k_with, k_without = split(gt_key)``; ``gumbel(k_without, (n,))``
+    scores the anchors and ``gumbel(k_with, (cap, cap))`` is what
+    ``jax.random.categorical(k_with, logits, shape=(cap,))`` adds to the
+    slot logits.  Returns (gumbel_pool (b, g, n), gumbel_draw (b, g, cap, cap))."""
+    image_keys = jax.random.split(key, b)
+    gt_keys = jax.vmap(lambda k: jax.random.split(k, g))(image_keys)
+    pairs = jax.vmap(jax.vmap(jax.random.split))(gt_keys)  # (b, g, [k_with, k_without])
+    pool = jax.vmap(jax.vmap(lambda k: jax.random.gumbel(k, (n,))))(pairs[:, :, 1])
+    draw = jax.vmap(jax.vmap(lambda k: jax.random.gumbel(k, (cap, cap))))(pairs[:, :, 0])
+    return np.array(pool), np.array(draw)
+
