@@ -8,8 +8,11 @@ from typing import Any, Dict, Tuple
 import numpy as np
 
 from ..core.anchors import AnchorConfig, generate_anchors
+from ..data.bop import BOPDataset
 from ..engine.infer_step import build_infer_step
 from ..models.builder import build_detector
+
+_OTHER_DATASETS = "ROADMAP.md Queue 1 item 12, dataset wrappers and other dataset types"
 
 
 def _to_dict(x) -> Dict:
@@ -48,19 +51,24 @@ def anchor_cfg_from_model(model_cfg: Dict, label_assignment_cfg: Dict | None = N
     return AnchorConfig.from_cfg(agen)
 
 
+def anchors_from_cfg(cfg, input_size=None) -> Tuple[np.ndarray, np.ndarray, list]:
+    """(anchors, regress ranges, level counts) of ``cfg``'s model at
+    ``input_size`` (default ``cfg.input_size``)."""
+    input_size = tuple(input_size or cfg.get("input_size", (480, 640)))
+    anchors, ranges, _, counts = generate_anchors(
+        input_size, anchor_cfg_from_model(_to_dict(cfg.model), assignment_cfg_from(cfg))
+    )
+    return anchors, ranges, counts
+
+
 def build_model_and_anchors(cfg, dtype: Any = None) -> Tuple[Any, np.ndarray, np.ndarray, list]:
     """(model, anchors, regress ranges, level counts) for ``cfg.input_size``.
 
     ``dtype`` is the compute dtype; None reads ``cfg.compute_dtype``."""
-    model_cfg = _to_dict(cfg.model)
     if dtype is None:
         dtype = cfg.get("compute_dtype", "float32")
-    model = build_detector(model_cfg, dtype=dtype)
-    input_size = tuple(cfg.get("input_size", (480, 640)))
-    anchors, ranges, _, counts = generate_anchors(
-        input_size, anchor_cfg_from_model(model_cfg, assignment_cfg_from(cfg))
-    )
-    return model, anchors, ranges, counts
+    model = build_detector(_to_dict(cfg.model), dtype=dtype)
+    return (model, *anchors_from_cfg(cfg))
 
 
 def head_type_from_cfg(cfg_or_model) -> str:
@@ -126,4 +134,38 @@ def build_infer_for_cfg(cfg, model, anchors, counts):
         img_norm=_to_dict(cfg.img_norm_cfg),
         test_cfg=_to_dict(cfg.test_cfg),
         normalizer=normalizer_from_cfg(cfg),
+    )
+
+
+def build_dataset(cfg, split: str, test_mode: bool | None = None) -> BOPDataset:
+    """The dataset of ``cfg.data[split]`` (test mode unless ``split`` is
+    'train')."""
+    data_cfg = _to_dict(cfg.data[split])
+    if test_mode is None:
+        test_mode = split != "train"
+    return _build_bop(cfg, data_cfg, test_mode)
+
+
+def _build_bop(cfg, data_cfg: Dict, test_mode: bool, input_size=None) -> BOPDataset:
+    """A ``BOPDataset`` from one data section; ``input_size`` overrides
+    ``cfg.input_size`` (the per-orientation views of ``apis.test``)."""
+    ds_type = data_cfg.get("type", "BOPDataset")
+    if ds_type != "BOPDataset":
+        raise NotImplementedError(f"dataset type {ds_type!r} is not ported ({_OTHER_DATASETS})")
+    la_cfg = assignment_cfg_from(cfg)
+    img_norm = cfg.get("img_norm_cfg")
+    return BOPDataset(
+        ann_file=data_cfg["ann_file"],
+        img_prefix=data_cfg.get("img_prefix", ""),
+        seg_prefix=data_cfg.get("seg_prefix"),
+        classes=data_cfg.get("classes"),
+        pipeline=data_cfg["pipeline"],
+        test_mode=test_mode,
+        min_visib_frac=data_cfg.get("min_visib_frac", 0.0),
+        bop_submission=data_cfg.get("bop_submission", False),
+        input_size=tuple(input_size or cfg.get("input_size", (480, 640))),
+        max_gt=int(la_cfg.get("max_gt", 32)) if la_cfg is not None else 32,
+        anchor_cfg=anchor_cfg_from_model(_to_dict(cfg.model), la_cfg),
+        img_norm=_to_dict(img_norm) if img_norm is not None else None,
+        orientation=data_cfg.get("orientation"),
     )

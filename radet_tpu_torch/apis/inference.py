@@ -8,10 +8,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..data.pipeline import Compose, LoadImageFromFile, Pad, Resize
 from ..utils.config import Config
 from .common import build_infer_for_cfg, build_model_and_anchors
-
-_RESIZE_ITEM = "ROADMAP.md Queue 1 item 7, host preprocessing without cv2"
 
 
 class Detector:
@@ -61,26 +60,27 @@ def init_detector(
 
 
 def _prepare_batch(detector: Detector, imgs):
-    """Stack RGB uint8 images of exactly the config's input size.
-
-    Returns (images (B, H, W, 3) uint8, img_shapes (B, 2), scale_factors
-    (B, 4)); at the input size the resize is the identity."""
+    """Images (RGB uint8 arrays of any size, or file paths) through
+    ``LoadImageFromFile``, a keep-ratio ``Resize`` into the input size and
+    ``Pad`` to it.  Returns (images (B, H, W, 3) uint8, img_shapes (B, 2),
+    scale_factors (B, 4))."""
     h, w = detector.input_size
+    resize_pad = Compose([Resize(img_scale=(w, h), keep_ratio=True), Pad(size=(h, w))])
+    batch_imgs, shapes, scales = [], [], []
     for im in imgs:
-        if not isinstance(im, np.ndarray):
-            raise ValueError(
-                f"images are RGB uint8 ndarrays; reading {type(im).__name__} inputs "
-                f"needs imread, which is not ported ({_RESIZE_ITEM})"
-            )
-        if im.shape != (h, w, 3) or im.dtype != np.uint8:
-            raise ValueError(
-                f"image of shape {im.shape} and dtype {im.dtype}: only uint8 images of "
-                f"the input size ({h}, {w}, 3) are accepted; Resize/Pad are not "
-                f"ported ({_RESIZE_ITEM})"
-            )
-    n = len(imgs)
-    shapes = np.tile(np.asarray([[h, w]], np.float32), (n, 1))
-    return np.stack(imgs), shapes, np.ones((n, 4), np.float32)
+        if isinstance(im, str):
+            results = LoadImageFromFile()(dict(img_info=dict(filename=im)))
+        elif not isinstance(im, np.ndarray) or im.dtype != np.uint8 or im.ndim != 3 or im.shape[2] != 3:
+            raise ValueError("images are RGB uint8 (H, W, 3) arrays or file paths, got "
+                             + (f"{im.dtype} {im.shape}" if isinstance(im, np.ndarray) else type(im).__name__))
+        else:
+            results = dict(img=im, img_shape=im.shape[:2], ori_shape=im.shape[:2],
+                           scale_factor=np.ones(4, np.float32))
+        results = resize_pad(results)
+        batch_imgs.append(results["img"])
+        shapes.append(np.asarray(results["img_shape"], np.float32))
+        scales.append(results["scale_factor"])
+    return np.stack(batch_imgs), np.stack(shapes), np.stack(scales)
 
 
 def _gather_results(det, n: int) -> List[Dict[str, np.ndarray]]:
@@ -92,7 +92,8 @@ def _gather_results(det, n: int) -> List[Dict[str, np.ndarray]]:
 
 
 def inference_detector(detector: Detector, imgs):
-    """Detect on one RGB uint8 ndarray or a list of them.
+    """Detect on one image (RGB uint8 ndarray of any size, or a file path)
+    or a list of them; boxes are in the original image's coordinates.
 
     Returns per-image dicts {boxes (M, 4) xyxy, scores (M,), labels (M,)}
     of numpy arrays (one dict for a single image)."""

@@ -5,7 +5,9 @@ The loop is plain Python around :func:`engine.train_step.build_train_step`:
 stage each loader batch on the device, take a step, and every
 ``log_config.interval`` steps read the metrics (the loop's only wait for
 the device), every ``checkpoint_config.interval`` steps write a full
-checkpoint.
+checkpoint, and every ``evaluation.interval`` steps evaluate on
+``cfg.data.val`` (COCO bbox metrics; with ``evaluation.save_best`` the best
+weights so far go to ``<work_dir>/best_weights.pth``).
 """
 
 from __future__ import annotations
@@ -19,21 +21,29 @@ from typing import Optional
 import torch
 
 from ..data.loader import DataLoader
-from ..engine.checkpoint import CheckpointManager, load_weights, resolve_manager_root, write_meta
+from ..engine.checkpoint import (
+    CheckpointManager,
+    load_weights,
+    resolve_manager_root,
+    save_weights,
+    write_meta,
+)
 from ..engine.optim import build_optimizer
 from ..engine.train_step import TrainState, batch_to_device, build_train_step
 from ..utils.logging import get_root_logger
 from .common import (
     _to_dict,
     assignment_cfg_from,
+    build_dataset,
+    build_infer_for_cfg,
     build_model_and_anchors,
     head_type_from_cfg,
     loss_cfg_from,
     normalizer_from_cfg,
 )
+from .test import evaluate_results, run_inference
 
-_FILE_DATA = "ROADMAP.md Queue 1 item 7, the file-backed BOPDataset"
-_EVAL = "ROADMAP.md Queue 1 item 8, test API"
+_FILE_DATA = "ROADMAP.md Queue 1 item 7, training from files"
 
 
 def check_trainable_quant(model_cfg) -> None:
@@ -89,7 +99,9 @@ def train_detector(
     the file-backed dataset of ``cfg.data.train`` is not ported.
     ``resume_from``: 'auto' (this work dir's latest checkpoint), a manager
     root, a step directory, or another run's work dir.  Convolutions run in
-    ``cfg.compute_dtype`` on a card and in float32 on the CPU."""
+    ``cfg.compute_dtype`` on a card and in float32 on the CPU.  The periodic
+    eval draws no random numbers, so a run with it takes the same steps as
+    one without."""
     if dataset is None:
         raise NotImplementedError(
             f"train_detector needs dataset=: reading cfg.data.train from files is not ported ({_FILE_DATA})"
@@ -107,7 +119,7 @@ def train_detector(
 
     check_trainable_quant(cfg.model)
     head_type_from_cfg(cfg)
-    model, anchors, ranges, _ = build_model_and_anchors(
+    model, anchors, ranges, counts = build_model_and_anchors(
         cfg, dtype=None if device.type == "cuda" else "float32"
     )
     model.init_weights(torch.Generator().manual_seed(seed))
@@ -168,6 +180,10 @@ def train_detector(
     log_interval = int(log_cfg.get("interval", 50)) if log_cfg else 50
     eval_cfg = cfg.get("evaluation")
     eval_interval = int(eval_cfg.get("interval", 10000)) if eval_cfg else 0
+    save_best = str(eval_cfg.get("save_best") or "") if eval_cfg else ""
+    best_key = save_best if save_best.startswith("bbox_") else f"bbox_{save_best}"
+    best_score = float("-inf")
+    eval_cache: dict = {}  # the val dataset and inference step, built once
 
     last_saved = -1
     it = iter(loader)
@@ -190,10 +206,14 @@ def train_detector(
                 last_saved = step
                 logger.info(f"checkpoint saved at step {step}")
             if eval_during_train and eval_interval and step % eval_interval == 0:
-                raise NotImplementedError(
-                    f"evaluation during training at step {step} is not ported ({_EVAL}); "
-                    "pass eval_during_train=False"
-                )
+                eval_metrics = _run_eval(cfg, model, anchors, counts, logger, eval_cache)
+                score = (eval_metrics or {}).get(best_key)
+                if save_best and score is not None and score > best_score:
+                    best_score = score
+                    path = osp.join(work_dir, "best_weights.pth")
+                    save_weights(path, model.state_dict(),
+                                 meta=dict(CLASSES=classes, step=step, **{best_key: score}))
+                    logger.info(f"new best {best_key}={score:.4f} at step {step}, saved to {path}")
     except BaseException:
         # keep the last complete step before the error propagates
         if state.step > 0 and state.step != last_saved:
@@ -208,3 +228,32 @@ def train_detector(
     if last_saved != state.step:
         ckpt.save(state.step, state, force=True)
     return state
+
+
+def _run_eval(cfg, model, anchors, counts, logger, cache):
+    """COCO bbox metrics of ``model`` on ``cfg.data.val`` with the config's
+    test_cfg, or None (with a warning) when the val data cannot be read.
+    The dataset and the inference step are built at the first call and kept
+    in ``cache``; the model is in eval mode for the run and back in train
+    mode after it."""
+    if "dataset" not in cache:
+        try:
+            cache["dataset"] = build_dataset(cfg, "val")
+        except (FileNotFoundError, KeyError) as err:
+            logger.warning(f"skipping eval: {err}")
+            return None
+        cache["infer"] = build_infer_for_cfg(cfg, model, anchors, counts)
+    model.eval()
+    try:
+        results = run_inference(
+            model, cache["dataset"], anchors=anchors, level_counts=counts,
+            img_norm=cfg.img_norm_cfg.to_dict(), test_cfg=cfg.test_cfg.to_dict(),
+            batch_size=int(cfg.data.get("samples_per_gpu", 8)),
+            num_workers=int(cfg.data.get("workers_per_gpu", 8)), normalizer=normalizer_from_cfg(cfg),
+            infer_step=cache["infer"],
+        )
+    finally:
+        model.train()
+    metrics = evaluate_results(cache["dataset"], results)
+    logger.info("eval: " + " ".join(f"{k} {v:.4f}" for k, v in metrics.items()))
+    return metrics

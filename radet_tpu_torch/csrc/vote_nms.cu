@@ -7,19 +7,31 @@
 // radet_tpu_torch/ops/vote_nms.py.
 //
 // What bounds it: each image is a latency-bound pass over K^2 candidate
-// pairs (about 0.26 M pairs at K = 512) plus a sequential greedy sweep; the
-// bytes are trivial (K * 36 bytes in, max_out * 25 bytes out per image).
-// What the design does about that: every per-image quantity stays in shared
-// memory (boxes, areas, labels, scores, the K x K same-label IoU > thr
-// bitmask, keep masks, seeds), one launch covers the whole batch, and
-// nothing synchronises with the host.
+// pairs (about 0.26 M pairs at K = 512, 4.2 M at the strict eval's
+// K = 2048) plus a sequential greedy sweep; the bytes are trivial (K * 36
+// bytes in, max_out * 25 bytes out per image).  What the design does about
+// that: one launch covers the whole batch, nothing synchronises with the
+// host, and every per-image quantity stays on chip where it fits.
+//
+// Two instantiations of one kernel, chosen by K:
+//   kSlots = 1, K <= 1024: the per-candidate arrays (boxes, areas, labels,
+//     vote scores, seeds, order) and the K x K same-label IoU > thr bitmask
+//     live in shared memory (164 KB at K = 1024);
+//   kSlots = 8, 1024 < K <= 8192: the bitmask alone is K * ceil(K/32) words
+//     (512 KB at K = 2048) and at K = 8192 even the candidate arrays (288 KB)
+//     exceed the 227 KB a block can have, so both live in a global scratch
+//     that the wrapper allocates (radet_vote_nms_scratch_bytes: 584 KB per
+//     image at K = 2048, which stays in the 50 MB L2 at eval batch sizes).
+// The per-word masks (valid, keep, final keep, rank offsets) stay in shared
+// memory in both.
 //
 // Phases, each ended by a block barrier:
-//   0. load the image's candidates into shared memory;
+//   0. load the image's candidates;
 //   1. overlap bitmask: bit j of row i is set when i and j are both valid,
 //      share a label and have IoU > thr (symmetric);
 //   2. exact greedy keep: one warp sweeps the rows in index order, each lane
-//      holding one 32-bit word of the "removed" mask (K <= 1024);
+//      holding kSlots 32-bit words of the "removed" mask (word l + 32 s in
+//      slot s of lane l);
 //   3. global mode: drop a kept box whose label an earlier kept box has;
 //   4. seeds: the first set bit of overlap[j] & keep at index < j, or j
 //      itself when j is kept (forced self-membership, even at zero area);
@@ -42,9 +54,19 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxK = 1024;
-constexpr int kMaxWords = kMaxK / 32;
+constexpr int kSmallK = 1024;  // largest K whose arrays fit in shared memory
+constexpr int kMaxK = 8192;
+constexpr int kBigSlots = kMaxK / kSmallK;
 constexpr unsigned kFull = 0xffffffffu;
+
+// Bytes of one image's candidate arrays and bitmask rows (the layout the
+// kernel carves), rounded up to 256 so every image's part of the scratch
+// stays aligned.
+__host__ __device__ inline size_t image_bytes(int K) {
+  const size_t W = (K + 31) / 32;
+  const size_t bytes = (size_t)K * (sizeof(float4) + 5 * sizeof(int)) + (size_t)K * W * sizeof(unsigned);
+  return (bytes + 255) & ~(size_t)255;
+}
 
 __device__ __forceinline__ float box_area(float4 b) {
   return __fmul_rn(fmaxf(__fsub_rn(b.z, b.x), 0.f), fmaxf(__fsub_rn(b.w, b.y), 0.f));
@@ -68,30 +90,42 @@ __device__ __forceinline__ float coord(float4 b, int c) {
   return c == 0 ? b.x : c == 1 ? b.y : c == 2 ? b.z : b.w;
 }
 
+// kSlots words of the removed mask per lane: K <= 1024 * kSlots.  With
+// kSlots == 1 every array is in shared memory; otherwise the candidate
+// arrays and bitmask rows (the s_* pointers below s_rank0) are this image's
+// part of `scratch`.
+template <int kSlots>
 __global__ void __launch_bounds__(kThreads)
 vote_nms_kernel(const float4* __restrict__ boxes, const float* __restrict__ cluster,
                 const float* __restrict__ vote, const int* __restrict__ labels,
-                const bool* __restrict__ valid, int K, int max_out, float iou_thr,
-                int iou_enable, float sigma, int global_mode,
+                const bool* __restrict__ valid, unsigned char* __restrict__ scratch, int K,
+                int max_out, float iou_thr, int iou_enable, float sigma, int global_mode,
                 float4* __restrict__ out_boxes, int* __restrict__ out_labels,
                 float* __restrict__ out_scores, bool* __restrict__ out_valid) {
+  constexpr int kMaxWords = 32 * kSlots;
   const int W = (K + 31) >> 5;
+  const size_t img = blockIdx.x;
   extern __shared__ __align__(16) unsigned char smem[];
-  float4* s_box = reinterpret_cast<float4*>(smem);
+  unsigned* s_valid = reinterpret_cast<unsigned*>(smem);
+  unsigned* s_keep = s_valid + kMaxWords;   // greedy keep
+  unsigned* s_final = s_keep + kMaxWords;   // keep after the global dedup
+  unsigned* s_rank0 = s_final + kMaxWords;  // kept boxes before word w
+  unsigned char* arrays;
+  if constexpr (kSlots == 1) {
+    arrays = reinterpret_cast<unsigned char*>(s_rank0 + kMaxWords);
+  } else {
+    arrays = scratch + img * image_bytes(K);
+  }
+  float4* s_box = reinterpret_cast<float4*>(arrays);
   float* s_area = reinterpret_cast<float*>(s_box + K);
   float* s_vote = s_area + K;
   int* s_label = reinterpret_cast<int*>(s_vote + K);
   int* s_seed = s_label + K;
-  int* s_order = s_seed + K;  // kept seeds by rank
-  unsigned* s_valid = reinterpret_cast<unsigned*>(s_order + K);
-  unsigned* s_keep = s_valid + kMaxWords;   // greedy keep
-  unsigned* s_final = s_keep + kMaxWords;   // keep after the global dedup
-  unsigned* s_rank0 = s_final + kMaxWords;  // kept boxes before word w
-  unsigned* s_ovl = s_rank0 + kMaxWords;    // K rows of W words
+  int* s_order = s_seed + K;                            // kept seeds by rank
+  unsigned* s_ovl = reinterpret_cast<unsigned*>(s_order + K);  // K rows of W words
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
-  const size_t img = blockIdx.x;
   const size_t base = img * K;
   const size_t obase = img * max_out;
 
@@ -133,17 +167,32 @@ vote_nms_kernel(const float4* __restrict__ boxes, const float* __restrict__ clus
 
   // 2. exact greedy keep, sequential in index (= score) order
   if (warp == 0) {
-    unsigned removed = 0, kept = 0;  // lane l holds word l
+    unsigned removed[kSlots], kept[kSlots];  // slot s of lane l holds word l + 32 s
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) removed[s] = kept[s] = 0u;
     for (int i = 0; i < K; ++i) {
-      const int w = i >> 5;
+      const int w = i >> 5, slot = w >> 5;
       const unsigned bit = 1u << (i & 31);
-      const unsigned rem_w = __shfl_sync(kFull, removed, w);
+      unsigned mine = removed[0];
+#pragma unroll
+      for (int s = 1; s < kSlots; ++s)
+        if (s == slot) mine = removed[s];
+      const unsigned rem_w = __shfl_sync(kFull, mine, w & 31);
       if ((s_valid[w] & bit) && !(rem_w & bit)) {
-        if (lane < W) removed |= s_ovl[i * W + lane];
-        if (lane == w) kept |= bit;
+        const unsigned* row = s_ovl + (size_t)i * W;
+#pragma unroll
+        for (int s = 0; s < kSlots; ++s) {
+          const int v = lane + 32 * s;
+          if (v < W) removed[s] |= row[v];
+          if (v == w) kept[s] |= bit;
+        }
       }
     }
-    if (lane < W) s_keep[lane] = kept;
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int v = lane + 32 * s;
+      if (v < W) s_keep[v] = kept[s];
+    }
   }
   __syncthreads();
 
@@ -173,13 +222,26 @@ vote_nms_kernel(const float4* __restrict__ boxes, const float* __restrict__ clus
 
   // 4. seeds, and each keep word's rank offset
   if (warp == 0) {
-    const unsigned c = lane < W ? __popc(s_final[lane]) : 0u;
-    unsigned incl = c;
+    // lane l scans words l * kSlots .. l * kSlots + kSlots - 1
+    unsigned c[kSlots], total = 0u;
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int v = lane * kSlots + s;
+      c[s] = v < W ? __popc(s_final[v]) : 0u;
+      total += c[s];
+    }
+    unsigned incl = total;
     for (int o = 1; o < 32; o <<= 1) {
       const unsigned n = __shfl_up_sync(kFull, incl, o);
       if (lane >= o) incl += n;
     }
-    if (lane < W) s_rank0[lane] = incl - c;
+    unsigned run = incl - total;
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int v = lane * kSlots + s;
+      if (v < W) s_rank0[v] = run;
+      run += c[s];
+    }
   }
   for (int j = tid; j < K; j += blockDim.x) {
     const int wj = j >> 5;
@@ -284,25 +346,37 @@ vote_nms_kernel(const float4* __restrict__ boxes, const float* __restrict__ clus
 
 extern "C" {
 
+// Bytes of global scratch a launch at (B, K) needs: 0 for K <= 1024.
+size_t radet_vote_nms_scratch_bytes(int B, int K) {
+  if (B <= 0 || K <= kSmallK || K > kMaxK) return 0;
+  return (size_t)B * image_bytes(K);
+}
+
 // Launches on `stream`; returns cudaGetLastError() (0 on success).
+// `scratch` holds radet_vote_nms_scratch_bytes(B, K) bytes, 256-byte aligned
+// (unused for K <= 1024).
 int radet_vote_nms(const void* boxes, const void* cluster, const void* vote,
-                   const void* labels, const void* valid, void* out_boxes,
+                   const void* labels, const void* valid, void* scratch, void* out_boxes,
                    void* out_labels, void* out_scores, void* out_valid, int B, int K,
                    int max_out, float iou_threshold, int iou_enable, float sigma,
                    int global_mode, void* stream) {
   if (B <= 0 || K <= 0 || K > kMaxK || max_out < 0) return (int)cudaErrorInvalidValue;
-  const int W = (K + 31) / 32;
-  const size_t smem = (size_t)K * (sizeof(float4) + 5 * sizeof(int)) +
-                      4 * kMaxWords * sizeof(unsigned) + (size_t)K * W * sizeof(unsigned);
-  cudaError_t err = cudaFuncSetAttribute(
-      vote_nms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (K > kSmallK && (scratch == nullptr || reinterpret_cast<size_t>(scratch) % 256))
+    return (int)cudaErrorInvalidValue;
+  const bool small = K <= kSmallK;
+  auto kernel = small ? vote_nms_kernel<1> : vote_nms_kernel<kBigSlots>;
+  const size_t words = 4 * 32 * (small ? 1 : kBigSlots) * sizeof(unsigned);
+  const size_t smem = words + (small ? image_bytes(K) : 0);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  vote_nms_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(boxes), static_cast<const float*>(cluster),
       static_cast<const float*>(vote), static_cast<const int*>(labels),
-      static_cast<const bool*>(valid), K, max_out, iou_threshold, iou_enable, sigma,
-      global_mode, static_cast<float4*>(out_boxes), static_cast<int*>(out_labels),
-      static_cast<float*>(out_scores), static_cast<bool*>(out_valid));
+      static_cast<const bool*>(valid), static_cast<unsigned char*>(scratch), K, max_out,
+      iou_threshold, iou_enable, sigma, global_mode, static_cast<float4*>(out_boxes),
+      static_cast<int*>(out_labels), static_cast<float*>(out_scores),
+      static_cast<bool*>(out_valid));
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,5 @@
-"""Host transforms of the training pipeline, numpy only (port of the
-transforms of ``radet_tpu/data/pipeline.py`` that need no cv2 or PIL).
+"""Host transforms of the test and training pipelines, numpy only (port of
+the transforms of ``radet_tpu/data/pipeline.py``, without cv2 or PIL).
 
 Each transform is a callable on a ``results`` dict (keys: img, gt_bboxes,
 gt_labels, gt_masks, img_shape, scale_factor, distance_maps, dist_vals,
@@ -11,12 +11,129 @@ train step.
 
 from __future__ import annotations
 
+import os.path as osp
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
-_FILE_DATA = "ROADMAP.md Queue 1 item 7, host preprocessing without cv2"
+from .image_io import imread_rgb
+
+_TRAIN_FILES = "ROADMAP.md Queue 1 item 7, training from files"
 _MASK_FREE = "ROADMAP.md Queue 1 item 17, mask-free distance maps"
+_TTA = "ROADMAP.md Queue 1 item 12, TTA"
+
+
+class LoadImageFromFile:
+    """``img_prefix`` + ``img_info['filename']`` as RGB uint8, with its
+    shape and a unit ``scale_factor``."""
+
+    def __call__(self, results: Dict[str, Any]) -> Dict[str, Any]:
+        path = osp.join(results.get("img_prefix", ""), results["img_info"]["filename"])
+        img = imread_rgb(path)
+        results["img"] = img
+        results["img_shape"] = img.shape[:2]
+        results["ori_shape"] = img.shape[:2]
+        results["scale_factor"] = np.array([1.0, 1.0, 1.0, 1.0], np.float32)
+        return results
+
+
+def rescale_size(old_wh: Tuple[int, int], scale_wh: Tuple[int, int]) -> Tuple[int, int, float]:
+    """mmcv.rescale_size semantics: fit (w, h) into scale keeping ratio."""
+    w, h = old_wh
+    max_long, max_short = max(scale_wh), min(scale_wh)
+    f = min(max_long / max(w, h), max_short / min(w, h))
+    return int(w * f + 0.5), int(h * f + 0.5), f
+
+
+def _linear_taps(dst: int, src: int):
+    """cv2's INTER_LINEAR taps along one axis: source index and float32
+    fraction of each output position, at (x + 0.5) * scale - 0.5 with
+    scale = 1 / (dst / src)."""
+    f = ((np.arange(dst) + 0.5) * (1.0 / (dst / src)) - 0.5).astype(np.float32)
+    i = np.floor(f).astype(np.int64)
+    return i, f - i.astype(np.float32)
+
+
+def _weights(frac: np.ndarray):
+    """The two taps' weights in cv2's 11-bit fixed point, each rounded half
+    to even (``saturate_cast<short>``); their sum may be 2047 or 2049."""
+    one = np.float32(2048)
+    return (np.rint((np.float32(1) - frac) * one).astype(np.int32),
+            np.rint(frac * one).astype(np.int32))
+
+
+def resize_linear(img: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(img, size_wh, interpolation=cv2.INTER_LINEAR)`` on a
+    uint8 (H, W, C) image, bit for bit.
+
+    cv2's arithmetic: an exact 2x downscale is a 2x2 box average,
+    (a + b + c + d + 2) >> 2; otherwise each row is interpolated across x
+    with 11-bit integer weights (exact int32 sums), and rows are blended as
+    cv2's SIMD path does: ((r0 >> 4) * b0 >> 16) + ((r1 >> 4) * b1 >> 16),
+    then (+ 2) >> 2.  cv2 finishes a row whose W * C is not a multiple of
+    its vector width with a scalar tail rounded as (r0 * b0 + r1 * b1 +
+    2^21) >> 22, which can differ by 1 on those last columns; output widths
+    that are multiples of 64 / C have no tail."""
+    w1, h1 = size_wh
+    h0, w0 = img.shape[:2]
+    x = img.reshape(h0, w0, -1).astype(np.int32)
+    if (w0, h0) == (2 * w1, 2 * h1):
+        out = (x[0::2, 0::2] + x[0::2, 1::2] + x[1::2, 0::2] + x[1::2, 1::2] + 2) >> 2
+        return out.astype(np.uint8).reshape((h1, w1) + img.shape[2:])
+    sx, fx = _linear_taps(w1, w0)
+    # columns past either edge take one tap at the edge
+    fx[(sx < 0) | (sx >= w0 - 1)] = 0
+    sx = np.clip(sx, 0, w0 - 1)
+    a0, a1 = _weights(fx)
+    rows = x[:, sx] * a0[:, None] + x[:, np.minimum(sx + 1, w0 - 1)] * a1[:, None]
+    sy, fy = _linear_taps(h1, h0)
+    b0, b1 = _weights(fy)  # rows past an edge keep their weights on the clamped row
+    r0 = rows[np.clip(sy, 0, h0 - 1)] >> 4
+    r1 = rows[np.clip(sy + 1, 0, h0 - 1)] >> 4
+    out = ((r0 * b0[:, None, None]) >> 16) + ((r1 * b1[:, None, None]) >> 16)
+    return np.clip((out + 2) >> 2, 0, 255).astype(np.uint8).reshape((h1, w1) + img.shape[2:])
+
+
+def resize_nearest(img: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(img, size_wh, interpolation=cv2.INTER_NEAREST)``:
+    source index floor(x / (dst / src)), clamped."""
+    w1, h1 = size_wh
+    h0, w0 = img.shape[:2]
+    xs = np.minimum(np.floor(np.arange(w1) * (1.0 / (w1 / w0))).astype(np.int64), w0 - 1)
+    ys = np.minimum(np.floor(np.arange(h1) * (1.0 / (h1 / h0))).astype(np.int64), h0 - 1)
+    return img[ys][:, xs]
+
+
+class Resize:
+    """keep_ratio resize of image + boxes + masks: the image with cv2's
+    ``INTER_LINEAR`` arithmetic, masks with ``INTER_NEAREST``."""
+
+    def __init__(self, img_scale: Tuple[int, int], keep_ratio: bool = True):
+        self.img_scale = tuple(img_scale)  # (w, h)
+        self.keep_ratio = keep_ratio
+
+    def __call__(self, results: Dict[str, Any]) -> Dict[str, Any]:
+        img = results["img"]
+        h0, w0 = img.shape[:2]
+        if self.keep_ratio:
+            new_w, new_h, _ = rescale_size((w0, h0), self.img_scale)
+        else:
+            new_w, new_h = self.img_scale
+        if (new_w, new_h) != (w0, h0):
+            img = resize_linear(img, (new_w, new_h))
+        w_scale = new_w / w0
+        h_scale = new_h / h0
+        results["img"] = img
+        results["img_shape"] = (new_h, new_w)
+        results["scale_factor"] = np.array([w_scale, h_scale, w_scale, h_scale], np.float32)
+        if "gt_bboxes" in results and len(results["gt_bboxes"]):
+            b = results["gt_bboxes"] * results["scale_factor"][None]
+            b[:, 0::2] = b[:, 0::2].clip(0, new_w)
+            b[:, 1::2] = b[:, 1::2].clip(0, new_h)
+            results["gt_bboxes"] = b
+        if "gt_masks" in results and len(results["gt_masks"]):
+            results["gt_masks"] = np.stack([resize_nearest(m, (new_w, new_h)) for m in results["gt_masks"]], 0)
+        return results
 
 
 class RandomFlip:
@@ -126,7 +243,14 @@ class Compose:
         return results
 
 
-_TRANSFORMS = {"RandomFlip": RandomFlip, "GenerateDistanceMap": GenerateDistanceMap}
+_TRANSFORMS = {
+    "LoadImageFromFile": LoadImageFromFile,
+    "Resize": Resize,
+    "RandomFlip": RandomFlip,
+    "GenerateDistanceMap": GenerateDistanceMap,
+}
+# formatting entries of reference pipelines: the static numpy collate does their job
+_FORMATTING = ("DefaultFormatBundle", "Collect", "ImageToTensor", "ToTensor")
 
 
 def build_pipeline(
@@ -135,19 +259,52 @@ def build_pipeline(
     input_size: Tuple[int, int] | None = None,
     anchor_centers: np.ndarray | None = None,
     max_gt: int = 32,
+    img_norm: Optional[dict] = None,
 ) -> Compose:
     """A Compose from pipeline config dicts.
 
     ``Pad`` pads to the static ``input_size`` (its ``size_divisor`` must
     divide it); ``SampleDistanceAtAnchors`` and a reference
-    ``LabelAssignment`` entry become the anchor-center sampler.  Any type
-    besides these, ``RandomFlip`` and ``GenerateDistanceMap`` raises
+    ``LabelAssignment`` entry become the anchor-center sampler.  Entries
+    whose job moved elsewhere are absorbed: ``Normalize`` (run on the
+    device; checked against ``img_norm``, and ``to_rgb=False`` is refused
+    since images are decoded RGB) and the formatting entries.  A
+    ``MultiScaleFlipAug`` with one scale and ``flip=False`` is unwrapped,
+    its scale going to the inner ``Resize``; other test-time augmentation
+    raises.  Any type besides these, ``LoadImageFromFile``, ``Resize``,
+    ``RandomFlip`` and ``GenerateDistanceMap`` raises
     ``NotImplementedError``."""
     ts = []
-    for t_cfg in pipeline_cfg:
+
+    def add(t_cfg):
         t_cfg = dict(t_cfg)
         t_type = t_cfg.pop("type")
-        if t_type == "Pad" and input_size is not None:
+        if t_type == "Normalize":
+            if img_norm is not None:
+                want = (tuple(img_norm["mean"]), tuple(img_norm["std"]))
+                got = (tuple(t_cfg.get("mean", want[0])), tuple(t_cfg.get("std", want[1])))
+                if not np.allclose(want, got):
+                    raise ValueError(f"pipeline Normalize {got} disagrees with img_norm_cfg {want}; "
+                                     "normalization on the device uses img_norm_cfg")
+            if not t_cfg.get("to_rgb", True):
+                raise ValueError("Normalize(to_rgb=False) unsupported: images are decoded RGB")
+        elif t_type in _FORMATTING:
+            pass
+        elif t_type == "MultiScaleFlipAug":
+            scales = t_cfg.get("img_scale")
+            scales = scales if isinstance(scales, list) else [scales]
+            if len(scales) != 1 or t_cfg.get("flip", False):
+                raise NotImplementedError(
+                    f"MultiScaleFlipAug with several scales or flip=True is test-time "
+                    f"augmentation, which is not ported ({_TTA})"
+                )
+            for inner in t_cfg.get("transforms", []):
+                if inner.get("type") == "RandomFlip":
+                    continue  # flip=False: the reference applies it disabled
+                if inner.get("type") == "Resize" and "img_scale" not in inner:
+                    inner = dict(inner, img_scale=tuple(scales[0]))
+                add(inner)
+        elif t_type == "Pad" and input_size is not None:
             d = t_cfg.pop("size_divisor", None)
             if d is not None and (input_size[0] % d or input_size[1] % d):
                 raise ValueError(f"static input_size {input_size} not divisible by {d}")
@@ -162,5 +319,8 @@ def build_pipeline(
         elif t_type in _TRANSFORMS:
             ts.append(_TRANSFORMS[t_type](**t_cfg))
         else:
-            raise NotImplementedError(f"transform {t_type!r} is not ported ({_FILE_DATA})")
+            raise NotImplementedError(f"transform {t_type!r} is not ported ({_TRAIN_FILES})")
+
+    for t_cfg in pipeline_cfg:
+        add(t_cfg)
     return Compose(ts)

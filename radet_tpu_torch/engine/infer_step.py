@@ -27,9 +27,10 @@ def build_infer_step(
 
     ``images_u8`` (B, H, W, 3) uint8 RGB, ``img_shapes`` (B, 2) resized
     (h, w) and ``scale_factors`` (B, 4) may be numpy arrays or tensors on
-    any device: they are staged on the model's device, the images as uint8,
-    and normalised there.  The forward runs in ``model.dtype``; decode and
-    vote-NMS in float32."""
+    any device: they are staged on the model's device without waiting for
+    it (from pinned memory, the copies overlap the device's work), the
+    images as uint8, and normalised there.  The forward runs in
+    ``model.dtype``; decode and vote-NMS in float32."""
     device = next(model.parameters()).device
     splits = np.cumsum(level_counts)[:-1]
     level_anchors = [torch.as_tensor(a, device=device) for a in np.split(anchors, splits)]
@@ -45,8 +46,8 @@ def build_infer_step(
         return get_bboxes(
             *model(x),
             level_anchors,
-            torch.as_tensor(img_shapes, dtype=torch.float32).to(device),
-            torch.as_tensor(scale_factors, dtype=torch.float32).to(device),
+            torch.as_tensor(img_shapes, dtype=torch.float32).to(device, non_blocking=True),
+            torch.as_tensor(scale_factors, dtype=torch.float32).to(device, non_blocking=True),
             test_cfg=test_cfg,
             normalizer=normalizer,
             rescale=rescale,

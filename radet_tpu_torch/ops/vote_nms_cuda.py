@@ -1,11 +1,10 @@
 """Wrapper of the hand-written vote-NMS kernel (``csrc/vote_nms.cu``).
 
 The library is compiled with ``nvcc`` for ``sm_90a`` at first use, from the
-repository's source only, into ``radet_tpu_torch/_build/`` (named by the
-source's hash, so an edited source is rebuilt), and loaded with ``ctypes``
-through a plain C entry point.  Nothing is built when the module is
-imported.  The kernel launches on PyTorch's current stream and never
-synchronises.
+repository's source only, into ``radet_tpu_torch/_build/``
+(``utils/native.py``), and loaded with ``ctypes`` through a plain C entry
+point.  Nothing is built when the module is imported.  The kernel launches
+on PyTorch's current stream and never synchronises.
 
 ``LAUNCHES`` counts the kernel's launches, and nothing else.
 """
@@ -13,21 +12,23 @@ synchronises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "vote_nms.cu"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+from ..utils.native import CSRC, build_library, find_tool
+
+SOURCE = CSRC / "vote_nms.cu"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-MAX_K = 1024  # kMaxK of vote_nms.cu: its shared-memory bitmask holds K <= 1024
+# kMaxK of vote_nms.cu.  Up to 1024 candidates the kernel keeps its bitmask in
+# shared memory; above, in a global scratch of B * ~(36 K + K^2 / 8) bytes.
+# 8192 covers the strict eval's K = 2048 and the flagship's largest per-level
+# candidate set (4 x 1000 + 420 = 4420 at 480 x 640).
+MAX_K = 8192
 
 LAUNCHES = 0
 
@@ -37,40 +38,32 @@ _lib = None
 BUILD_LOG = None
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if not cand.exists():
-        raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin")
-    return str(cand)
-
-
 def build() -> ctypes.CDLL:
     """Compile (when the source changed) and load the kernel library."""
     global _lib, BUILD_LOG
     if _lib is not None:
         return _lib
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    path = BUILD_DIR / f"libvote_nms_{digest}.so"
-    if not path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, path)  # atomic: a concurrent build never loads half a file
-        BUILD_LOG = proc.stderr
+    nvcc = find_tool(["nvcc"], Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc")
+    path, BUILD_LOG = build_library(SOURCE, nvcc, NVCC_FLAGS)
     lib = ctypes.CDLL(str(path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.radet_vote_nms.argtypes = [p] * 9 + [i, i, i, f, i, f, i, p]
+    lib.radet_vote_nms.argtypes = [p] * 10 + [i, i, i, f, i, f, i, p]
     lib.radet_vote_nms.restype = ctypes.c_int
+    lib.radet_vote_nms_scratch_bytes.argtypes = [i, i]
+    lib.radet_vote_nms_scratch_bytes.restype = ctypes.c_size_t
     lib.radet_cuda_error_string.argtypes = [i]
     lib.radet_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib
     return lib
+
+
+def check_sizes(b: int, k: int, max_out: int) -> None:
+    """Raise ValueError unless the kernel takes a batch of ``b`` images of
+    ``k`` candidates each into ``max_out`` slots."""
+    if not 1 <= k <= MAX_K or b < 1:
+        raise ValueError(f"vote_nms_cuda takes 1 <= K <= {MAX_K} (MAX_K) and B >= 1, got B={b}, K={k}")
+    if max_out < 0:
+        raise ValueError(f"max_out must be >= 0, got {max_out}")
 
 
 def _check(name, t, dtype, shape, device):
@@ -107,10 +100,7 @@ def vote_nms_cuda(
     if boxes.dim() != 3:
         raise ValueError(f"boxes must be (B, K, 4), got {tuple(boxes.shape)}")
     b, k, _ = boxes.shape
-    if not 1 <= k <= MAX_K or b < 1:
-        raise ValueError(f"vote_nms_cuda takes 1 <= K <= {MAX_K} and B >= 1, got B={b}, K={k}")
-    if max_out < 0:
-        raise ValueError(f"max_out must be >= 0, got {max_out}")
+    check_sizes(b, k, max_out)
     _check("boxes", boxes, torch.float32, (b, k, 4), device)
     _check("cluster_scores", cluster_scores, torch.float32, (b, k), device)
     _check("vote_scores", vote_scores, torch.float32, (b, k), device)
@@ -124,10 +114,12 @@ def vote_nms_cuda(
     out_labels = torch.empty((b, max_out), dtype=torch.int32, device=device)
     out_scores = torch.empty((b, max_out), dtype=torch.float32, device=device)
     out_valid = torch.empty((b, max_out), dtype=torch.bool, device=device)
+    # the bitmask rows of K > 1024 (the caching allocator aligns to 512 bytes)
+    scratch = torch.empty(lib.radet_vote_nms_scratch_bytes(b, k), dtype=torch.uint8, device=device)
     with torch.cuda.device(device):
         err = lib.radet_vote_nms(
             boxes.data_ptr(), cluster_scores.data_ptr(), vote_scores.data_ptr(),
-            labels.data_ptr(), valid.data_ptr(), out_boxes.data_ptr(),
+            labels.data_ptr(), valid.data_ptr(), scratch.data_ptr() or None, out_boxes.data_ptr(),
             out_labels.data_ptr(), out_scores.data_ptr(), out_valid.data_ptr(),
             b, k, max_out, float(iou_threshold), int(bool(iou_enable)), float(sigma),
             int(bool(global_mode)), torch.cuda.current_stream(device).cuda_stream,

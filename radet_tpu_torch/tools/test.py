@@ -1,0 +1,103 @@
+"""Test a detector: batched inference, COCO bbox evaluation and result export
+(port of ``tools/test.py``).
+
+    python -m radet_tpu_torch.tools.test CONFIG [CHECKPOINT] --eval bbox
+    python -m radet_tpu_torch.tools.test CONFIG CHECKPOINT --format-only --json-prefix out/p
+
+``CHECKPOINT`` is any of the port's weight files (``engine.checkpoint.load_weights``):
+a ``.pth`` state dict, a trainer's checkpoint directory or step directory,
+or ``best_weights.pth``; without one the weights are random.  Outputs:
+``--out results.pkl`` (pickled per-image results); ``--format-only`` /
+``--json-prefix p`` writes ``p.bbox.json`` (COCO results) and, for a dataset
+with ``bop_submission=True``, ``p.bop.json`` (BOP submission format).
+``--eval bbox`` prints the metrics as JSON on stdout; logs go to stderr.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os.path as osp
+import pickle
+
+import torch
+
+from ..apis.common import build_model_and_anchors
+from ..apis.test import test_from_config
+from ..engine.checkpoint import load_weights
+from ..utils.config import Config, parse_kv_options
+from ..utils.logging import get_root_logger
+
+_SHOW = "ROADMAP.md Queue 1 item 15, tools"
+_FUSE = "ROADMAP.md Queue 1 item 12, models/fuse.py"
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="Test a radet_tpu_torch detector")
+    p.add_argument("config")
+    p.add_argument("checkpoint", nargs="?", default=None, help="weights (.pth, checkpoint directory)")
+    p.add_argument("--out", help="output results pickle")
+    p.add_argument("--format-only", action="store_true")
+    p.add_argument("--json-prefix", default=None)
+    p.add_argument("--eval", nargs="+", default=None, choices=["bbox"], help="metrics: bbox")
+    p.add_argument("--split", default="test", choices=["test", "val"])
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--fast", action="store_true",
+                   help="the deploy candidate path (one global top-k) instead of the default "
+                        "strict reference semantics (apis/test.py::strict_eval_overrides)")
+    p.add_argument("--cfg-options", nargs="+", default=None)
+    p.add_argument("--eval-options", "--options", nargs="+", default=None,
+                   help="evaluation kwargs as key=value, e.g. classwise=True")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--show-dir", default=None, help=f"not ported ({_SHOW})")
+    p.add_argument("--fuse-conv-bn", action="store_true", help=f"not ported ({_FUSE})")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.show_dir:
+        raise NotImplementedError(f"--show-dir is not ported ({_SHOW})")
+    if args.fuse_conv_bn:
+        raise NotImplementedError(f"--fuse-conv-bn is not ported ({_FUSE})")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass --device cpu to test on the CPU")
+    cfg = Config.fromfile(args.config, args.cfg_options)
+    logger = get_root_logger()
+    eval_options = parse_kv_options(args.eval_options)
+    # convolutions in the config's compute dtype on a card, float32 on the CPU
+    model = build_model_and_anchors(cfg, dtype=None if device.type == "cuda" else "float32")[0]
+    if args.checkpoint:
+        model.load_state_dict(load_weights(args.checkpoint), strict=True)
+        logger.info(f"loaded checkpoint {args.checkpoint}")
+    else:
+        model.init_weights(torch.Generator().manual_seed(int(cfg.get("seed", 0))))
+        logger.warning("no checkpoint given: random weights")
+    model.to(device).eval()
+
+    dataset, results, metrics = test_from_config(
+        cfg, model, split=args.split, batch_size=args.batch_size, fmt_only=args.eval is None,
+        strict=not args.fast, eval_options=eval_options,
+    )
+    if args.out:
+        with open(args.out, "wb") as f:
+            pickle.dump(results, f)
+        logger.info(f"results written to {args.out}")
+    if args.format_only or args.json_prefix:
+        prefix = args.json_prefix or (osp.splitext(args.out)[0] if args.out else "results")
+        with open(prefix + ".bbox.json", "w") as f:
+            json.dump(dataset.det2json(results), f)
+        logger.info(f"COCO results: {prefix}.bbox.json")
+        if dataset.bop_submission:
+            with open(prefix + ".bop.json", "w") as f:
+                json.dump(dataset.bop_det2json(results), f)
+            logger.info(f"BOP submission: {prefix}.bop.json")
+    if args.eval:
+        for k, v in metrics.items():
+            logger.info(f"{k}: {v:.4f}")
+        print(json.dumps(metrics, indent=2))
+
+
+if __name__ == "__main__":
+    main()

@@ -73,6 +73,16 @@ def _parse_value(text: str) -> Any:
         return text
 
 
+def parse_kv_options(pairs: Sequence[str] | None) -> Dict[str, Any]:
+    """['k=v', ...] -> dict with literal-eval'd values (the ``--eval-options``
+    flag of the test CLI)."""
+    out: Dict[str, Any] = {}
+    for pair in pairs or []:
+        k, _, v = pair.partition("=")
+        out[k] = _parse_value(v)
+    return out
+
+
 def apply_overrides(cfg: Dict[str, Any], options: Sequence[str]) -> Dict[str, Any]:
     """Apply ``key.sub=value`` overrides (deep set; value literal-eval'd).
 

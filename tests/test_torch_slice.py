@@ -27,9 +27,11 @@ from radet_tpu_torch.apis.common import build_model_and_anchors
 from radet_tpu_torch.engine.infer_step import build_infer_step
 from radet_tpu_torch.models.postprocess import get_bboxes
 from radet_tpu_torch.utils.config import Config
+from synthetic_bop import write_png
 from torch_parity import FLAGSHIP, IMG_HW, NARROW, flax_and_port_models
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
+
 N_PAIRS = 129 * 4  # anchors at 64x96 (96 + 24 + 6 + 2 + 1) x classes
 
 
@@ -116,7 +118,7 @@ def test_unported_nms_variants_raise(override):
 CPU_OPTIONS = [o for o in NARROW if not o.startswith("compute_dtype")]
 
 
-def test_init_and_inference_detector_on_cpu():
+def test_init_and_inference_detector_on_cpu(tmp_path):
     det = init_detector(FLAGSHIP, cfg_options=CPU_OPTIONS, device="cpu", seed=0)
     assert det.model.dtype == torch.float32  # the config's bf16 applies on the card only
     assert det.classes[0] == "master_chef_can"
@@ -134,10 +136,20 @@ def test_init_and_inference_detector_on_cpu():
     np.testing.assert_array_equal(single["labels"], out[1]["labels"])
     np.testing.assert_allclose(single["scores"], out[1]["scores"], rtol=0, atol=1e-5)
     np.testing.assert_allclose(single["boxes"], out[1]["boxes"], rtol=0, atol=1e-2)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        inference_detector(det, "image.png")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        inference_detector(det, np.zeros((32, 48, 3), np.uint8))
+    # a file of another size: read, resized into the input size and padded;
+    # boxes come back in the file's coordinates
+    big = np.ascontiguousarray(np.repeat(np.repeat(u8[0], 2, axis=0), 2, axis=1))
+    path = osp.join(str(tmp_path), "big.png")
+    write_png(path, big)
+    from_file = inference_detector(det, path)
+    from_array = inference_detector(det, big)
+    for k in ("boxes", "scores", "labels"):
+        np.testing.assert_array_equal(from_file[k], from_array[k], err_msg=k)
+    assert len(from_file["boxes"]) and from_file["boxes"][:, 2:].max() > IMG_HW[1] + 1
+    with pytest.raises(FileNotFoundError):
+        inference_detector(det, osp.join(str(tmp_path), "missing.png"))
+    with pytest.raises(ValueError, match="uint8"):
+        inference_detector(det, np.zeros((32, 48, 3), np.float32))
 
 
 def test_init_detector_never_swaps_the_device():

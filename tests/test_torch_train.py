@@ -70,8 +70,7 @@ from torch_parity import (
     jax_assignment_noise,
     state_dict_from_flax,
 )
-
-from chip_smoke import synthetic_bop_records as synthetic_records
+from synthetic_bop import synthetic_bop_records as synthetic_records
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 TRAIN = NARROW + ["data.samples_per_gpu=2"]
@@ -410,11 +409,13 @@ def test_unported_training_options_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="item 17"):
         GenerateDistanceMap(with_gt_mask=False)
     with pytest.raises(NotImplementedError, match="item 7"):
-        build_pipeline([dict(type="Resize", img_scale=(640, 480))])
+        build_pipeline([dict(type="LoadAnnotations", with_bbox=True, with_bop_mask=True)])
     ds = InMemoryBOPDataset(synthetic_records(np.random.RandomState(0), 2, IMG_HW, 4),
                             train_transforms(IMG_HW, max_gt=32), max_gt=32)
-    eval_cfg = Config.fromfile(FLAGSHIP, TRAIN + ["evaluation.interval=1", "data.workers_per_gpu=1"])
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # the periodic eval reaches an unported val dataset type at step 1
+    eval_cfg = Config.fromfile(FLAGSHIP, TRAIN + ["evaluation.interval=1", "data.workers_per_gpu=1",
+                                                  "data.val.type='CocoDataset'"])
+    with pytest.raises(NotImplementedError, match="item 12"):
         train_detector(eval_cfg, work_dir=str(tmp_path), dataset=ds, device="cpu", max_iters=2)
     assert CheckpointManager(str(tmp_path / "checkpoints")).latest_step() == 1  # kept on the way out
     atss = Config.fromfile(FLAGSHIP, TRAIN + ["model.bbox_head.type='ATSSHead'"])

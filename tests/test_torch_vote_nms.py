@@ -226,6 +226,18 @@ def assert_kernel_matches_plain(kern, plain, tail=0.005, atol=1e-2):
     return float(err.max()) if err.size else 0.0
 
 
+def test_kernel_size_check_takes_the_strict_eval_k():
+    """The strict eval (apis/test.py::strict_eval_overrides) sends K = 2048
+    candidates into vote-NMS, and the flagship's per-level candidate set at
+    480x640 is 4 x 1000 + 420 = 4420: the kernel's size check takes both."""
+    assert cuda_mod.MAX_K >= 8192
+    for b, k in ((8, 2048), (16, 4420), (1, cuda_mod.MAX_K), (128, 512)):
+        cuda_mod.check_sizes(b, k, 100)
+    for b, k, m in ((1, cuda_mod.MAX_K + 1, 100), (0, 512, 100), (1, 0, 100), (1, 512, -1)):
+        with pytest.raises(ValueError, match="MAX_K|max_out"):
+            cuda_mod.check_sizes(b, k, m)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -249,6 +261,30 @@ def test_kernel_matches_plain(cuda_device, k, global_mode, iou_enable):
     torch.cuda.synchronize()
     assert cuda_mod.LAUNCHES == before + 1
     assert_kernel_matches_plain(kern, vote_nms_plain(*tensors, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1025, 2048, 4420])
+@pytest.mark.parametrize("global_mode", [False, True])
+def test_kernel_above_1024_matches_plain(cuda_device, k, global_mode):
+    """The global-scratch instantiation (K > 1024), held to the plain version
+    in float64 on the CPU.  At these cluster sizes (hundreds of members per
+    seed) a float32 plain version is no steady reference: on the card (FMA
+    contraction, scatter_add in atomic order) and on the CPU it strays from
+    float64 on a few voted coordinates, not the same ones (0.0752 px on the
+    CPU at K = 1025).  Keep sets, labels and scores are equal in float64
+    too; the scores come back to float32 exactly (they are copied)."""
+    rng = np.random.RandomState(k)
+    arrays = _clustered_batch(rng, 16, k)
+    tensors = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+    tensors[3] = tensors[3].to(torch.int32)
+    kw = dict(iou_threshold=0.65, max_out=100, global_mode=global_mode)
+    before = cuda_mod.LAUNCHES
+    kern = vote_nms(*tensors, **kw)
+    torch.cuda.synchronize()
+    assert cuda_mod.LAUNCHES == before + 1
+    plain = vote_nms_plain(*(t.cpu().double() if t.is_floating_point() else t.cpu() for t in tensors), **kw)
+    assert_kernel_matches_plain(kern, [t.float() if t.is_floating_point() else t for t in plain])
 
 
 def _edge_cases():
