@@ -15,11 +15,12 @@ Run from the repository root, with one card:  python3 chip_smoke.py
    through the plain version, the float32 forward against the CPU
    forward, and the untouched random init for NaNs;
 4. times the main path at batch 8 and 128 and the kernel against the plain
-   version at B=128, K=512 with CUDA events;
-5. evaluates: the kernel against the plain version at K in
-   {1024, 1025, 2048, 4420}, both modes, timing both on the card (the
-   shared-memory bound, and the global-scratch path the strict eval's
-   K = 2048 takes); a synthetic BOP test set written as PNG by
+   version at B=128, K=512 with CUDA events, beside the call's bound;
+5. evaluates: the kernel against the plain version at every (B, K) of
+   ``KERNEL_SHAPES`` (K from 512 to 4420), both modes, timing both on the
+   card in turns, each beside the call's bound and its share of it, and
+   the call's device time split by its three CUDA kernels (from
+   torch.profiler, or "not measured"); a synthetic BOP test set written as PNG by
    ``tests/synthetic_bop.py`` (96 images at
    480x640, 16 at T-LESS's 540x720, 16 portrait 640x480; filled rectangles
    of 21 classes, COCO json), decoded by the C++ unfilter and its numpy
@@ -83,6 +84,17 @@ WEIGHT_ATOL = 1e-6  # assignment weights, card vs CPU
 EVAL_GROUPS = ((96, (480, 640)), (16, (540, 720)), (16, (640, 480)))
 METRIC_ATOL = 1e-3  # COCO metrics, kernel vs plain vote-NMS in the same eval
 EVAL_INTERVAL = 10  # trainer steps between evaluations
+# the bound of a vote-NMS call: H100 SXM peaks (NVIDIA's data sheet) and
+# float32 operations per unit of work
+F32_PEAK = 67e12  # FLOP/s, float32 outside the tensor cores
+HBM_RATE = 3.35e12  # bytes/s
+IOU_OPS = 15  # per same-label IoU test
+VOTE_OPS = 36  # per member: weight, 3 passes over 4 coordinates
+# kernel_by_k's (B, K): deploy and interactive inference (K = 512), a whole
+# and a partial last 32-box word (1024, 1025), the strict eval (K = 2048,
+# its batch 16), and the flagship's largest per-level set (4420)
+KERNEL_SHAPES = ((8, 512), (128, 512), (8, 1024), (8, 1025), (8, 2048), (16, 2048), (128, 2048),
+                 (8, 4420))
 
 
 def fail(msg: str) -> None:
@@ -161,6 +173,53 @@ def compare(kern, plain, what: str) -> float:
     if tail > BOX_TAIL:
         fail(f"{what}: {tail:.4%} of voted coordinates off by more than {BOX_ATOL} px")
     return max_err
+
+
+def nms_bound(arrays, max_out: int):
+    """The least time the card could take for one vote-NMS call on these
+    inputs: the larger of the bytes (each input read once, each output
+    written once) over HBM3's 3.35 TB/s, and the float32 operations this
+    data needs over 67 TFLOP/s (a label compare per pair of valid
+    candidates, ~15 operations per same-label IoU test, ~36 per member's
+    votes).  Returns (ms, "bytes" or "operations", operations, bytes)."""
+    _, _, _, labels, valid = (a.cpu() for a in arrays)
+    b, k = labels.shape
+    n_valid = valid.sum(1).double()
+    same = 0.0
+    for i in range(b):
+        counts = torch.unique(labels[i][valid[i]], return_counts=True)[1].double()
+        same += float((counts * (counts - 1) / 2).sum())
+    ops = float((n_valid * (n_valid - 1) / 2).sum()) + IOU_OPS * same + VOTE_OPS * float(n_valid.sum())
+    nbytes = b * k * (16 + 4 + 4 + 4 + 1) + b * max_out * (16 + 4 + 4 + 1)
+    by_ops, by_bytes = ops / F32_PEAK, nbytes / HBM_RATE
+    return max(by_ops, by_bytes) * 1e3, "operations" if by_ops >= by_bytes else "bytes", ops, nbytes
+
+
+def kernel_split(fn, calls: int = 10) -> str:
+    """The vote-NMS call's device ms (CUDA events around a loop of calls
+    also count the host's time per call where that is longer), and each of
+    its CUDA kernels' ms and share, from torch.profiler's key_averages();
+    "not measured" when it shows no device time."""
+    import radet_tpu_torch.ops.vote_nms_cuda as vnc
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us, count = dict.fromkeys(vnc.CUDA_KERNELS, 0.0), dict.fromkeys(vnc.CUDA_KERNELS, 0)
+    for e in prof.key_averages():
+        for name in vnc.CUDA_KERNELS:
+            if name in e.key:
+                us[name] += getattr(e, "device_time_total", 0.0) or getattr(e, "cuda_time_total", 0.0)
+                count[name] += e.count
+    total = sum(us.values())
+    if total <= 0:
+        return "not measured (no device time in key_averages())"
+    return (f"{total / calls / 1e3:.4f} ms per call in {sum(count.values()) / calls:g} CUDA kernels: "
+            + ", ".join(f"{n} {us[n] / calls / 1e3:.4f} ms ({us[n] / total:.1%})" for n in vnc.CUDA_KERNELS))
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -465,19 +524,19 @@ def train_phases(config: str, gpu: str, eval_opts) -> None:
 
 
 def kernel_by_k() -> None:
-    """The kernel against the plain version in float64 at the
-    shared-memory bound (K = 1024) and on the global-scratch path
-    (K > 1024), with the kernel's and the plain version's times on the
-    card."""
+    """The kernel against the plain version in float64 on the CPU at
+    ``KERNEL_SHAPES``, both modes, with the kernel's and the plain version's
+    times on the card (in turns), each beside the call's bound, and the
+    call's device time split by CUDA kernel."""
     import radet_tpu_torch.ops.vote_nms_cuda as vnc
     from radet_tpu_torch.ops.vote_nms import vote_nms_plain
 
     gpu = card()
     dev = torch.device("cuda")
     rng = np.random.RandomState(SEED + 4)
-    print("kernel on the card vs plain in float64 on the CPU around K = 1024 (K > 1024: bitmask "
-          "in a global scratch), synthetic clustered candidates:")
-    for b, k in ((8, 1024), (8, 1025), (8, 2048), (8, 4420), (128, 2048)):
+    print("kernel on the card vs plain in float64 on the CPU by (B, K), synthetic clustered "
+          "candidates (5 labels, 60-100% valid):")
+    for b, k in KERNEL_SHAPES:
         arrays = [torch.from_numpy(a).to(dev) for a in clustered_candidates(rng, b, k)]
         for global_mode in (False, True):
             kw = dict(iou_threshold=0.65, max_out=100, iou_enable=False, sigma=0.025,
@@ -485,10 +544,18 @@ def kernel_by_k() -> None:
             kern = vnc.vote_nms_cuda(*arrays, **kw)
             torch.cuda.synchronize()
             compare(kern, plain_reference(arrays, **kw), f"B={b} K={k} global_mode={global_mode}")
+            # no float atomics: a second call gives the same bits
+            if not all(torch.equal(x, y) for x, y in zip(kern, vnc.vote_nms_cuda(*arrays, **kw))):
+                fail(f"B={b} K={k} global_mode={global_mode}: two kernel calls differ")
+        print(f"  B={b} K={k}: a second call gives the same outputs bit for bit, both modes")
         kw["global_mode"] = False
         kernel_ms, plain_ms, _, _ = alternate_ms(
-            lambda: vnc.vote_nms_cuda(*arrays, **kw), lambda: vote_nms_plain(*arrays, **kw), 10, 1)
-        print(f"timing: vote_nms B={b} K={k}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.3f} ms [{gpu}]")
+            lambda: vnc.vote_nms_cuda(*arrays, **kw), lambda: vote_nms_plain(*arrays, **kw), 20, 1)
+        bound_ms, bound_by, ops, nbytes = nms_bound(arrays, kw["max_out"])
+        print(f"timing: vote_nms B={b} K={k}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.3f} ms; "
+              f"bound {bound_ms * 1e3:.3f} us by {bound_by} ({ops:.4g} ops, {nbytes} bytes), kernel at "
+              f"{bound_ms / kernel_ms:.2%} of it [{gpu}]")
+        print(f"  device time B={b} K={k}: {kernel_split(lambda: vnc.vote_nms_cuda(*arrays, **kw))}")
         del arrays, kern
         torch.cuda.empty_cache()
 
@@ -847,8 +914,10 @@ def main() -> None:
     kw = dict(iou_threshold=0.65, max_out=100, iou_enable=False, sigma=0.025, global_mode=False)
     kernel_ms, plain_ms, kernel_runs, plain_runs = alternate_ms(
         lambda: vnc.vote_nms_cuda(*bench_inputs, **kw), lambda: vote_nms_plain(*bench_inputs, **kw), 50, 5)
+    bound_ms, bound_by, _, _ = nms_bound(bench_inputs, kw["max_out"])
     print(f"timing: vote_nms B=128 K=512: kernel {kernel_ms:.4f} ms (runs {kernel_runs}), "
-          f"plain {plain_ms:.3f} ms (runs {plain_runs}) [{gpu}]")
+          f"plain {plain_ms:.3f} ms (runs {plain_runs}), bound {bound_ms * 1e3:.3f} us by {bound_by} "
+          f"[{gpu}]")
     del det, model, bench_inputs
     torch.cuda.empty_cache()
 
@@ -867,6 +936,9 @@ def main() -> None:
         "max_abs_err": main_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no PyTorch call computes vote-NMS
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -3,10 +3,12 @@
 The library is compiled with ``nvcc`` for ``sm_90a`` at first use, from the
 repository's source only, into ``radet_tpu_torch/_build/``
 (``utils/native.py``), and loaded with ``ctypes`` through a plain C entry
-point.  Nothing is built when the module is imported.  The kernel launches
-on PyTorch's current stream and never synchronises.
+point.  Nothing is built when the module is imported.  One call launches
+the source's three CUDA kernels (``CUDA_KERNELS``: overlap bitmask, greedy
+sweep, voting) on PyTorch's current stream and never synchronises.
 
-``LAUNCHES`` counts the kernel's launches, and nothing else.
+``LAUNCHES`` counts the calls that launched the kernel, one per call, and
+nothing else.
 """
 
 from __future__ import annotations
@@ -24,11 +26,14 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-# kMaxK of vote_nms.cu.  Up to 1024 candidates the kernel keeps its bitmask in
-# shared memory; above, in a global scratch of B * ~(36 K + K^2 / 8) bytes.
-# 8192 covers the strict eval's K = 2048 and the flagship's largest per-level
-# candidate set (4 x 1000 + 420 = 4420 at 480 x 640).
+# kMaxK of vote_nms.cu: one code path for every 1 <= K <= MAX_K, with the
+# bitmask in a global scratch of B * ~(K^2 / 8 + 8 K) bytes.  8192 covers the
+# strict eval's K = 2048 and the flagship's largest per-level candidate set
+# (4 x 1000 + 420 = 4420 at 480 x 640).
 MAX_K = 8192
+# the __global__ functions of one call, in launch order
+CUDA_KERNELS = ("overlap_kernel", "sweep_kernel", "vote_kernel")
+MAX_B = 65535  # images go on a grid dimension of at most 65535 blocks
 
 LAUNCHES = 0
 
@@ -60,8 +65,10 @@ def build() -> ctypes.CDLL:
 def check_sizes(b: int, k: int, max_out: int) -> None:
     """Raise ValueError unless the kernel takes a batch of ``b`` images of
     ``k`` candidates each into ``max_out`` slots."""
-    if not 1 <= k <= MAX_K or b < 1:
-        raise ValueError(f"vote_nms_cuda takes 1 <= K <= {MAX_K} (MAX_K) and B >= 1, got B={b}, K={k}")
+    if not 1 <= k <= MAX_K or not 1 <= b <= MAX_B:
+        raise ValueError(
+            f"vote_nms_cuda takes 1 <= K <= {MAX_K} (MAX_K) and 1 <= B <= {MAX_B}, got B={b}, K={k}"
+        )
     if max_out < 0:
         raise ValueError(f"max_out must be >= 0, got {max_out}")
 
@@ -114,12 +121,12 @@ def vote_nms_cuda(
     out_labels = torch.empty((b, max_out), dtype=torch.int32, device=device)
     out_scores = torch.empty((b, max_out), dtype=torch.float32, device=device)
     out_valid = torch.empty((b, max_out), dtype=torch.bool, device=device)
-    # the bitmask rows of K > 1024 (the caching allocator aligns to 512 bytes)
+    # the bitmask and the member lists (the caching allocator aligns to 512 bytes)
     scratch = torch.empty(lib.radet_vote_nms_scratch_bytes(b, k), dtype=torch.uint8, device=device)
     with torch.cuda.device(device):
         err = lib.radet_vote_nms(
             boxes.data_ptr(), cluster_scores.data_ptr(), vote_scores.data_ptr(),
-            labels.data_ptr(), valid.data_ptr(), scratch.data_ptr() or None, out_boxes.data_ptr(),
+            labels.data_ptr(), valid.data_ptr(), scratch.data_ptr(), out_boxes.data_ptr(),
             out_labels.data_ptr(), out_scores.data_ptr(), out_valid.data_ptr(),
             b, k, max_out, float(iou_threshold), int(bool(iou_enable)), float(sigma),
             int(bool(global_mode)), torch.cuda.current_stream(device).cuda_stream,
