@@ -3,8 +3,11 @@
 
 Run from the repository root, with one card:  python3 chip_smoke.py
 
-1. prints the card and builds, in parallel, the vote-NMS kernel and the host
-   PNG unfilter from ``radet_tpu_torch/csrc``;
+1. prints the card and builds, in parallel, the vote-NMS kernel, the host
+   PNG unfilter and the host JPEG decoder from ``radet_tpu_torch/csrc``;
+   holds the decoder to cv2's recorded SHA-256 of the committed fixtures
+   (``tests/data/jpeg``; this machine has no cv2) and times JPEG decode
+   beside PNG decode of the same pixels;
 2. holds the kernel against its plain PyTorch version, run in float64 on
    the CPU (the reference of every comparison below), on synthetic
    clustered candidates (B=128, K in {512, 1024}, global_mode x iou_enable);
@@ -42,7 +45,22 @@ Run from the repository root, with one card:  python3 chip_smoke.py
    launches; overfits one fixed batch of 16 with the train step; times the
    train step at batch 16; and holds one float32 step on the card against
    the CPU at batch 1 (same weights, batch, assignment noise and ReLU
-   decisions).
+   decisions);
+7. trains from files: writes a JPEG ``train_pbr`` split (64 copies of the
+   480x640 fixtures with their records' boxes and ``mask_visib`` PNGs) and a
+   background directory (JPEG, and PNG at 427x640, which are resized), and a
+   config whose ``_base_`` is the flagship training from them without
+   ``CosyPoseAug`` (not ported); times each transform of that pipeline on
+   one thread and the loader at 4 and 8 threads; times the train step
+   with that loader idle and busy in the background (thread and process
+   workers), in turns; runs
+   ``python -m
+   radet_tpu_torch.tools.train`` on it in a subprocess (full width, bf16,
+   batch 16, 4 loader workers, 30 steps, one eval on the PNG set's
+   landscape images), with thread and then with process workers, checks
+   each run's checkpoint and its eval's vote-NMS launches, and prints its
+   img/s beside the in-memory trainer's and the share of each step spent
+   waiting on the loader.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero before it.  Without a CUDA card, or outside the repository, the
@@ -84,6 +102,14 @@ WEIGHT_ATOL = 1e-6  # assignment weights, card vs CPU
 EVAL_GROUPS = ((96, (480, 640)), (16, (540, 720)), (16, (640, 480)))
 METRIC_ATOL = 1e-3  # COCO metrics, kernel vs plain vote-NMS in the same eval
 EVAL_INTERVAL = 10  # trainer steps between evaluations
+# training from files: a JPEG train_pbr split of FILES_IMAGES copies of the
+# committed 480x640 fixtures (tests/data/jpeg) with their records' boxes and
+# mask_visib PNGs, backgrounds of BACKGROUNDS JPEG copies and as many PNGs at
+# COCO's common 427x640 (decoded and resized); FILES_STEPS steps, one eval
+FILES_IMAGES = 64
+BACKGROUNDS = 48
+FILES_STEPS = 30
+FILES_WORKERS = 4
 # the bound of a vote-NMS call: H100 SXM peaks (NVIDIA's data sheet) and
 # float32 operations per unit of work
 F32_PEAK = 67e12  # FLOP/s, float32 outside the tensor cores
@@ -318,10 +344,11 @@ def grad_errors(grads, ref):
                    for k in ref), reverse=True)
 
 
-def train_phases(config: str, gpu: str, eval_opts) -> None:
+def train_phases(config: str, gpu: str, eval_opts) -> float:
     """Training on the card: the trainer with periodic eval (``eval_opts``:
     config options naming the val data), an overfit batch, card-vs-CPU
-    parity, the train step's time, and inference with the trained weights."""
+    parity, the train step's time, and inference with the trained weights.
+    Returns the trainer's median ms per step."""
     import radet_tpu_torch.ops.vote_nms_cuda as vnc
     from radet_tpu_torch import inference_detector, init_detector, train_detector
     from radet_tpu_torch.apis.common import (
@@ -384,6 +411,9 @@ def train_phases(config: str, gpu: str, eval_opts) -> None:
               f"included) [{gpu}]")
         for ln in (iters[0], iters[len(iters) // 2], iters[-1]):
             print(f"  {ln}")
+        memory_ms, memory_wait = median_iter(iters)
+        print(f"  median of steps 6-{TRAIN_STEPS}: {memory_ms:.1f} ms/step ({batch_size * 1000 / memory_ms:.1f} "
+              f"img/s), loader wait {memory_wait:.1f} ms/step")
         with open(cfg.data.val.ann_file) as f:
             n_val = len(json.load(f)["images"])
         print(f"  eval every {EVAL_INTERVAL} steps on {n_val} PNG images (test_cfg as configured, "
@@ -521,6 +551,257 @@ def train_phases(config: str, gpu: str, eval_opts) -> None:
              f"gradients {GRAD_RTOL})")
     del cpu_model, gpu_model, raw_model, out, masks
     torch.cuda.empty_cache()
+    return memory_ms
+
+
+def decode_phase(gpu: str, work: str) -> None:
+    """The card machine's build of the JPEG decoder against the committed
+    cv2 hashes of tests/data/jpeg, and JPEG decode timed beside PNG decode
+    of the same pixels (``imread`` from the file, one thread)."""
+    import hashlib
+
+    from radet_tpu_torch.data import image_io
+    from synthetic_bop import JPEG_FIXTURES, write_png
+
+    with open(osp.join(JPEG_FIXTURES, "hashes.json")) as f:
+        hashes = json.load(f)
+    for name, want in sorted(hashes.items()):
+        path = osp.join(JPEG_FIXTURES, name)
+        for flag, key in ((image_io.IMREAD_COLOR, "rgb_sha256"), (image_io.IMREAD_GRAYSCALE, "gray_sha256")):
+            if hashlib.sha256(image_io.imread(path, flag).tobytes()).hexdigest() != want[key]:
+                fail(f"JPEG decode of {name} ({key[:-7]}) differs from cv2 {want['cv2']}'s recorded hash")
+    print(f"decode: JPEG fixtures {sorted(hashes)}: RGB and gray decodes equal cv2 {want['cv2']}'s "
+          f"recorded SHA-256, byte for byte")
+
+    def per_image_ms(path, reps=10):
+        image_io.imread(path)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            image_io.imread(path)
+        return (time.perf_counter() - t0) * 1000 / reps
+
+    parts = []
+    for name in sorted(hashes):
+        path = osp.join(JPEG_FIXTURES, name)
+        png = osp.join(work, name.replace(".jpg", ".png"))
+        write_png(png, image_io.imread(path))
+        parts.append(f"{name} ({os.path.getsize(path) // 1024} KB) {per_image_ms(path):.2f} ms, as PNG "
+                     f"({os.path.getsize(png) // 1024} KB) {per_image_ms(png):.2f} ms")
+    print(f"timing: imread 480x640 RGB, one thread, mean of 10: " + "; ".join(parts) + f" [host of {gpu}]")
+
+
+def median_iter(lines, skip: int = 5):
+    """(median ms/iter, median data-wait ms/iter) of the trainer's log lines
+    after the first ``skip``."""
+    ms = [float(m) for ln in lines[skip:] for m in re.findall(r"\| (\S+) ms/iter", ln)]
+    wait = [float(m) for ln in lines[skip:] for m in re.findall(r"data wait (\S+) ms/iter", ln)]
+    return float(np.median(ms)), float(np.median(wait))
+
+
+def write_train_files(config: str, work: str):
+    """The from-files training split and backgrounds in ``work``; returns
+    the run-time config (``config`` training from them, without
+    CosyPoseAug)."""
+    from radet_tpu_torch.data import image_io
+    from radet_tpu_torch.utils import Config
+    from synthetic_bop import (
+        JPEG_FIXTURE_SEED,
+        JPEG_FIXTURES,
+        synthetic_bop_records,
+        write_bop_train_set,
+        write_png,
+        write_train_config,
+    )
+
+    with open(osp.join(JPEG_FIXTURES, "hashes.json")) as f:
+        fixtures = sorted(json.load(f).items(), key=lambda kv: kv[1]["record"])
+    jpegs = []
+    for name, _ in fixtures:
+        with open(osp.join(JPEG_FIXTURES, name), "rb") as f:
+            jpegs.append(f.read())
+    records = synthetic_bop_records(np.random.RandomState(JPEG_FIXTURE_SEED), len(jpegs), (480, 640))
+    names = Config.fromfile(config).CLASS_NAMES
+    t0 = time.perf_counter()
+    ann = write_bop_train_set(work, [records[i % len(jpegs)] for i in range(FILES_IMAGES)], jpegs, names)
+    bg_dir = osp.join(work, "backgrounds")
+    os.makedirs(bg_dir)
+    smooth = image_io.imread(osp.join(JPEG_FIXTURES, fixtures[0][0]))[:427]
+    rng = np.random.RandomState(SEED + 6)
+    for i in range(BACKGROUNDS):
+        with open(osp.join(bg_dir, f"{i:06d}.jpg"), "wb") as f:
+            f.write(jpegs[i % len(jpegs)])
+        write_png(osp.join(bg_dir, f"{i:06d}.png"), np.roll(smooth, 37 * i, axis=1) // rng.randint(1, 4))
+    with open(ann) as f:
+        n_obj = len(json.load(f)["annotations"])
+    print(f"train from files: {FILES_IMAGES} JPEG images 480x640 (copies of the {len(jpegs)} fixtures, "
+          f"{n_obj} objects with mask_visib PNGs), {BACKGROUNDS} JPEG and {BACKGROUNDS} PNG (427x640) "
+          f"backgrounds, written in {time.perf_counter() - t0:.1f} s")
+    return write_train_config(osp.join(work, "train_config.py"), config, ann,
+                              osp.join(work, "train_pbr") + "/", bg_dir)
+
+
+def loader_phase(train_config: str, gpu: str) -> None:
+    """The from-files host path alone: each transform's ms per sample on one
+    thread, and the loader's ms per batch of 16 at 4 and 8 threads."""
+    from radet_tpu_torch.apis.common import build_dataset
+    from radet_tpu_torch.data import DataLoader
+    from radet_tpu_torch.utils import Config
+
+    cfg = Config.fromfile(train_config)
+    dataset = build_dataset(cfg, "train")
+    transforms = dataset.pipeline.transforms
+    spent = dict.fromkeys((type(t).__name__ for t in transforms), 0.0)
+
+    def timed(t):
+        def run(results):
+            t0 = time.perf_counter()
+            out = t(results)
+            spent[type(t).__name__] += time.perf_counter() - t0
+            return out
+        return run
+
+    n = 48
+    dataset.pipeline.transforms = [timed(t) for t in transforms]
+    t0 = time.perf_counter()
+    for i in range(n):
+        dataset[i % len(dataset)]
+    total = (time.perf_counter() - t0) * 1000 / n
+    dataset.pipeline.transforms = transforms
+    print(f"loader: one thread, {total:.2f} ms per sample (mean of {n}): "
+          + ", ".join(f"{k} {v * 1000 / n:.2f}" for k, v in spent.items())
+          + f", packing and the rest {total - sum(spent.values()) * 1000 / n:.2f} [host of {gpu}]")
+    batch = int(cfg.data.samples_per_gpu)
+    for workers in (FILES_WORKERS, 8):
+        it = iter(DataLoader(dataset, batch_size=batch, num_workers=workers, seed=SEED, infinite=True))
+        for _ in range(3):  # the prefetched batches
+            next(it)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            next(it)
+        ms = (time.perf_counter() - t0) * 100
+        it.close()
+        print(f"loader: {workers} threads, {ms:.1f} ms per batch of {batch} ({batch * 1000 / ms:.1f} img/s, "
+              f"mean of 10) [host of {gpu}]")
+
+
+def contention_phase(train_config: str, gpu: str, device: str = "cuda") -> None:
+    """The train step's ms at batch 16 (the batch already on the card, CUDA
+    events, 10 steps) with the from-files loader idle and with it running
+    flat out in the background (FILES_WORKERS thread or process workers,
+    batches drained as they come), in turns: idle, thread, process,
+    process, thread, idle."""
+    import threading
+
+    from radet_tpu_torch.apis.common import (
+        assignment_cfg_from,
+        build_dataset,
+        build_model_and_anchors,
+        loss_cfg_from,
+        normalizer_from_cfg,
+    )
+    from radet_tpu_torch.data import DataLoader, collate
+    from radet_tpu_torch.engine import build_optimizer, build_train_step
+    from radet_tpu_torch.engine.train_step import TrainState, batch_to_device
+    from radet_tpu_torch.utils import Config
+
+    cfg = Config.fromfile(train_config)
+    model, anchors, ranges, _ = build_model_and_anchors(cfg)
+    model.init_weights(torch.Generator().manual_seed(SEED))
+    model.to(device).train()
+    tx, _ = build_optimizer(cfg.optimizer.to_dict(), cfg.lr_config.to_dict(), cfg.grad_clip.to_dict(), model)
+    state = TrainState(model, tx, seed=SEED + 1)
+    step = build_train_step(model, anchors, ranges, img_norm=cfg.img_norm_cfg.to_dict(),
+                            num_classes=int(cfg.model.bbox_head.num_classes),
+                            assignment_cfg=assignment_cfg_from(cfg), normalizer=normalizer_from_cfg(cfg),
+                            loss_cfg=loss_cfg_from(cfg))
+    dataset = build_dataset(cfg, "train")
+    batch_size = int(cfg.data.samples_per_gpu)
+    batch = batch_to_device(collate([dataset[i] for i in range(batch_size)]), device)
+    for _ in range(3):
+        step(state, batch)
+
+    def drain(stop, count, mode):
+        it = iter(DataLoader(dataset, batch_size=batch_size, num_workers=FILES_WORKERS, seed=SEED, infinite=True,
+                             worker_mode=mode))
+        while not stop.is_set():
+            next(it)
+            count.append(1)
+        it.close()
+
+    runs = {"idle": [], "thread": [], "process": []}
+    produced = {"thread": [], "process": []}
+    for mode in ("idle", "thread", "process", "process", "thread", "idle"):
+        stop, count, loader = threading.Event(), [], None
+        if mode != "idle":
+            loader = threading.Thread(target=drain, args=(stop, count, mode))
+            loader.start()
+            while len(count) < 3:  # past the start-up and the prefetched batches
+                time.sleep(0.05)
+        t0, before = time.perf_counter(), len(count)
+        runs[mode].append(cuda_ms(lambda: step(state, batch), 10))
+        if loader is not None:
+            produced[mode].append((len(count) - before) * batch_size / (time.perf_counter() - t0))
+            stop.set()
+            loader.join()
+    idle = float(np.mean(runs["idle"]))
+    print(f"timing: train step batch {batch_size} (batch on the card), from-files loader idle {idle:.2f} ms "
+          f"(runs {[round(v, 2) for v in runs['idle']]}); busy in the background with {FILES_WORKERS} "
+          + "; ".join(f"{m} workers ({np.mean(produced[m]):.1f} img/s drained) {np.mean(runs[m]):.2f} ms "
+                      f"(runs {[round(v, 2) for v in runs[m]]}, {np.mean(runs[m]) / idle - 1:+.1%})"
+                      for m in ("thread", "process")) + f" [{gpu}]")
+    del state, model, tx, step, batch
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def files_phase(train_config: str, gpu: str, eval_opts, memory_ms: float, device: str = "cuda") -> None:
+    """``python -m radet_tpu_torch.tools.train`` on the from-files config at
+    full width, bf16, batch 16, FILES_WORKERS loader workers, FILES_STEPS
+    steps with one periodic eval, once with thread workers (the config's
+    default) and once with process workers: checks each run's checkpoint
+    and its eval's vote-NMS launches, and prints its img/s beside the
+    in-memory trainer's (``memory_ms`` per step, same log) and the share of
+    each step spent waiting on the loader."""
+    from radet_tpu_torch.engine import load_weights
+
+    for mode in ("thread", "process"):
+        work_dir = osp.join(osp.dirname(train_config), f"work_dir_{mode}")
+        cmd = [sys.executable, "-m", "radet_tpu_torch.tools.train", train_config, "--work-dir", work_dir,
+               "--device", device, "--max-iters", str(FILES_STEPS), "--cfg-options", "log_config.interval=1",
+               f"checkpoint_config.interval={FILES_STEPS}", f"evaluation.interval={FILES_STEPS}",
+               f"data.workers_per_gpu={FILES_WORKERS}", f"data.worker_mode={mode!r}", *eval_opts]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=str(Path(__file__).resolve().parent),
+                              timeout=900)
+        run_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"the train CLI ({mode} workers) exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+        log = [ln.split(" - ")[-1] for ln in proc.stderr.splitlines()]
+        iters = [ln for ln in log if ln.startswith("iter ")]
+        evals = [ln for ln in log if ln.startswith("eval: ")]
+        launches = sum(int(n) for ln in log for n in re.findall(r"vote_nms kernel launches (\d+)", ln))
+        dataset = next((ln for ln in log if ln.startswith("train dataset:")), "")
+        ckpt = osp.join(work_dir, "checkpoints")
+        steps = sorted(int(d) for d in os.listdir(ckpt) if d.isdigit()) if osp.isdir(ckpt) else []
+        print(f"train from files: python -m radet_tpu_torch.tools.train (full width, bf16, batch 16, "
+              f"{FILES_WORKERS} loader {mode} workers): {len(iters)} steps, {run_s:.1f} s in its own process "
+              f"(start-up, model build and eval included); {dataset}")
+        for ln in (iters[0], iters[len(iters) // 2], iters[-1]):
+            print(f"  {ln}")
+        for ln in evals:
+            print(f"  {ln}; vote_nms kernel launches {launches}")
+        if len(iters) != FILES_STEPS or len(evals) != 1 or launches < 1:
+            fail(f"{len(iters)} steps, {len(evals)} evals, {launches} vote_nms launches in the from-files run")
+        if FILES_STEPS not in steps or not load_weights(ckpt):
+            fail(f"the from-files run wrote checkpoints {steps}, not step {FILES_STEPS}")
+        history = [float(v) for ln in iters for v in re.findall(r" loss (\S+)", ln)]
+        if len(history) != FILES_STEPS or not all(math.isfinite(v) for v in history):
+            fail("non-finite or missing losses in the from-files run")
+        ms, wait = median_iter(iters)
+        print(f"timing: training from files, {mode} workers: {16 * 1000 / ms:.1f} img/s ({ms:.1f} ms/step, median "
+              f"of steps 6-{FILES_STEPS}), loader wait {wait:.1f} ms/step ({wait / ms:.1%} of the step); in "
+              f"memory (same call, same log) {16 * 1000 / memory_ms:.1f} img/s ({memory_ms:.1f} ms/step); "
+              f"checkpoint of step {FILES_STEPS} loads [{gpu}]")
 
 
 def kernel_by_k() -> None:
@@ -777,10 +1058,11 @@ def main() -> None:
         fn()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         builds = [(src, flags, pool.submit(timed, fn)) for src, flags, fn in (
             (vnc.SOURCE, f"nvcc {' '.join(vnc.NVCC_FLAGS)}", vnc.build),
-            (image_io.SOURCE, f"c++ {' '.join(image_io.CXX_FLAGS)}", image_io.build))]
+            (image_io.SOURCE, f"c++ {' '.join(image_io.CXX_FLAGS)}", image_io.build),
+            (image_io.JPEG_SOURCE, f"c++ {' '.join(image_io.CXX_FLAGS)}", image_io.build_jpeg))]
         for src, flags, fut in builds:
             print(f"build: {src.relative_to(repo)} -> {native.BUILD_DIR.relative_to(repo)} "
                   f"with {flags}: {fut.result():.2f} s [{gpu}]")
@@ -788,6 +1070,9 @@ def main() -> None:
         for line in vnc.BUILD_LOG.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
+
+    with tempfile.TemporaryDirectory() as work:
+        decode_phase(gpu, work)
 
     # 2. kernel vs plain on synthetic candidates at the bench batch
     print("kernel vs plain in float64 on the CPU, synthetic clustered candidates, B=128:")
@@ -924,7 +1209,13 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as work:
         kernel_by_k()
         eval_opts = eval_phases(config, gpu, work)
-        train_phases(config, gpu, eval_opts)
+        memory_ms = train_phases(config, gpu, eval_opts)
+        files = osp.join(work, "files")
+        os.makedirs(files)
+        train_config = write_train_files(config, files)
+        loader_phase(train_config, gpu)
+        contention_phase(train_config, gpu)
+        files_phase(train_config, gpu, eval_opts, memory_ms)
 
     print(f"card: {gpu}")
     print(json.dumps({"kernels": [{

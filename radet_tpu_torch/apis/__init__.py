@@ -1,4 +1,6 @@
 from .inference import Detector, inference_detector, init_detector
+from .test import evaluate_results, run_inference
 from .train import train_detector
 
-__all__ = ["Detector", "inference_detector", "init_detector", "train_detector"]
+__all__ = ["Detector", "evaluate_results", "inference_detector", "init_detector", "run_inference",
+           "train_detector"]

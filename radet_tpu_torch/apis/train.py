@@ -2,12 +2,14 @@
 ``radet_tpu/apis/train.py::train_detector``).
 
 The loop is plain Python around :func:`engine.train_step.build_train_step`:
-stage each loader batch on the device, take a step, and every
+take a batch from the loader over ``cfg.data.train`` (or the ``dataset``
+given), stage it on the device, take a step, and every
 ``log_config.interval`` steps read the metrics (the loop's only wait for
 the device), every ``checkpoint_config.interval`` steps write a full
 checkpoint, and every ``evaluation.interval`` steps evaluate on
 ``cfg.data.val`` (COCO bbox metrics; with ``evaluation.save_best`` the best
-weights so far go to ``<work_dir>/best_weights.pth``).
+weights so far go to ``<work_dir>/best_weights.pth``).  The log line gives
+the ms per step, img/s and the ms per step spent waiting for the loader.
 """
 
 from __future__ import annotations
@@ -42,8 +44,6 @@ from .common import (
     normalizer_from_cfg,
 )
 from .test import evaluate_results, run_inference
-
-_FILE_DATA = "ROADMAP.md Queue 1 item 7, training from files"
 
 
 def check_trainable_quant(model_cfg) -> None:
@@ -96,16 +96,14 @@ def train_detector(
 
     ``dataset``: any indexable source of training sample dicts
     (``data.bop.pack_sample``'s keys), e.g. ``data.InMemoryBOPDataset``;
-    the file-backed dataset of ``cfg.data.train`` is not ported.
-    ``resume_from``: 'auto' (this work dir's latest checkpoint), a manager
-    root, a step directory, or another run's work dir.  Convolutions run in
+    by default the ``BOPDataset`` of ``cfg.data.train``, read by
+    ``cfg.data.workers_per_gpu`` loader workers in batches of
+    ``cfg.data.samples_per_gpu``.  ``resume_from``: 'auto' (this work
+    dir's latest checkpoint), a manager root, a step directory, or another
+    run's work dir.  Convolutions run in
     ``cfg.compute_dtype`` on a card and in float32 on the CPU.  The periodic
     eval draws no random numbers, so a run with it takes the same steps as
     one without."""
-    if dataset is None:
-        raise NotImplementedError(
-            f"train_detector needs dataset=: reading cfg.data.train from files is not ported ({_FILE_DATA})"
-        )
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to train on the CPU")
@@ -119,6 +117,8 @@ def train_detector(
 
     check_trainable_quant(cfg.model)
     head_type_from_cfg(cfg)
+    if dataset is None:
+        dataset = build_dataset(cfg, "train", test_mode=False)
     model, anchors, ranges, counts = build_model_and_anchors(
         cfg, dtype=None if device.type == "cuda" else "float32"
     )
@@ -188,9 +188,13 @@ def train_detector(
     last_saved = -1
     it = iter(loader)
     t_log = time.time()
+    data_wait = 0.0  # seconds spent in next(it) since the last log line
     try:
         for _ in range(state.step, total_iters):
-            metrics = train_step(state, batch_to_device(next(it), device))
+            t_data = time.perf_counter()
+            batch = next(it)
+            data_wait += time.perf_counter() - t_data
+            metrics = train_step(state, batch_to_device(batch, device))
             step = state.step
             if log_interval and step % log_interval == 0:
                 values = {k: float(v) for k, v in metrics.items()}
@@ -199,8 +203,10 @@ def train_detector(
                 logger.info(
                     f"iter {step}/{total_iters} lr {schedule(step):.2e} "
                     + " ".join(f"{k} {v:.4f}" for k, v in values.items())
-                    + f" | {dt * 1000:.0f} ms/iter ({batch_size / dt:.1f} img/s)"
+                    + f" | {dt * 1000:.1f} ms/iter ({batch_size / dt:.1f} img/s), data wait "
+                    f"{data_wait / log_interval * 1000:.1f} ms/iter"
                 )
+                data_wait = 0.0
             if ckpt.interval and step % ckpt.interval == 0:
                 ckpt.save(step, state, force=True)
                 last_saved = step

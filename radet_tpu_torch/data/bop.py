@@ -1,10 +1,7 @@
 """BOP datasets (port of ``radet_tpu/data/bop.py``): the file-backed
-:class:`BOPDataset` (COCO json with BOP extensions, images read without
-cv2) in test mode, the static-shape packing of training samples, and an
-in-memory source that serves training samples.
-
-The file-backed dataset's training mode (masks, augmentation, JPEG
-backgrounds) is not ported yet (ROADMAP.md Queue 1 item 7).
+:class:`BOPDataset` (COCO json with BOP extensions, images and masks read
+without cv2) in training and test mode, the static-shape packing of
+training samples, and an in-memory source that serves training samples.
 """
 
 from __future__ import annotations
@@ -28,20 +25,28 @@ from .pipeline import (
 MASK_PATH_TEMPLATE = "{:06d}/mask_visib/{:06d}_{:06d}.png"
 # one instance-id map per image (0 = background, ann_idx + 1 = instance)
 MASK_PACKED_TEMPLATE = "{:06d}/mask_packed/{:06d}.png"
-_TRAIN_FILES = "ROADMAP.md Queue 1 item 7, training from files"
 
 
 class BOPDataset:
-    """COCO-format BOP annotations and image files, as static-shape test
-    samples: ``image`` uint8 (H, W, 3) padded to ``input_size``,
+    """COCO-format BOP annotations and image files as static-shape samples.
+
+    Training (the default, ``test_mode=False``): item ``i`` is image ``i``
+    through the pipeline and :func:`pack_sample` (``image``, ``img_shape``,
+    ``scale_factor``, ``img_id``, ``gt_boxes``, ``gt_labels``, ``gt_valid``
+    and, when the pipeline samples them, ``dist_vals``); a sample without
+    GT is replaced by :func:`draw_sample`'s draws.  With
+    ``filter_empty_gt`` the images without trainable GT (none that is not
+    ignored, of a known class, not difficult and at least
+    ``min_visib_frac`` visible) are dropped up front.
+
+    Test mode: ``image`` uint8 (H, W, 3) padded to ``input_size``,
     ``img_shape`` (2,) and ``scale_factor`` (4,) float32, ``img_id``.
 
     ``classes`` selects and orders the categories by name (``cat2label``);
     ``orientation`` ('landscape' / 'portrait') keeps only the images of that
     orientation (the static-shape view of an aspect-mixed dataset, which
     ``apis.test.test_from_config`` builds per orientation).  ``det2json``
-    and ``bop_det2json`` write COCO results and the BOP submission format.
-    ``test_mode=False`` raises ``NotImplementedError``."""
+    and ``bop_det2json`` write COCO results and the BOP submission format."""
 
     def __init__(
         self,
@@ -50,8 +55,9 @@ class BOPDataset:
         seg_prefix: Optional[str] = None,
         classes: Optional[Sequence[str]] = None,
         pipeline: Optional[Sequence[dict]] = None,
-        test_mode: bool = True,
+        test_mode: bool = False,
         min_visib_frac: float = 0.0,
+        filter_empty_gt: bool = True,
         bop_submission: bool = False,
         input_size: Tuple[int, int] = (480, 640),
         max_gt: int = 32,
@@ -59,10 +65,6 @@ class BOPDataset:
         img_norm: Optional[dict] = None,
         orientation: Optional[str] = None,
     ):
-        if not test_mode:
-            raise NotImplementedError(
-                f"BOPDataset(test_mode=False) reads training masks and augments; not ported ({_TRAIN_FILES})"
-            )
         self.ann_file = ann_file
         self.img_prefix = img_prefix
         self.seg_prefix = seg_prefix if seg_prefix is not None else img_prefix
@@ -88,6 +90,10 @@ class BOPDataset:
                     if (info["height"] > info["width"]) == want_portrait]
             self.img_ids = [self.img_ids[i] for i in keep]
             self.data_infos = [self.data_infos[i] for i in keep]
+        if not test_mode and filter_empty_gt:
+            keep = [i for i, info in enumerate(self.data_infos) if self._has_valid_gt(info)]
+            self.img_ids = [self.img_ids[i] for i in keep]
+            self.data_infos = [self.data_infos[i] for i in keep]
 
         anchors, _, _, _ = generate_anchors(self.input_size, anchor_cfg or AnchorConfig())
         self.pipeline: Optional[Compose] = None
@@ -99,6 +105,14 @@ class BOPDataset:
 
     def __len__(self) -> int:
         return len(self.img_ids)
+
+    def _has_valid_gt(self, img_info: dict) -> bool:
+        for ann in self.coco.get_anns(img_info["id"]):
+            if ann.get("ignore", False) or ann["category_id"] not in self.cat2label or ann.get("difficult", 0):
+                continue
+            if ann.get("visib_fract", 1.0) >= self.min_visib_frac:
+                return True
+        return False
 
     def parse_ann_info(self, img_info: dict) -> Dict[str, Any]:
         """Boxes and labels of an image's annotations; ignored, empty,
@@ -151,7 +165,9 @@ class BOPDataset:
             img_id_in_scene=img_id_in_scene,
         )
 
-    def prepare_sample(self, idx: int) -> Dict[str, Any]:
+    def prepare_sample(self, idx: int) -> Optional[Dict[str, Any]]:
+        """Image ``idx`` through the pipeline: a test sample, or a training
+        sample (None when it has no GT)."""
         img_info = self.data_infos[idx]
         results = self.pipeline(dict(
             img_info=img_info,
@@ -159,6 +175,8 @@ class BOPDataset:
             img_prefix=self.img_prefix,
             seg_prefix=self.seg_prefix,
         ))
+        if not self.test_mode:
+            return None if results is None else pack_sample(results, self.max_gt, img_id=self.img_ids[idx])
         h, w = results["img_shape"]
         return dict(
             image=np.ascontiguousarray(results["img"]),
@@ -167,7 +185,10 @@ class BOPDataset:
             img_id=np.int64(self.img_ids[idx]),
         )
 
-    __getitem__ = prepare_sample
+    def __getitem__(self, idx: int) -> Dict[str, Any]:
+        if self.test_mode:
+            return self.prepare_sample(idx)
+        return draw_sample(self.prepare_sample, idx, len(self))
 
     def det2json(self, detections: List[dict]) -> List[dict]:
         """COCO-style results. ``detections``: per-image dict with keys

@@ -1,28 +1,42 @@
-"""Image files without cv2: PNG decoded with ``zlib`` and a host C++ unfilter
-(port of ``radet_tpu/data/pipeline.py::imread_rgb`` and of the pipeline's
+"""Image files without cv2: PNG decoded with ``zlib`` and a host C++ unfilter,
+baseline JPEG with a host C++ decoder (port of
+``radet_tpu/data/pipeline.py::imread_rgb`` and of the pipeline's
 ``cv2.imread`` calls on masks).
 
-:func:`imread` returns what ``cv2.imread(path, flags)`` returns for a PNG
-file, with one change: ``IMREAD_COLOR`` gives RGB (cv2's BGR swapped, as
+:func:`imread` returns what ``cv2.imread(path, flags)`` returns for a PNG or
+JPEG file, with one change: ``IMREAD_COLOR`` gives RGB (cv2's BGR swapped, as
 ``imread_rgb`` does).
 
 - ``IMREAD_COLOR``: (H, W, 3) uint8 RGB; gray is replicated to 3 channels,
   alpha is dropped, and 16-bit samples keep their high byte (libpng's
   ``strip_16``, which cv2 applies);
-- ``IMREAD_GRAYSCALE``: (H, W) uint8, for gray PNGs (alpha dropped);
+- ``IMREAD_GRAYSCALE``: (H, W) uint8, for gray PNGs (alpha dropped) and for
+  JPEG (its luma);
 - ``IMREAD_UNCHANGED``: the file's depth (uint8 or uint16) and cv2's
   channel layout: gray (H, W), gray + alpha as BGRA (H, W, 4), RGB as BGR,
   RGBA as BGRA.
 
-The decode: chunks are parsed and their CRCs checked, the IDAT stream is
-inflated by ``zlib``, and the rows are unfiltered by ``csrc/png_unfilter.cpp``
-(built at first use into ``radet_tpu_torch/_build/`` with the host C++
-compiler, loaded with ``ctypes``).  :func:`unfilter_plain` is its numpy
-twin, which the tests hold equal to it.  Both ``zlib`` and the ``ctypes``
-call release the interpreter lock, so loader threads decode in parallel.
+PNG: chunks are parsed and their CRCs checked, the IDAT stream is inflated
+by ``zlib``, and the rows are unfiltered by ``csrc/png_unfilter.cpp``.
+:func:`unfilter_plain` is its numpy twin, which the tests hold equal to it.
 
-A missing file raises ``FileNotFoundError``; what is not decoded yet raises
-``NotImplementedError`` naming its ROADMAP item.
+JPEG: ``csrc/jpeg_decode.cpp`` decodes baseline and extended-sequential
+Huffman files (SOF0, SOF1) of 8-bit gray or 4:4:4, 4:2:2 and 4:2:0 YCbCr
+with libjpeg-turbo's default arithmetic (islow IDCT, fancy upsampling,
+fixed-point colour), so its output equals ``cv2.imread``'s byte for byte.
+``cv2.imread`` turns an image by its EXIF orientation tag (except for
+``IMREAD_UNCHANGED``); an orientation other than 1 raises here rather than
+give another image.  Its reference is cv2 itself (the tests here, and the
+committed fixtures' hashes on a machine without cv2); it has no numpy twin.
+
+Both libraries are built at first use into ``radet_tpu_torch/_build/`` with
+the host C++ compiler and loaded with ``ctypes``; a missing compiler
+raises.  ``zlib`` and the ``ctypes`` calls release the interpreter lock, so
+loader threads decode in parallel.
+
+A missing file raises ``FileNotFoundError``, a corrupt one ``ValueError``;
+what is not decoded yet raises ``NotImplementedError`` naming its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -39,31 +53,52 @@ from ..utils.native import CSRC, build_library, find_tool
 IMREAD_UNCHANGED, IMREAD_GRAYSCALE, IMREAD_COLOR = -1, 0, 1  # cv2's values
 
 SOURCE = CSRC / "png_unfilter.cpp"
+JPEG_SOURCE = CSRC / "jpeg_decode.cpp"
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # color type -> samples per pixel
-_JPEG = "ROADMAP.md Queue 1 item 7, training from files: JPEG decode"
-_PNG_VARIANTS = "ROADMAP.md Queue 1 item 19, Adam7 and other PNG variants"
+_VARIANTS = "ROADMAP.md Queue 1 item 19, Adam7 and other PNG and JPEG variants"
 _TIFF = "ROADMAP.md Queue 1 item 20, TIFF images (the ITODD test set)"
 
-_lib = None
+_libs: dict = {}
 _lib_lock = threading.Lock()
+_INT = ctypes.POINTER(ctypes.c_int)
+# each library's functions: (argtypes, restype)
+_UNFILTER_API = {
+    "radet_png_unfilter": ([ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p],
+                           ctypes.c_int),
+}
+_JPEG_API = {
+    "radet_jpeg_info": ([ctypes.c_char_p, ctypes.c_int64, _INT, _INT, _INT, _INT, ctypes.c_char_p, ctypes.c_int],
+                        ctypes.c_int),
+    "radet_jpeg_decode": ([ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+                           ctypes.c_char_p, ctypes.c_int], ctypes.c_int),
+}
+
+
+def _load(source, api) -> ctypes.CDLL:
+    """Compile ``source`` (when it changed) and load it, with ``api``'s
+    signatures declared."""
+    with _lib_lock:
+        if source not in _libs:
+            path, _ = build_library(source, find_tool(["c++", "g++"]), CXX_FLAGS)
+            lib = ctypes.CDLL(str(path))
+            for name, (argtypes, restype) in api.items():
+                getattr(lib, name).argtypes = argtypes
+                getattr(lib, name).restype = restype
+            _libs[source] = lib
+    return _libs[source]
 
 
 def build() -> ctypes.CDLL:
     """Compile (when the source changed) and load the unfilter library."""
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            path, _ = build_library(SOURCE, find_tool(["c++", "g++"]), CXX_FLAGS)
-            lib = ctypes.CDLL(str(path))
-            lib.radet_png_unfilter.argtypes = [
-                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
-            ]
-            lib.radet_png_unfilter.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+    return _load(SOURCE, _UNFILTER_API)
+
+
+def build_jpeg() -> ctypes.CDLL:
+    """Compile (when the source changed) and load the JPEG decoder."""
+    return _load(JPEG_SOURCE, _JPEG_API)
 
 
 def _check_raw(raw: np.ndarray, height: int, stride: int, bpp: int) -> None:
@@ -155,13 +190,13 @@ def decode_png(data: bytes, unfilter_fn=unfilter) -> np.ndarray:
     if compression != 0 or filter_method != 0:
         raise ValueError(f"corrupt PNG: compression {compression}, filter method {filter_method}")
     if interlace:
-        raise NotImplementedError(f"interlaced (Adam7) PNG is not decoded ({_PNG_VARIANTS})")
+        raise NotImplementedError(f"interlaced (Adam7) PNG is not decoded ({_VARIANTS})")
     if color_type == 3:
-        raise NotImplementedError(f"palette PNG is not decoded ({_PNG_VARIANTS})")
+        raise NotImplementedError(f"palette PNG is not decoded ({_VARIANTS})")
     if color_type not in _CHANNELS:
         raise ValueError(f"corrupt PNG: color type {color_type}")
     if depth not in (8, 16):
-        raise NotImplementedError(f"{depth}-bit PNG is not decoded ({_PNG_VARIANTS})")
+        raise NotImplementedError(f"{depth}-bit PNG is not decoded ({_VARIANTS})")
     channels, nbytes = _CHANNELS[color_type], depth // 8
     stride = width * channels * nbytes
     raw = zlib.decompress(b"".join(idat), bufsize=height * (stride + 1))
@@ -173,13 +208,58 @@ def decode_png(data: bytes, unfilter_fn=unfilter) -> np.ndarray:
     return rows.reshape(height, width, channels)
 
 
+def _jpeg_check(code: int, msg) -> None:
+    if code == 1:
+        raise ValueError(f"corrupt JPEG: {msg.value.decode()}")
+    if code:
+        raise NotImplementedError(f"{msg.value.decode()} ({_VARIANTS})")
+
+
+def jpeg_info(data: bytes):
+    """(width, height, components, EXIF orientation or 0) of a JPEG file's
+    header; raises as :func:`decode_jpeg`."""
+    out = [ctypes.c_int() for _ in range(4)]
+    msg = ctypes.create_string_buffer(256)
+    _jpeg_check(build_jpeg().radet_jpeg_info(data, len(data), *out, msg, len(msg)), msg)
+    return tuple(v.value for v in out)
+
+
+def decode_jpeg(data: bytes, gray: bool = False) -> np.ndarray:
+    """A JPEG file's pixels as ``cv2.imread`` decodes them, without the EXIF
+    turn: (H, W) uint8 luma (or gray) when ``gray``, else (H, W, 3) RGB.
+    Raises ``ValueError`` on a corrupt file and ``NotImplementedError`` on a
+    variant that is not decoded."""
+    width, height, _, _ = jpeg_info(data)
+    out = np.empty((height, width) if gray else (height, width, 3), np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    code = build_jpeg().radet_jpeg_decode(data, len(data), int(gray), out.ctypes.data, out.size, msg, len(msg))
+    _jpeg_check(code, msg)
+    return out
+
+
+def _imread_jpeg(path: str, data: bytes, flags: int) -> np.ndarray:
+    _, _, components, orientation = jpeg_info(data)
+    if flags == IMREAD_UNCHANGED:
+        if components == 1:
+            return decode_jpeg(data, gray=True)
+        return np.ascontiguousarray(decode_jpeg(data)[..., ::-1])
+    if flags not in (IMREAD_COLOR, IMREAD_GRAYSCALE):
+        raise ValueError(f"flags must be IMREAD_COLOR, IMREAD_GRAYSCALE or IMREAD_UNCHANGED, got {flags}")
+    if 2 <= orientation <= 8:
+        raise NotImplementedError(
+            f"{path}: EXIF orientation {orientation} (cv2.imread turns the image by it) is not applied "
+            f"({_VARIANTS})"
+        )
+    return decode_jpeg(data, gray=flags == IMREAD_GRAYSCALE)
+
+
 def imread(path: str, flags: int = IMREAD_COLOR) -> np.ndarray:
-    """``cv2.imread(path, flags)`` for PNG files, RGB for ``IMREAD_COLOR``
-    (see the module docstring)."""
+    """``cv2.imread(path, flags)`` for PNG and JPEG files, RGB for
+    ``IMREAD_COLOR`` (see the module docstring)."""
     with open(path, "rb") as f:  # a missing file raises FileNotFoundError
         data = f.read()
     if data.startswith(b"\xff\xd8\xff"):
-        raise NotImplementedError(f"{path}: JPEG is not decoded ({_JPEG})")
+        return _imread_jpeg(path, data, flags)
     if data[:4] in (b"II*\x00", b"MM\x00*"):
         raise NotImplementedError(f"{path}: TIFF is not decoded ({_TIFF})")
     if not data.startswith(_PNG_SIGNATURE):
@@ -198,7 +278,7 @@ def imread(path: str, flags: int = IMREAD_COLOR) -> np.ndarray:
     if flags == IMREAD_GRAYSCALE:
         if channels > 2:
             raise NotImplementedError(
-                f"{path}: a color PNG read as grayscale is not converted ({_PNG_VARIANTS})"
+                f"{path}: a color PNG read as grayscale is not converted ({_VARIANTS})"
             )
         return np.ascontiguousarray(samples[..., 0])
     if flags != IMREAD_COLOR:

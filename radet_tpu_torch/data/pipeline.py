@@ -7,20 +7,40 @@ gt_labels, gt_masks, img_shape, scale_factor, distance_maps, dist_vals,
 only assignment work is :class:`SampleDistanceAtAnchors`: the distance-map
 value of every GT at every anchor center; the assignment itself runs in the
 train step.
+
+The random transforms draw as the JAX package's do, from Python's
+``random`` (``RandomFlip``, ``RandomBackground``), so that both packages
+take the same decisions from the same seed; a ``seed`` gives a transform a
+generator of its own.
 """
 
 from __future__ import annotations
 
+import glob
 import os.path as osp
+import random
+import threading
+from collections import OrderedDict
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .image_io import imread_rgb
+from .image_io import IMREAD_GRAYSCALE, IMREAD_UNCHANGED, imread, imread_rgb
 
-_TRAIN_FILES = "ROADMAP.md Queue 1 item 7, training from files"
+_COSYPOSE = "ROADMAP.md Queue 1 item 7b, CosyPoseAug and polygon masks"
 _MASK_FREE = "ROADMAP.md Queue 1 item 17, mask-free distance maps"
 _TTA = "ROADMAP.md Queue 1 item 12, TTA"
+_OTHER = "ROADMAP.md Queue 1 item 12, other transforms and dataset types"
+# the JAX package's CosyPoseAug and the enhancement ops it chains
+_COSYPOSE_TYPES = ("CosyPoseAug", "PillowBlur", "PillowSharpness", "PillowContrast",
+                   "PillowBrightness", "PillowColor")
+
+
+def _generator(seed: Optional[int]) -> Optional[random.Random]:
+    """A transform's generator: ``random.Random(seed)``, or None for
+    Python's global ``random`` (which the loader's process workers seed per
+    task).  Either pickles, as process workers need."""
+    return None if seed is None else random.Random(seed)
 
 
 class LoadImageFromFile:
@@ -34,6 +54,41 @@ class LoadImageFromFile:
         results["img_shape"] = img.shape[:2]
         results["ori_shape"] = img.shape[:2]
         results["scale_factor"] = np.array([1.0, 1.0, 1.0, 1.0], np.float32)
+        return results
+
+
+class LoadAnnotations:
+    """``gt_bboxes`` and ``gt_labels`` from ``ann_info``; with
+    ``with_bop_mask`` also the visible masks ``gt_masks`` (G, H, W) uint8
+    0/1: from the packed id map ``ann_info['mask_packed']``
+    (``tools/pack_masks.py``: one PNG per image, GT ``i`` where it equals
+    ``masks_idx[i] + 1``) when that file exists under ``seg_prefix``, else
+    from each GT's ``mask_visib`` PNG (nonzero is foreground).  Polygon
+    ``segmentations`` (the JAX package's ``cv2.fillPoly``) raise."""
+
+    def __init__(self, with_bbox: bool = True, with_bop_mask: bool = False, poly2mask: bool = True):
+        self.with_bbox = with_bbox
+        self.with_bop_mask = with_bop_mask
+        self.poly2mask = poly2mask
+
+    def __call__(self, results: Dict[str, Any]) -> Dict[str, Any]:
+        ann = results["ann_info"]
+        results["gt_bboxes"] = ann["bboxes"].copy()
+        results["gt_labels"] = ann["labels"].copy()
+        if not self.with_bop_mask:
+            return results
+        h, w = results["img_info"]["height"], results["img_info"]["width"]
+        seg_prefix = results.get("seg_prefix", "")
+        if ann.get("segmentations") is not None and self.poly2mask:
+            raise NotImplementedError(f"masks from polygon segmentations are not ported ({_COSYPOSE})")
+        packed = osp.join(seg_prefix, ann["mask_packed"]) if ann.get("mask_packed") else None
+        if packed and osp.exists(packed):
+            ids = imread(packed, IMREAD_UNCHANGED)
+            masks = [(ids == i + 1).astype(np.uint8) for i in ann["masks_idx"]]
+        else:
+            masks = [(imread(osp.join(seg_prefix, m), IMREAD_GRAYSCALE) > 0).astype(np.uint8)
+                     for m in ann["masks"]]
+        results["gt_masks"] = np.stack(masks, 0) if masks else np.zeros((0, h, w), np.uint8)
         return results
 
 
@@ -131,23 +186,21 @@ class Resize:
             b[:, 0::2] = b[:, 0::2].clip(0, new_w)
             b[:, 1::2] = b[:, 1::2].clip(0, new_h)
             results["gt_bboxes"] = b
-        if "gt_masks" in results and len(results["gt_masks"]):
+        if "gt_masks" in results and len(results["gt_masks"]) and (new_w, new_h) != (w0, h0):
             results["gt_masks"] = np.stack([resize_nearest(m, (new_w, new_h)) for m in results["gt_masks"]], 0)
         return results
 
 
 class RandomFlip:
     """Horizontal flip of image, boxes and masks with probability
-    ``flip_ratio``: drawn from ``np.random.RandomState(seed)``, or with
-    ``seed=None`` from numpy's global generator (which the loader's process
-    workers seed per sample)."""
+    ``flip_ratio``, drawn as ``random.random()`` (see :func:`_generator`)."""
 
     def __init__(self, flip_ratio: float = 0.5, seed: Optional[int] = None):
         self.flip_ratio = flip_ratio
-        self.rng = np.random if seed is None else np.random.RandomState(seed)
+        self.rng = _generator(seed)
 
     def __call__(self, results: Dict[str, Any]) -> Dict[str, Any]:
-        if self.rng.random_sample() >= self.flip_ratio:
+        if (self.rng or random).random() >= self.flip_ratio:
             return results
         img = results["img"]
         w = img.shape[1]
@@ -159,6 +212,67 @@ class RandomFlip:
             results["gt_bboxes"] = b
         if "gt_masks" in results and len(results["gt_masks"]):
             results["gt_masks"] = np.ascontiguousarray(np.flip(results["gt_masks"], 2))
+        return results
+
+
+class RandomBackground:
+    """With probability ``prob``, the pixels outside every GT mask come from
+    a background image: one of the sorted ``*.jpg`` and ``*.png`` files of
+    ``background_dir``, read as RGB and resized to the image (``cv2.resize``'s
+    INTER_LINEAR, :func:`resize_linear`).  The draws are the JAX package's:
+    ``random()`` against ``prob``, then ``choice`` of a file (see
+    :func:`_generator`).  Decoded, resized backgrounds are kept in an LRU
+    cache of ``cache_size`` entries keyed by (path, h, w)."""
+
+    def __init__(self, background_dir: str, prob: float = 0.3, cache_size: int = 32,
+                 seed: Optional[int] = None):
+        self.background_dir = background_dir
+        self.prob = prob
+        self.files = sorted(glob.glob(osp.join(background_dir, "*.jpg"))
+                            + glob.glob(osp.join(background_dir, "*.png")))
+        if not self.files:
+            raise RuntimeError(f"No background images found in {background_dir}")
+        self.cache_size = int(cache_size)
+        self.rng = _generator(seed)
+        self._cache: "OrderedDict" = OrderedDict()
+        self._lock = threading.Lock()  # loader threads share the cache
+
+    def __getstate__(self):  # process workers: each starts with an empty cache
+        state = dict(self.__dict__, _cache=OrderedDict())
+        del state["_lock"]
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state, _lock=threading.Lock())
+
+    def _background(self, path: str, h: int, w: int) -> np.ndarray:
+        key = (path, h, w)
+        with self._lock:
+            bg = self._cache.get(key)
+            if bg is not None:
+                self._cache.move_to_end(key)
+                return bg
+        bg = imread_rgb(path)  # decoded outside the lock: threads decode in parallel
+        if bg.shape[:2] != (h, w):
+            bg = resize_linear(bg, (w, h))
+        if self.cache_size > 0:
+            with self._lock:
+                self._cache[key] = bg
+                while len(self._cache) > self.cache_size:
+                    self._cache.popitem(last=False)
+        return bg
+
+    def __call__(self, results: Dict[str, Any]) -> Dict[str, Any]:
+        rng = self.rng or random
+        if rng.random() > self.prob:
+            return results
+        if "gt_masks" not in results or not len(results["gt_masks"]):
+            return results
+        img = results["img"]
+        h, w = img.shape[:2]
+        bg = self._background(rng.choice(self.files), h, w)
+        foreground = results["gt_masks"].any(axis=0)
+        results["img"] = np.where(foreground[..., None], img, bg)
         return results
 
 
@@ -245,7 +359,9 @@ class Compose:
 
 _TRANSFORMS = {
     "LoadImageFromFile": LoadImageFromFile,
+    "LoadAnnotations": LoadAnnotations,
     "Resize": Resize,
+    "RandomBackground": RandomBackground,
     "RandomFlip": RandomFlip,
     "GenerateDistanceMap": GenerateDistanceMap,
 }
@@ -271,9 +387,14 @@ def build_pipeline(
     since images are decoded RGB) and the formatting entries.  A
     ``MultiScaleFlipAug`` with one scale and ``flip=False`` is unwrapped,
     its scale going to the inner ``Resize``; other test-time augmentation
-    raises.  Any type besides these, ``LoadImageFromFile``, ``Resize``,
-    ``RandomFlip`` and ``GenerateDistanceMap`` raises
-    ``NotImplementedError``."""
+    raises.  Any type besides these and ``_TRANSFORMS``' raises
+    ``NotImplementedError``; ``CosyPoseAug`` and its ops do so before any
+    transform is built (so before ``RandomBackground`` lists its
+    directory)."""
+    for t_cfg in pipeline_cfg:
+        t_type = t_cfg["type"]
+        if t_type in _COSYPOSE_TYPES:
+            raise NotImplementedError(f"transform {t_type!r} is not ported ({_COSYPOSE})")
     ts = []
 
     def add(t_cfg):
@@ -319,7 +440,7 @@ def build_pipeline(
         elif t_type in _TRANSFORMS:
             ts.append(_TRANSFORMS[t_type](**t_cfg))
         else:
-            raise NotImplementedError(f"transform {t_type!r} is not ported ({_TRAIN_FILES})")
+            raise NotImplementedError(f"transform {t_type!r} is not ported ({_OTHER})")
 
     for t_cfg in pipeline_cfg:
         add(t_cfg)

@@ -1,7 +1,9 @@
 """Synthetic BOP data without cv2 or JAX, shared by the port's tests
 (tests/test_torch_*.py) and its card script (chip_smoke.py): in-memory
 training records of filled rectangles, an 8-bit PNG writer whose rows cycle
-through all five PNG filters, and a BOP test split written with it."""
+through all five PNG filters, a BOP test split written with it, a BOP
+training split of given JPEG files with ``mask_visib`` PNGs, and a config
+that trains the flagship from such a split."""
 
 import json
 import os
@@ -10,6 +12,12 @@ import struct
 import zlib
 
 import numpy as np
+
+# tests/data/jpeg: JPEG files written by cv2 (make_fixtures.py) from the
+# first records of synthetic_bop_records(RandomState(JPEG_FIXTURE_SEED), ...)
+# at 480x640, and the SHA-256 of cv2's decode of each (hashes.json)
+JPEG_FIXTURES = osp.join(osp.dirname(osp.abspath(__file__)), "data", "jpeg")
+JPEG_FIXTURE_SEED = 7
 
 
 def synthetic_bop_records(rng, n, hw, num_classes=21, max_objects=6):
@@ -93,3 +101,53 @@ def write_bop_test_set(root: str, rng, groups, class_names, max_objects: int = 6
     with open(ann_file, "w") as f:
         json.dump(dict(images=images, annotations=annotations, categories=categories), f)
     return ann_file
+
+
+def write_bop_train_set(root: str, records, jpegs, class_names) -> str:
+    """A BOP ``train_pbr`` split of one scene: image ``i`` is the JPEG file
+    ``jpegs[i % len(jpegs)]`` (its bytes, as they are) annotated with record
+    ``i``'s boxes and labels, and its visible masks as ``mask_visib`` PNGs
+    (255 on the object); ``visib_fract`` is the mask's share of its box.
+    Writes ``root/train_pbr/000000/...`` and ``root/train.json``; returns
+    the json's path."""
+    scene = osp.join(root, "train_pbr", "000000")
+    for sub in ("rgb", "mask_visib"):
+        os.makedirs(osp.join(scene, sub), exist_ok=True)
+    images, annotations = [], []
+    for i, rec in enumerate(records):
+        h, w = rec["img"].shape[:2]
+        with open(osp.join(scene, "rgb", f"{i:06d}.jpg"), "wb") as f:
+            f.write(jpegs[i % len(jpegs)])
+        images.append(dict(id=i + 1, file_name=f"000000/rgb/{i:06d}.jpg", height=h, width=w))
+        for a, ((x1, y1, x2, y2), c, m) in enumerate(zip(rec["gt_bboxes"].tolist(), rec["gt_labels"].tolist(),
+                                                         rec["gt_masks"])):
+            write_png(osp.join(scene, "mask_visib", f"{i:06d}_{a:06d}.png"), m * np.uint8(255))
+            area = (x2 - x1) * (y2 - y1)
+            annotations.append(dict(id=len(annotations) + 1, image_id=i + 1, category_id=c + 1,
+                                    bbox=[x1, y1, x2 - x1, y2 - y1], area=area, iscrowd=0,
+                                    visib_fract=float(m.sum()) / area))
+    categories = [dict(id=c + 1, name=str(n)) for c, n in enumerate(class_names)]
+    ann_file = osp.join(root, "train.json")
+    with open(ann_file, "w") as f:
+        json.dump(dict(images=images, annotations=annotations, categories=categories), f)
+    return ann_file
+
+
+def write_train_config(path: str, base: str, ann_file: str, img_prefix: str, background_dir: str) -> str:
+    """A config file at ``path`` that is ``base`` training from the given
+    split: ``data.train`` reads ``ann_file`` under ``img_prefix`` through
+    ``base``'s ``train_pipeline`` without ``CosyPoseAug`` (not ported:
+    ROADMAP.md item 7b), its ``RandomBackground`` reading
+    ``background_dir``.  Returns ``path``."""
+    from radet_tpu_torch.utils.config import Config
+
+    pipeline = [dict(t) for t in Config.fromfile(base).to_dict()["train_pipeline"] if t["type"] != "CosyPoseAug"]
+    for t in pipeline:
+        if t["type"] == "RandomBackground":
+            t["background_dir"] = background_dir
+    with open(path, "w") as f:
+        f.write(f"_base_ = [{osp.abspath(base)!r}]\n"
+                f"train_pipeline = {pipeline!r}\n"
+                f"data = dict(train=dict(ann_file={ann_file!r}, img_prefix={img_prefix!r}, "
+                f"pipeline=train_pipeline))\n")
+    return path

@@ -161,8 +161,14 @@ def test_bop_dataset_matches_jax(png_set):
 def test_unported_dataset_paths_raise(png_set):
     opts = png_set
     cfg = Config.fromfile(FLAGSHIP, opts)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        build_dataset(cfg, "test", test_mode=False)
+    landscape = Config.fromfile(FLAGSHIP, opts + ["data.test.orientation='landscape'"])
+    train_view = build_dataset(landscape, "test", test_mode=False)  # the test pipeline loads no GT
+    assert not train_view.test_mode
+    with pytest.raises(RuntimeError, match="could not draw a valid training sample"):
+        train_view[0]
+    cosy = Config.fromfile(FLAGSHIP, opts + ["data.test.pipeline.1.type='CosyPoseAug'"])
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        build_dataset(cosy, "test", test_mode=False)
     for wrapper in ("RepeatDataset", "CocoDataset"):
         bad = Config.fromfile(FLAGSHIP, opts + [f"data.test.type={wrapper!r}"])
         with pytest.raises(NotImplementedError, match="item 12"):

@@ -403,13 +403,19 @@ def test_samples_are_packed_and_resampled():
 
 
 def test_unported_training_options_raise(tmp_path):
+    from fixtures import make_synthetic_bop
+
     cfg = Config.fromfile(FLAGSHIP, TRAIN)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        train_detector(cfg, work_dir=str(tmp_path), device="cpu")
+    ann, prefix = make_synthetic_bop(str(tmp_path / "bop"), images_per_scene=2, img_hw=IMG_HW, num_classes=4)
+    files = Config.fromfile(FLAGSHIP, TRAIN + [f"data.train.ann_file={ann!r}", f"data.train.img_prefix={prefix!r}",
+                                               "data.train.classes=None"])
+    with pytest.raises(NotImplementedError, match="item 7b"):  # the flagship train_pipeline's CosyPoseAug
+        train_detector(files, work_dir=str(tmp_path), device="cpu")
     with pytest.raises(NotImplementedError, match="item 17"):
         GenerateDistanceMap(with_gt_mask=False)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        build_pipeline([dict(type="LoadAnnotations", with_bbox=True, with_bop_mask=True)])
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        build_pipeline([dict(type="LoadAnnotations", with_bbox=True, with_bop_mask=True),
+                        dict(type="CosyPoseAug", p=0.8)])
     ds = InMemoryBOPDataset(synthetic_records(np.random.RandomState(0), 2, IMG_HW, 4),
                             train_transforms(IMG_HW, max_gt=32), max_gt=32)
     # the periodic eval reaches an unported val dataset type at step 1
