@@ -4,10 +4,14 @@
 Run from the repository root, with one card:  python3 chip_smoke.py
 
 1. prints the card and builds, in parallel, the vote-NMS kernel, the host
-   PNG unfilter and the host JPEG decoder from ``radet_tpu_torch/csrc``;
-   holds the decoder to cv2's recorded SHA-256 of the committed fixtures
-   (``tests/data/jpeg``; this machine has no cv2) and times JPEG decode
-   beside PNG decode of the same pixels;
+   PNG unfilter, the host JPEG decoder and the host CosyPose ops from
+   ``radet_tpu_torch/csrc``; holds the decoder to cv2's recorded SHA-256 of
+   the committed fixtures (``tests/data/jpeg``; this machine has no cv2)
+   and times JPEG decode beside PNG decode of the same pixels; holds
+   ``csrc/color_aug.cpp`` and its numpy twins (every CosyPose op at fixed
+   factors, the blur at sigma 1-3, on those fixtures) and ``fill_poly``
+   (fixed polygons) to cv2's recorded hashes (``tests/data/color_aug``)
+   and times each op;
 2. holds the kernel against its plain PyTorch version, run in float64 on
    the CPU (the reference of every comparison below), on synthetic
    clustered candidates (B=128, K in {512, 1024}, global_mode x iou_enable);
@@ -47,20 +51,28 @@ Run from the repository root, with one card:  python3 chip_smoke.py
    the CPU at batch 1 (same weights, batch, assignment noise and ReLU
    decisions);
 7. trains from files: writes a JPEG ``train_pbr`` split (64 copies of the
-   480x640 fixtures with their records' boxes and ``mask_visib`` PNGs) and a
-   background directory (JPEG, and PNG at 427x640, which are resized), and a
-   config whose ``_base_`` is the flagship training from them without
-   ``CosyPoseAug`` (not ported); times each transform of that pipeline on
-   one thread and the loader at 4 and 8 threads; times the train step
+   480x640 fixtures with their records' boxes and ``mask_visib`` PNGs), a
+   ``train_real`` split of 32 more, and a background directory (JPEG, and
+   PNG at 427x640, which are resized), and a config whose ``_base_`` is
+   the flagship training from ``train_pbr`` through its own
+   ``train_pipeline`` (``RandomBackground`` and ``CosyPoseAug`` included);
+   times each transform of that pipeline, and each of CosyPoseAug's ops,
+   on one thread and the loader at 4 and 8 threads; times the train step
    with that loader idle and busy in the background (thread and process
-   workers), in turns; runs
-   ``python -m
-   radet_tpu_torch.tools.train`` on it in a subprocess (full width, bf16,
-   batch 16, 4 loader workers, 30 steps, one eval on the PNG set's
-   landscape images), with thread and then with process workers, checks
-   each run's checkpoint and its eval's vote-NMS launches, and prints its
-   img/s beside the in-memory trainer's and the share of each step spent
-   waiting on the loader.
+   workers), in turns; runs ``python -m radet_tpu_torch.tools.train`` on
+   it in a subprocess (full width, bf16, batch 16, 4 loader workers, 30
+   steps, one eval on the PNG set's landscape images), with thread and
+   then with process workers, checks each run's checkpoint and its eval's
+   vote-NMS launches, and prints its img/s beside the in-memory trainer's
+   and the share of each step spent waiting on the loader;
+8. fine-tunes from files as the paper's second stage: the train CLI on a
+   config whose ``_base_`` is ``configs/bop/r50_ycbv_mixpbr.py``
+   (``MixDataset`` of train_pbr x 2 and train_real x 1), full width, bf16,
+   batch 16, 10 steps, one eval, ``load_from`` the thread run's
+   checkpoints; checks the 2:1 layout and the draws from both splits, the
+   load of every tensor, finite losses, the frozen stages kept and the
+   head moved, and the eval's vote-NMS launches, and prints its img/s and
+   wait share.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero before it.  Without a CUDA card, or outside the repository, the
@@ -110,6 +122,11 @@ FILES_IMAGES = 64
 BACKGROUNDS = 48
 FILES_STEPS = 30
 FILES_WORKERS = 4
+# the mixpbr fine-tune: a train_real split of REAL_IMAGES fixture copies
+# beside train_pbr, MIX_CONFIG (configs/bop) over both, MIX_STEPS steps
+REAL_IMAGES = 32
+MIX_CONFIG = "r50_ycbv_mixpbr.py"
+MIX_STEPS = 10
 # the bound of a vote-NMS call: H100 SXM peaks (NVIDIA's data sheet) and
 # float32 operations per unit of work
 F32_PEAK = 67e12  # FLOP/s, float32 outside the tensor cores
@@ -590,6 +607,66 @@ def decode_phase(gpu: str, work: str) -> None:
     print(f"timing: imread 480x640 RGB, one thread, mean of 10: " + "; ".join(parts) + f" [host of {gpu}]")
 
 
+def color_aug_phase(gpu: str) -> None:
+    """The card machine's build of ``csrc/color_aug.cpp`` (and the numpy
+    twins) and ``data/poly.py::fill_poly`` against the committed cv2 hashes
+    of tests/data/color_aug: every CosyPose op at the recorded factors and
+    the blur at sigma 1-3 on the JPEG fixtures, and the masks of the fixed
+    polygons; then each op's ms per call on a 480x640 image, one thread."""
+    import hashlib
+
+    from radet_tpu_torch.data import color_aug, image_io
+    from radet_tpu_torch.data.pipeline import LoadAnnotations
+    from synthetic_bop import JPEG_FIXTURES
+
+    with open(osp.join(osp.dirname(JPEG_FIXTURES), "color_aug", "hashes.json")) as f:
+        hashes = json.load(f)
+
+    def sha(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    def run(key, img, ops):
+        op, arg = key.split()
+        return ops.blur(img, int(arg)) if op == "Blur" else color_aug.enhance(op, img, float(arg), ops)
+
+    checked = 0
+    for name, rec in sorted(hashes["images"].items()):
+        img = image_io.imread(osp.join(JPEG_FIXTURES, name))
+        if sha(img) != rec["rgb_sha256"]:
+            fail(f"the decode of {name} differs from cv2's recorded hash")
+        for key, want in rec["ops"].items():
+            for label, ops in (("C++", color_aug.NATIVE), ("numpy twin", color_aug.PLAIN)):
+                if sha(run(key, img, ops)) != want:
+                    fail(f"{label} {key} on {name} differs from cv2 {hashes['cv2']}'s recorded hash")
+                checked += 1
+    polys = hashes["polygons"]
+    h, w = polys["hw"]
+    n = len(polys["masks"])
+    ann = dict(bboxes=np.zeros((n, 4), np.float32), labels=np.zeros(n, np.int64),
+               segmentations=polys["segmentations"])
+    load = LoadAnnotations(with_bop_mask=True)
+    masks = load(dict(img_info=dict(height=h, width=w), ann_info=ann))["gt_masks"]
+    if [sha(m) for m in masks] != polys["masks"]:
+        fail(f"fill_poly's masks differ from cv2 {hashes['cv2']}'s recorded fillPoly hashes")
+    print(f"color_aug: {checked} outputs of csrc/color_aug.cpp and its numpy twins on "
+          f"{sorted(hashes['images'])} and {n} polygon masks equal cv2 {hashes['cv2']}'s recorded SHA-256")
+
+    img = image_io.imread(osp.join(JPEG_FIXTURES, "ycbv_420.jpg"))
+    parts = []
+    for key in ["Blur 1", "Blur 2", "Blur 3"] + [f"{op} {f[1]}" for op, f in hashes["factors"].items()]:
+        run(key, img, color_aug.NATIVE)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            run(key, img, color_aug.NATIVE)
+        parts.append(f"{key} {(time.perf_counter() - t0) * 100:.2f}")
+    t0 = time.perf_counter()
+    for _ in range(10):
+        load(dict(img_info=dict(height=h, width=w), ann_info=ann))
+    print(f"timing: CosyPose ops on a 480x640 RGB image, ms per call, one thread, mean of 10: "
+          + ", ".join(parts) + f"; fill_poly of the {n} fixed polygons "
+          f"{(time.perf_counter() - t0) * 100 / n:.2f} per object [host of {gpu}]")
+
+
 def median_iter(lines, skip: int = 5):
     """(median ms/iter, median data-wait ms/iter) of the trainer's log lines
     after the first ``skip``."""
@@ -599,9 +676,11 @@ def median_iter(lines, skip: int = 5):
 
 
 def write_train_files(config: str, work: str):
-    """The from-files training split and backgrounds in ``work``; returns
-    the run-time config (``config`` training from them, without
-    CosyPoseAug)."""
+    """The from-files training splits and backgrounds in ``work``: a
+    ``train_pbr`` split of FILES_IMAGES images and a ``train_real`` split of
+    REAL_IMAGES.  Returns (the run-time config of ``config`` training from
+    ``train_pbr`` through its own train_pipeline, that of MIX_CONFIG's
+    ``MixDataset`` over both splits)."""
     from radet_tpu_torch.data import image_io
     from radet_tpu_torch.utils import Config
     from synthetic_bop import (
@@ -623,6 +702,8 @@ def write_train_files(config: str, work: str):
     names = Config.fromfile(config).CLASS_NAMES
     t0 = time.perf_counter()
     ann = write_bop_train_set(work, [records[i % len(jpegs)] for i in range(FILES_IMAGES)], jpegs, names)
+    real = write_bop_train_set(work, [records[i % len(jpegs)] for i in range(REAL_IMAGES)], jpegs, names,
+                               split="train_real")
     bg_dir = osp.join(work, "backgrounds")
     os.makedirs(bg_dir)
     smooth = image_io.imread(osp.join(JPEG_FIXTURES, fixtures[0][0]))[:427]
@@ -633,11 +714,14 @@ def write_train_files(config: str, work: str):
         write_png(osp.join(bg_dir, f"{i:06d}.png"), np.roll(smooth, 37 * i, axis=1) // rng.randint(1, 4))
     with open(ann) as f:
         n_obj = len(json.load(f)["annotations"])
-    print(f"train from files: {FILES_IMAGES} JPEG images 480x640 (copies of the {len(jpegs)} fixtures, "
-          f"{n_obj} objects with mask_visib PNGs), {BACKGROUNDS} JPEG and {BACKGROUNDS} PNG (427x640) "
-          f"backgrounds, written in {time.perf_counter() - t0:.1f} s")
-    return write_train_config(osp.join(work, "train_config.py"), config, ann,
-                              osp.join(work, "train_pbr") + "/", bg_dir)
+    print(f"train from files: {FILES_IMAGES} JPEG images 480x640 in train_pbr and {REAL_IMAGES} in train_real "
+          f"(copies of the {len(jpegs)} fixtures; train_pbr {n_obj} objects with mask_visib PNGs), "
+          f"{BACKGROUNDS} JPEG and {BACKGROUNDS} PNG (427x640) backgrounds, written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    prefix = osp.join(work, "train_pbr") + "/"
+    return (write_train_config(osp.join(work, "train_config.py"), config, ann, prefix, bg_dir),
+            write_train_config(osp.join(work, "mix_config.py"), str(Path(config).parent / MIX_CONFIG), ann,
+                               prefix, bg_dir, real=(real, osp.join(work, "train_real") + "/")))
 
 
 def loader_phase(train_config: str, gpu: str) -> None:
@@ -647,29 +731,38 @@ def loader_phase(train_config: str, gpu: str) -> None:
     from radet_tpu_torch.data import DataLoader
     from radet_tpu_torch.utils import Config
 
+    from radet_tpu_torch.data.color_aug import CosyPoseAug
+
     cfg = Config.fromfile(train_config)
     dataset = build_dataset(cfg, "train")
     transforms = dataset.pipeline.transforms
     spent = dict.fromkeys((type(t).__name__ for t in transforms), 0.0)
+    cosy = next(t for t in transforms if isinstance(t, CosyPoseAug))
+    cosy_ops = cosy.ops
+    op_names = [getattr(op, "name", type(op).__name__) for op in cosy_ops]
+    op_spent = dict.fromkeys(op_names, 0.0)
 
-    def timed(t):
-        def run(results):
+    def timed(t, name, into):
+        def run(x):
             t0 = time.perf_counter()
-            out = t(results)
-            spent[type(t).__name__] += time.perf_counter() - t0
+            out = t(x)
+            into[name] += time.perf_counter() - t0
             return out
         return run
 
     n = 48
-    dataset.pipeline.transforms = [timed(t) for t in transforms]
+    dataset.pipeline.transforms = [timed(t, type(t).__name__, spent) for t in transforms]
+    cosy.ops = [timed(op, name, op_spent) for op, name in zip(cosy_ops, op_names)]
     t0 = time.perf_counter()
     for i in range(n):
         dataset[i % len(dataset)]
     total = (time.perf_counter() - t0) * 1000 / n
-    dataset.pipeline.transforms = transforms
-    print(f"loader: one thread, {total:.2f} ms per sample (mean of {n}): "
+    dataset.pipeline.transforms, cosy.ops = transforms, cosy_ops
+    print(f"loader: one thread, the flagship's train_pipeline, {total:.2f} ms per sample (mean of {n}): "
           + ", ".join(f"{k} {v * 1000 / n:.2f}" for k, v in spent.items())
           + f", packing and the rest {total - sum(spent.values()) * 1000 / n:.2f} [host of {gpu}]")
+    print(f"loader: CosyPoseAug (p {cosy.p}) by op, ms per sample over all {n} samples: "
+          + ", ".join(f"{k} {v * 1000 / n:.2f}" for k, v in op_spent.items()) + f" [host of {gpu}]")
     batch = int(cfg.data.samples_per_gpu)
     for workers in (FILES_WORKERS, 8):
         it = iter(DataLoader(dataset, batch_size=batch, num_workers=workers, seed=SEED, infinite=True))
@@ -754,54 +847,123 @@ def contention_phase(train_config: str, gpu: str, device: str = "cuda") -> None:
         torch.cuda.empty_cache()
 
 
-def files_phase(train_config: str, gpu: str, eval_opts, memory_ms: float, device: str = "cuda") -> None:
+def train_cli(config: str, work_dir: str, steps: int, mode: str, eval_opts, *opts, device: str = "cuda"):
+    """``python -m radet_tpu_torch.tools.train`` on ``config`` in a
+    subprocess for ``steps`` steps with ``data.workers_per_gpu`` =
+    FILES_WORKERS workers of ``mode``, one eval at the last step and a
+    checkpoint there; checks its steps, eval, vote-NMS launches, losses and
+    checkpoint.  Returns (iter lines, the 'train dataset:' line, launches,
+    seconds, the log)."""
+    from radet_tpu_torch.engine import load_weights
+
+    cmd = [sys.executable, "-m", "radet_tpu_torch.tools.train", config, "--work-dir", work_dir,
+           "--device", device, "--max-iters", str(steps), "--cfg-options", "log_config.interval=1",
+           f"checkpoint_config.interval={steps}", f"evaluation.interval={steps}",
+           f"data.workers_per_gpu={FILES_WORKERS}", f"data.worker_mode={mode!r}", *eval_opts, *opts]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=str(Path(__file__).resolve().parent),
+                          timeout=900)
+    run_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"the train CLI on {osp.basename(config)} ({mode} workers) exited {proc.returncode}:\n"
+             f"{proc.stderr[-3000:]}")
+    log = [ln.split(" - ")[-1] for ln in proc.stderr.splitlines()]
+    iters = [ln for ln in log if ln.startswith("iter ")]
+    evals = [ln for ln in log if ln.startswith("eval: ")]
+    launches = sum(int(n) for ln in log for n in re.findall(r"vote_nms kernel launches (\d+)", ln))
+    dataset = next((ln for ln in log if ln.startswith("train dataset:")), "")
+    ckpt = osp.join(work_dir, "checkpoints")
+    saved = sorted(int(d) for d in os.listdir(ckpt) if d.isdigit()) if osp.isdir(ckpt) else []
+    for ln in (iters[0], iters[len(iters) // 2], iters[-1]):
+        print(f"  {ln}")
+    for ln in evals:
+        print(f"  {ln}; vote_nms kernel launches {launches}")
+    if len(iters) != steps or len(evals) != 1 or launches < 1:
+        fail(f"{len(iters)} steps, {len(evals)} evals, {launches} vote_nms launches in the run on "
+             f"{osp.basename(config)}")
+    if steps not in saved or not load_weights(ckpt):
+        fail(f"the run on {osp.basename(config)} wrote checkpoints {saved}, not step {steps}")
+    history = [float(v) for ln in iters for v in re.findall(r" loss (\S+)", ln)]
+    if len(history) != steps or not all(math.isfinite(v) for v in history):
+        fail(f"non-finite or missing losses in the run on {osp.basename(config)}")
+    return iters, dataset, launches, run_s, log
+
+
+def files_phase(train_config: str, gpu: str, eval_opts, memory_ms: float, device: str = "cuda") -> str:
     """``python -m radet_tpu_torch.tools.train`` on the from-files config at
     full width, bf16, batch 16, FILES_WORKERS loader workers, FILES_STEPS
     steps with one periodic eval, once with thread workers (the config's
     default) and once with process workers: checks each run's checkpoint
     and its eval's vote-NMS launches, and prints its img/s beside the
     in-memory trainer's (``memory_ms`` per step, same log) and the share of
-    each step spent waiting on the loader."""
-    from radet_tpu_torch.engine import load_weights
-
+    each step spent waiting on the loader.  Returns the thread run's
+    checkpoint directory."""
     for mode in ("thread", "process"):
         work_dir = osp.join(osp.dirname(train_config), f"work_dir_{mode}")
-        cmd = [sys.executable, "-m", "radet_tpu_torch.tools.train", train_config, "--work-dir", work_dir,
-               "--device", device, "--max-iters", str(FILES_STEPS), "--cfg-options", "log_config.interval=1",
-               f"checkpoint_config.interval={FILES_STEPS}", f"evaluation.interval={FILES_STEPS}",
-               f"data.workers_per_gpu={FILES_WORKERS}", f"data.worker_mode={mode!r}", *eval_opts]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=str(Path(__file__).resolve().parent),
-                              timeout=900)
-        run_s = time.perf_counter() - t0
-        if proc.returncode != 0:
-            fail(f"the train CLI ({mode} workers) exited {proc.returncode}:\n{proc.stderr[-3000:]}")
-        log = [ln.split(" - ")[-1] for ln in proc.stderr.splitlines()]
-        iters = [ln for ln in log if ln.startswith("iter ")]
-        evals = [ln for ln in log if ln.startswith("eval: ")]
-        launches = sum(int(n) for ln in log for n in re.findall(r"vote_nms kernel launches (\d+)", ln))
-        dataset = next((ln for ln in log if ln.startswith("train dataset:")), "")
-        ckpt = osp.join(work_dir, "checkpoints")
-        steps = sorted(int(d) for d in os.listdir(ckpt) if d.isdigit()) if osp.isdir(ckpt) else []
-        print(f"train from files: python -m radet_tpu_torch.tools.train (full width, bf16, batch 16, "
-              f"{FILES_WORKERS} loader {mode} workers): {len(iters)} steps, {run_s:.1f} s in its own process "
-              f"(start-up, model build and eval included); {dataset}")
-        for ln in (iters[0], iters[len(iters) // 2], iters[-1]):
-            print(f"  {ln}")
-        for ln in evals:
-            print(f"  {ln}; vote_nms kernel launches {launches}")
-        if len(iters) != FILES_STEPS or len(evals) != 1 or launches < 1:
-            fail(f"{len(iters)} steps, {len(evals)} evals, {launches} vote_nms launches in the from-files run")
-        if FILES_STEPS not in steps or not load_weights(ckpt):
-            fail(f"the from-files run wrote checkpoints {steps}, not step {FILES_STEPS}")
-        history = [float(v) for ln in iters for v in re.findall(r" loss (\S+)", ln)]
-        if len(history) != FILES_STEPS or not all(math.isfinite(v) for v in history):
-            fail("non-finite or missing losses in the from-files run")
+        print(f"train from files: python -m radet_tpu_torch.tools.train {CONFIG} from train_pbr (full width, "
+              f"bf16, batch 16, {FILES_WORKERS} loader {mode} workers):")
+        iters, dataset, _, run_s, _ = train_cli(train_config, work_dir, FILES_STEPS, mode, eval_opts,
+                                                device=device)
         ms, wait = median_iter(iters)
         print(f"timing: training from files, {mode} workers: {16 * 1000 / ms:.1f} img/s ({ms:.1f} ms/step, median "
               f"of steps 6-{FILES_STEPS}), loader wait {wait:.1f} ms/step ({wait / ms:.1%} of the step); in "
               f"memory (same call, same log) {16 * 1000 / memory_ms:.1f} img/s ({memory_ms:.1f} ms/step); "
-              f"checkpoint of step {FILES_STEPS} loads [{gpu}]")
+              f"{len(iters)} steps in {run_s:.1f} s in its own process (start-up, model build and eval "
+              f"included); {dataset}; checkpoint of step {FILES_STEPS} loads [{gpu}]")
+    return osp.join(osp.dirname(train_config), "work_dir_thread", "checkpoints")
+
+
+def mix_phase(mix_config: str, pbr_checkpoints: str, gpu: str, eval_opts, memory_ms: float,
+              device: str = "cuda") -> None:
+    """The paper's second stage: ``python -m radet_tpu_torch.tools.train``
+    on the run-time config whose ``_base_`` is MIX_CONFIG (``MixDataset``
+    of train_pbr x 2 and train_real x 1, the flagship's pipeline), full
+    width, bf16, batch 16, MIX_STEPS steps with FILES_WORKERS thread
+    workers and one eval, ``load_from`` the first from-files run's
+    checkpoints.  Checks the 2:1 layout and that the run's loader draws
+    both splits, that every tensor was loaded, and that the frozen stem and
+    first stage kept the loaded weights while the head moved from them."""
+    from radet_tpu_torch.apis.common import build_dataset
+    from radet_tpu_torch.data import DataLoader
+    from radet_tpu_torch.engine import load_weights
+    from radet_tpu_torch.utils import Config
+
+    cfg = Config.fromfile(mix_config)
+    dataset = build_dataset(cfg, "train")
+    sizes = dataset.cumulative_sizes
+    if type(dataset).__name__ != "MixDataset" or sizes != [2 * FILES_IMAGES, 2 * FILES_IMAGES + REAL_IMAGES]:
+        fail(f"the mixpbr config built {type(dataset).__name__} with cumulative sizes {sizes}")
+    batch = int(cfg.data.samples_per_gpu)
+    drawn = DataLoader(dataset, batch_size=batch, seed=int(cfg.get("seed", 0)))._epoch_indices(0)
+    drawn = drawn[:MIX_STEPS * batch]
+    n_real = sum(i >= sizes[0] for i in drawn)
+    work_dir = osp.join(osp.dirname(mix_config), "work_dir_mix")
+    print(f"train mixpbr: python -m radet_tpu_torch.tools.train with _base_ configs/bop/{MIX_CONFIG} (full "
+          f"width, bf16, batch {batch}, {FILES_WORKERS} loader thread workers), load_from {pbr_checkpoints}: "
+          f"MixDataset cumulative sizes {sizes} (train_pbr x 2, train_real x 1); the run's {len(drawn)} samples "
+          f"draw {len(drawn) - n_real} from train_pbr, {n_real} from train_real")
+    if not 0 < n_real < len(drawn):
+        fail("the mixpbr run does not draw from both splits")
+    iters, line, _, run_s, log = train_cli(mix_config, work_dir, MIX_STEPS, "thread", eval_opts,
+                                           f"load_from={pbr_checkpoints!r}", device=device)
+    loaded = load_weights(pbr_checkpoints)
+    after = load_weights(osp.join(work_dir, "checkpoints"))
+    note = f"loaded {len(loaded)}/{len(loaded)} tensors from pretrained weights"
+    if not any(note in ln for ln in log):
+        fail(f"the mixpbr run did not load every tensor of {pbr_checkpoints}")
+    frozen = [k for k in loaded if k.startswith(("backbone.conv1.", "backbone.bn1.", "backbone.layer1."))]
+    head = [k for k in loaded if k.startswith("bbox_head.") and loaded[k].is_floating_point()]
+    kept = all(torch.equal(after[k], loaded[k]) for k in frozen)
+    moved = max(float((after[k].float() - loaded[k].float()).abs().max()) for k in head)
+    print(f"  {note}; after {MIX_STEPS} steps the {len(frozen)} frozen tensors equal the loaded ones: {kept}; "
+          f"the head's largest move from them {moved:.3g}")
+    if not frozen or not kept or moved <= 0:
+        fail("the mixpbr run did not start from the loaded weights or did not train")
+    ms, wait = median_iter(iters, skip=3)
+    print(f"timing: mixpbr fine-tune from files, thread workers: {batch * 1000 / ms:.1f} img/s ({ms:.1f} ms/step, "
+          f"median of steps 4-{MIX_STEPS}), loader wait {wait:.1f} ms/step ({wait / ms:.1%} of the step); in memory "
+          f"{batch * 1000 / memory_ms:.1f} img/s; {len(iters)} steps in {run_s:.1f} s in its own process; {line} "
+          f"[{gpu}]")
 
 
 def kernel_by_k() -> None:
@@ -1038,7 +1200,7 @@ def main() -> None:
     import radet_tpu_torch.ops.vote_nms_cuda as vnc
     from radet_tpu_torch import inference_detector, init_detector
     from radet_tpu_torch.apis.common import normalizer_from_cfg
-    from radet_tpu_torch.data import image_io
+    from radet_tpu_torch.data import color_aug, image_io
     from radet_tpu_torch.models.detector import preprocess_images
     from radet_tpu_torch.utils import native
     from radet_tpu_torch.models.postprocess import vote_nms_inputs
@@ -1052,17 +1214,18 @@ def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device count {torch.cuda.device_count()}")
 
-    # 1. build the kernel and the host unfilter together
+    # 1. build the kernel and the host libraries together
     def timed(fn):
         t0 = time.perf_counter()
         fn()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         builds = [(src, flags, pool.submit(timed, fn)) for src, flags, fn in (
             (vnc.SOURCE, f"nvcc {' '.join(vnc.NVCC_FLAGS)}", vnc.build),
             (image_io.SOURCE, f"c++ {' '.join(image_io.CXX_FLAGS)}", image_io.build),
-            (image_io.JPEG_SOURCE, f"c++ {' '.join(image_io.CXX_FLAGS)}", image_io.build_jpeg))]
+            (image_io.JPEG_SOURCE, f"c++ {' '.join(image_io.CXX_FLAGS)}", image_io.build_jpeg),
+            (color_aug.SOURCE, f"c++ {' '.join(color_aug.CXX_FLAGS)}", color_aug.build))]
         for src, flags, fut in builds:
             print(f"build: {src.relative_to(repo)} -> {native.BUILD_DIR.relative_to(repo)} "
                   f"with {flags}: {fut.result():.2f} s [{gpu}]")
@@ -1073,6 +1236,7 @@ def main() -> None:
 
     with tempfile.TemporaryDirectory() as work:
         decode_phase(gpu, work)
+    color_aug_phase(gpu)
 
     # 2. kernel vs plain on synthetic candidates at the bench batch
     print("kernel vs plain in float64 on the CPU, synthetic clustered candidates, B=128:")
@@ -1212,10 +1376,11 @@ def main() -> None:
         memory_ms = train_phases(config, gpu, eval_opts)
         files = osp.join(work, "files")
         os.makedirs(files)
-        train_config = write_train_files(config, files)
+        train_config, mix_config = write_train_files(config, files)
         loader_phase(train_config, gpu)
         contention_phase(train_config, gpu)
-        files_phase(train_config, gpu, eval_opts, memory_ms)
+        pbr_checkpoints = files_phase(train_config, gpu, eval_opts, memory_ms)
+        mix_phase(mix_config, pbr_checkpoints, gpu, eval_opts, memory_ms)
 
     print(f"card: {gpu}")
     print(json.dumps({"kernels": [{

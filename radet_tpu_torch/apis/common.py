@@ -9,10 +9,11 @@ import numpy as np
 
 from ..core.anchors import AnchorConfig, generate_anchors
 from ..data.bop import BOPDataset
+from ..data.dataset_wrappers import WRAPPERS, ClassBalancedDataset, ConcatDataset, MixDataset, RepeatDataset
 from ..engine.infer_step import build_infer_step
 from ..models.builder import build_detector
 
-_OTHER_DATASETS = "ROADMAP.md Queue 1 item 12, dataset wrappers and other dataset types"
+_OTHER_DATASETS = "ROADMAP.md Queue 1 item 12, other dataset types"
 
 
 def _to_dict(x) -> Dict:
@@ -137,13 +138,33 @@ def build_infer_for_cfg(cfg, model, anchors, counts):
     )
 
 
-def build_dataset(cfg, split: str, test_mode: bool | None = None) -> BOPDataset:
+def build_dataset(cfg, split: str, test_mode: bool | None = None):
     """The dataset of ``cfg.data[split]`` (test mode unless ``split`` is
-    'train')."""
+    'train'): a ``BOPDataset``, or a wrapper of ``data.dataset_wrappers``
+    over ``BOPDataset``s, whose sub-datasets take ``pipeline``,
+    ``classes``, ``min_visib_frac`` and ``seg_prefix`` from the wrapper's
+    section where they do not set them."""
     data_cfg = _to_dict(cfg.data[split])
     if test_mode is None:
         test_mode = split != "train"
-    return _build_bop(cfg, data_cfg, test_mode)
+    ds_type = data_cfg.get("type", "BOPDataset")
+    if ds_type not in WRAPPERS:
+        return _build_bop(cfg, data_cfg, test_mode)
+
+    def sub(sub_cfg):
+        sub_cfg = dict(sub_cfg)
+        for key in ("pipeline", "classes", "min_visib_frac", "seg_prefix"):
+            if key in data_cfg and key not in sub_cfg:
+                sub_cfg[key] = data_cfg[key]
+        return _build_bop(cfg, sub_cfg, test_mode)
+
+    if ds_type == "MixDataset":
+        return MixDataset([sub(d) for d in data_cfg["datasets"]], data_cfg["ratios"])
+    if ds_type == "ConcatDataset":
+        return ConcatDataset([sub(d) for d in data_cfg["datasets"]])
+    if ds_type == "RepeatDataset":
+        return RepeatDataset(sub(data_cfg["dataset"]), data_cfg["times"])
+    return ClassBalancedDataset(sub(data_cfg["dataset"]), data_cfg["oversample_thr"])
 
 
 def _build_bop(cfg, data_cfg: Dict, test_mode: bool, input_size=None) -> BOPDataset:

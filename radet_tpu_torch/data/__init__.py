@@ -1,6 +1,7 @@
-"""Host data path: image files without cv2, numpy transforms, the
-file-backed BOP test dataset, sample packing, an in-memory training source
-and the batching loader."""
+"""Host data path: image files without cv2, numpy transforms (CosyPoseAug's
+ops in host C++, polygon masks), the file-backed BOP dataset and its
+wrappers, sample packing, an in-memory training source and the batching
+loader."""
 
 from .bop import BOPDataset, InMemoryBOPDataset, draw_sample, pack_sample, train_transforms
 from .coco_io import CocoIndex

@@ -43,12 +43,11 @@ from __future__ import annotations
 
 import ctypes
 import struct
-import threading
 import zlib
 
 import numpy as np
 
-from ..utils.native import CSRC, build_library, find_tool
+from ..utils.native import CSRC, load_library
 
 IMREAD_UNCHANGED, IMREAD_GRAYSCALE, IMREAD_COLOR = -1, 0, 1  # cv2's values
 
@@ -61,8 +60,6 @@ _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # color type -> samples per pixel
 _VARIANTS = "ROADMAP.md Queue 1 item 19, Adam7 and other PNG and JPEG variants"
 _TIFF = "ROADMAP.md Queue 1 item 20, TIFF images (the ITODD test set)"
 
-_libs: dict = {}
-_lib_lock = threading.Lock()
 _INT = ctypes.POINTER(ctypes.c_int)
 # each library's functions: (argtypes, restype)
 _UNFILTER_API = {
@@ -77,28 +74,14 @@ _JPEG_API = {
 }
 
 
-def _load(source, api) -> ctypes.CDLL:
-    """Compile ``source`` (when it changed) and load it, with ``api``'s
-    signatures declared."""
-    with _lib_lock:
-        if source not in _libs:
-            path, _ = build_library(source, find_tool(["c++", "g++"]), CXX_FLAGS)
-            lib = ctypes.CDLL(str(path))
-            for name, (argtypes, restype) in api.items():
-                getattr(lib, name).argtypes = argtypes
-                getattr(lib, name).restype = restype
-            _libs[source] = lib
-    return _libs[source]
-
-
 def build() -> ctypes.CDLL:
     """Compile (when the source changed) and load the unfilter library."""
-    return _load(SOURCE, _UNFILTER_API)
+    return load_library(SOURCE, CXX_FLAGS, _UNFILTER_API)
 
 
 def build_jpeg() -> ctypes.CDLL:
     """Compile (when the source changed) and load the JPEG decoder."""
-    return _load(JPEG_SOURCE, _JPEG_API)
+    return load_library(JPEG_SOURCE, CXX_FLAGS, _JPEG_API)
 
 
 def _check_raw(raw: np.ndarray, height: int, stride: int, bpp: int) -> None:

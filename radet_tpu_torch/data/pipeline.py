@@ -1,5 +1,7 @@
-"""Host transforms of the test and training pipelines, numpy only (port of
-the transforms of ``radet_tpu/data/pipeline.py``, without cv2 or PIL).
+"""Host transforms of the test and training pipelines (port of the
+transforms of ``radet_tpu/data/pipeline.py``, without cv2 or PIL): numpy,
+with ``CosyPoseAug``'s image operations in host C++ (``color_aug``) and
+polygon masks filled by ``poly.fill_poly``, each equal to cv2's output.
 
 Each transform is a callable on a ``results`` dict (keys: img, gt_bboxes,
 gt_labels, gt_masks, img_shape, scale_factor, distance_maps, dist_vals,
@@ -9,9 +11,9 @@ value of every GT at every anchor center; the assignment itself runs in the
 train step.
 
 The random transforms draw as the JAX package's do, from Python's
-``random`` (``RandomFlip``, ``RandomBackground``), so that both packages
-take the same decisions from the same seed; a ``seed`` gives a transform a
-generator of its own.
+``random`` (``RandomBackground``, ``CosyPoseAug``, ``RandomFlip``), so that
+both packages take the same decisions from the same seed; a ``seed`` gives
+a transform a generator of its own.
 """
 
 from __future__ import annotations
@@ -25,15 +27,13 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
+from . import color_aug
 from .image_io import IMREAD_GRAYSCALE, IMREAD_UNCHANGED, imread, imread_rgb
+from .poly import fill_poly
 
-_COSYPOSE = "ROADMAP.md Queue 1 item 7b, CosyPoseAug and polygon masks"
 _MASK_FREE = "ROADMAP.md Queue 1 item 17, mask-free distance maps"
 _TTA = "ROADMAP.md Queue 1 item 12, TTA"
 _OTHER = "ROADMAP.md Queue 1 item 12, other transforms and dataset types"
-# the JAX package's CosyPoseAug and the enhancement ops it chains
-_COSYPOSE_TYPES = ("CosyPoseAug", "PillowBlur", "PillowSharpness", "PillowContrast",
-                   "PillowBrightness", "PillowColor")
 
 
 def _generator(seed: Optional[int]) -> Optional[random.Random]:
@@ -63,8 +63,10 @@ class LoadAnnotations:
     0/1: from the packed id map ``ann_info['mask_packed']``
     (``tools/pack_masks.py``: one PNG per image, GT ``i`` where it equals
     ``masks_idx[i] + 1``) when that file exists under ``seg_prefix``, else
-    from each GT's ``mask_visib`` PNG (nonzero is foreground).  Polygon
-    ``segmentations`` (the JAX package's ``cv2.fillPoly``) raise."""
+    from each GT's ``mask_visib`` PNG (nonzero is foreground).  With
+    ``poly2mask``, polygon ``segmentations`` take precedence: each object's
+    parts of at least 3 points, rounded half to even to int32, filled
+    together by :func:`poly.fill_poly` (``cv2.fillPoly``'s mask)."""
 
     def __init__(self, with_bbox: bool = True, with_bop_mask: bool = False, poly2mask: bool = True):
         self.with_bbox = with_bbox
@@ -79,10 +81,14 @@ class LoadAnnotations:
             return results
         h, w = results["img_info"]["height"], results["img_info"]["width"]
         seg_prefix = results.get("seg_prefix", "")
-        if ann.get("segmentations") is not None and self.poly2mask:
-            raise NotImplementedError(f"masks from polygon segmentations are not ported ({_COSYPOSE})")
         packed = osp.join(seg_prefix, ann["mask_packed"]) if ann.get("mask_packed") else None
-        if packed and osp.exists(packed):
+        if ann.get("segmentations") is not None and self.poly2mask:
+            masks = []
+            for obj_polys in ann["segmentations"]:
+                pts = [np.asarray(p, np.float64).reshape(-1, 2).round().astype(np.int32)
+                       for p in obj_polys or () if len(p) >= 6]
+                masks.append(fill_poly(np.zeros((h, w), np.uint8), pts) if pts else np.zeros((h, w), np.uint8))
+        elif packed and osp.exists(packed):
             ids = imread(packed, IMREAD_UNCHANGED)
             masks = [(ids == i + 1).astype(np.uint8) for i in ann["masks_idx"]]
         else:
@@ -362,6 +368,7 @@ _TRANSFORMS = {
     "LoadAnnotations": LoadAnnotations,
     "Resize": Resize,
     "RandomBackground": RandomBackground,
+    "CosyPoseAug": color_aug.CosyPoseAug,
     "RandomFlip": RandomFlip,
     "GenerateDistanceMap": GenerateDistanceMap,
 }
@@ -387,14 +394,10 @@ def build_pipeline(
     since images are decoded RGB) and the formatting entries.  A
     ``MultiScaleFlipAug`` with one scale and ``flip=False`` is unwrapped,
     its scale going to the inner ``Resize``; other test-time augmentation
-    raises.  Any type besides these and ``_TRANSFORMS``' raises
-    ``NotImplementedError``; ``CosyPoseAug`` and its ops do so before any
-    transform is built (so before ``RandomBackground`` lists its
-    directory)."""
-    for t_cfg in pipeline_cfg:
-        t_type = t_cfg["type"]
-        if t_type in _COSYPOSE_TYPES:
-            raise NotImplementedError(f"transform {t_type!r} is not ported ({_COSYPOSE})")
+    raises.  ``CosyPoseAug``'s ops (``PillowBlur``, ...) are no pipeline
+    entries of their own and raise ``KeyError``, as in the JAX package; any
+    other type besides these and ``_TRANSFORMS``' raises
+    ``NotImplementedError``."""
     ts = []
 
     def add(t_cfg):
@@ -439,6 +442,8 @@ def build_pipeline(
                 ts.append(SampleDistanceAtAnchors(anchor_centers, max_gt=max_gt))
         elif t_type in _TRANSFORMS:
             ts.append(_TRANSFORMS[t_type](**t_cfg))
+        elif t_type in color_aug.OPS:
+            raise KeyError(f"unknown transform {t_type}: an op of CosyPoseAug's pipelines")
         else:
             raise NotImplementedError(f"transform {t_type!r} is not ported ({_OTHER})")
 

@@ -1,5 +1,5 @@
 """Build one source of the package's ``csrc/`` into a shared library at first
-use, for loading with ``ctypes``.
+use, and load it with ``ctypes``.
 
 The library goes into ``radet_tpu_torch/_build/`` under a name that carries
 a hash of the source and the flags, so an edited source is rebuilt and an
@@ -9,13 +9,14 @@ name and renamed, so a concurrent build never loads half a library.
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
@@ -25,6 +26,8 @@ BUILD_DIR = PACKAGE / "_build"
 # while different libraries build in parallel
 _locks: Dict[Path, threading.Lock] = {}
 _locks_guard = threading.Lock()
+_loaded: Dict[Path, ctypes.CDLL] = {}  # source -> its library, loaded once
+_load_locks: Dict[Path, threading.Lock] = {}
 
 
 def find_tool(names: Sequence[str], fallback: Optional[Path] = None) -> str:
@@ -57,3 +60,21 @@ def build_library(source: Path, compiler: str, flags: Sequence[str]) -> Tuple[Pa
             raise RuntimeError(f"build failed ({' '.join(cmd)}):\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, path)  # atomic: another process never loads half a file
     return path, proc.stderr
+
+
+def load_library(source: Path, flags: Sequence[str], api: Dict[str, Tuple[list, Any]]) -> ctypes.CDLL:
+    """Build ``source`` with the host C++ compiler and ``flags`` (when the
+    source changed) and load it once per process, with ``api``'s functions
+    declared as {name: (argtypes, restype)}.  A missing compiler or a
+    failed build raises.  Different sources build and load in parallel."""
+    with _locks_guard:
+        lock = _load_locks.setdefault(source, threading.Lock())
+    with lock:
+        if source not in _loaded:
+            path, _ = build_library(source, find_tool(["c++", "g++"]), flags)
+            lib = ctypes.CDLL(str(path))
+            for name, (argtypes, restype) in api.items():
+                getattr(lib, name).argtypes = argtypes
+                getattr(lib, name).restype = restype
+            _loaded[source] = lib
+    return _loaded[source]

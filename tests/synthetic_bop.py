@@ -3,7 +3,7 @@
 training records of filled rectangles, an 8-bit PNG writer whose rows cycle
 through all five PNG filters, a BOP test split written with it, a BOP
 training split of given JPEG files with ``mask_visib`` PNGs, and a config
-that trains the flagship from such a split."""
+that trains the flagship (or its mixpbr fine-tune) from such splits."""
 
 import json
 import os
@@ -103,14 +103,14 @@ def write_bop_test_set(root: str, rng, groups, class_names, max_objects: int = 6
     return ann_file
 
 
-def write_bop_train_set(root: str, records, jpegs, class_names) -> str:
-    """A BOP ``train_pbr`` split of one scene: image ``i`` is the JPEG file
+def write_bop_train_set(root: str, records, jpegs, class_names, split: str = "train_pbr") -> str:
+    """A BOP training split of one scene: image ``i`` is the JPEG file
     ``jpegs[i % len(jpegs)]`` (its bytes, as they are) annotated with record
     ``i``'s boxes and labels, and its visible masks as ``mask_visib`` PNGs
     (255 on the object); ``visib_fract`` is the mask's share of its box.
-    Writes ``root/train_pbr/000000/...`` and ``root/train.json``; returns
+    Writes ``root/{split}/000000/...`` and ``root/{split}.json``; returns
     the json's path."""
-    scene = osp.join(root, "train_pbr", "000000")
+    scene = osp.join(root, split, "000000")
     for sub in ("rgb", "mask_visib"):
         os.makedirs(osp.join(scene, sub), exist_ok=True)
     images, annotations = [], []
@@ -127,27 +127,34 @@ def write_bop_train_set(root: str, records, jpegs, class_names) -> str:
                                     bbox=[x1, y1, x2 - x1, y2 - y1], area=area, iscrowd=0,
                                     visib_fract=float(m.sum()) / area))
     categories = [dict(id=c + 1, name=str(n)) for c, n in enumerate(class_names)]
-    ann_file = osp.join(root, "train.json")
+    ann_file = osp.join(root, f"{split}.json")
     with open(ann_file, "w") as f:
         json.dump(dict(images=images, annotations=annotations, categories=categories), f)
     return ann_file
 
 
-def write_train_config(path: str, base: str, ann_file: str, img_prefix: str, background_dir: str) -> str:
+def write_train_config(path: str, base: str, ann_file: str, img_prefix: str, background_dir: str,
+                       real=None) -> str:
     """A config file at ``path`` that is ``base`` training from the given
-    split: ``data.train`` reads ``ann_file`` under ``img_prefix`` through
-    ``base``'s ``train_pipeline`` without ``CosyPoseAug`` (not ported:
-    ROADMAP.md item 7b), its ``RandomBackground`` reading
-    ``background_dir``.  Returns ``path``."""
+    split through ``base``'s own ``train_pipeline`` (``CosyPoseAug``
+    included), its ``RandomBackground`` reading ``background_dir``.
+    ``data.train`` reads ``ann_file`` under ``img_prefix``; with ``real``,
+    an (ann_file, img_prefix) pair, ``base``'s wrapper (the ``MixDataset``
+    of ``configs/bop/*_mixpbr.py``) reads [the given split, ``real``] as
+    its ``train_pbr`` and ``train_real``.  Returns ``path``."""
     from radet_tpu_torch.utils.config import Config
 
-    pipeline = [dict(t) for t in Config.fromfile(base).to_dict()["train_pipeline"] if t["type"] != "CosyPoseAug"]
+    pipeline = [dict(t) for t in Config.fromfile(base).to_dict()["train_pipeline"]]
     for t in pipeline:
         if t["type"] == "RandomBackground":
             t["background_dir"] = background_dir
+    if real is None:
+        train = f"dict(ann_file={ann_file!r}, img_prefix={img_prefix!r}, pipeline=train_pipeline)"
+    else:
+        splits = [dict(ann_file=a, img_prefix=p, min_visib_frac=0.1) for a, p in ((ann_file, img_prefix), real)]
+        train = f"dict(datasets={splits!r}, pipeline=train_pipeline)"
     with open(path, "w") as f:
         f.write(f"_base_ = [{osp.abspath(base)!r}]\n"
                 f"train_pipeline = {pipeline!r}\n"
-                f"data = dict(train=dict(ann_file={ann_file!r}, img_prefix={img_prefix!r}, "
-                f"pipeline=train_pipeline))\n")
+                f"data = dict(train={train})\n")
     return path

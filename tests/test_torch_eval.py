@@ -166,13 +166,20 @@ def test_unported_dataset_paths_raise(png_set):
     assert not train_view.test_mode
     with pytest.raises(RuntimeError, match="could not draw a valid training sample"):
         train_view[0]
-    cosy = Config.fromfile(FLAGSHIP, opts + ["data.test.pipeline.1.type='CosyPoseAug'"])
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        build_dataset(cosy, "test", test_mode=False)
-    for wrapper in ("RepeatDataset", "CocoDataset"):
-        bad = Config.fromfile(FLAGSHIP, opts + [f"data.test.type={wrapper!r}"])
-        with pytest.raises(NotImplementedError, match="item 12"):
-            build_dataset(bad, "test")
+    # a CosyPoseAug left with Resize's arguments, and a RepeatDataset with no dataset or times: the
+    # port raises what the JAX package's build_dataset raises on the same config
+    from radet_tpu.apis.common import build_dataset as jax_build_dataset
+
+    for opt, test_mode, error in (("data.test.pipeline.1.type='CosyPoseAug'", False, TypeError),
+                                  ("data.test.type='RepeatDataset'", None, KeyError)):
+        with pytest.raises(error) as ref:
+            jax_build_dataset(JaxConfig.fromfile(FLAGSHIP, opts + [opt]), "test", test_mode=test_mode)
+        with pytest.raises(error) as got:
+            build_dataset(Config.fromfile(FLAGSHIP, opts + [opt]), "test", test_mode=test_mode)
+        assert got.value.args == ref.value.args
+    bad = Config.fromfile(FLAGSHIP, opts + ["data.test.type='CocoDataset'"])
+    with pytest.raises(NotImplementedError, match="item 12"):
+        build_dataset(bad, "test")
     tta = Config.fromfile(FLAGSHIP, opts + ["test_cfg.flip_tta=True"])
     with pytest.raises(NotImplementedError, match="item 12"):
         port_test.test_from_config(tta, build_model_and_anchors(cfg)[0])

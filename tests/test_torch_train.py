@@ -409,13 +409,23 @@ def test_unported_training_options_raise(tmp_path):
     ann, prefix = make_synthetic_bop(str(tmp_path / "bop"), images_per_scene=2, img_hw=IMG_HW, num_classes=4)
     files = Config.fromfile(FLAGSHIP, TRAIN + [f"data.train.ann_file={ann!r}", f"data.train.img_prefix={prefix!r}",
                                                "data.train.classes=None"])
-    with pytest.raises(NotImplementedError, match="item 7b"):  # the flagship train_pipeline's CosyPoseAug
+    # the flagship's own train_pipeline is ported; its RandomBackground directory (data/coco) is not
+    # here, and training fails where the JAX package's dataset build does
+    from radet_tpu.apis.common import build_dataset as jax_build_dataset
+
+    jax_files = JaxConfig.fromfile(FLAGSHIP, TRAIN + [f"data.train.ann_file={ann!r}",
+                                                      f"data.train.img_prefix={prefix!r}", "data.train.classes=None"])
+    with pytest.raises(RuntimeError, match="No background images") as ref:
+        jax_build_dataset(jax_files, "train", test_mode=False)
+    with pytest.raises(RuntimeError) as got:
         train_detector(files, work_dir=str(tmp_path), device="cpu")
+    assert str(got.value) == str(ref.value)
     with pytest.raises(NotImplementedError, match="item 17"):
         GenerateDistanceMap(with_gt_mask=False)
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        build_pipeline([dict(type="LoadAnnotations", with_bbox=True, with_bop_mask=True),
-                        dict(type="CosyPoseAug", p=0.8)])
+    entries = [dict(type="LoadAnnotations", with_bbox=True, with_bop_mask=True), dict(type="CosyPoseAug", p=0.8)]
+    assert [type(t).__name__ for t in build_pipeline(entries).transforms] == [
+        type(t).__name__ for t in jax_pipeline.build_pipeline(entries).transforms] == ["LoadAnnotations",
+                                                                                      "CosyPoseAug"]
     ds = InMemoryBOPDataset(synthetic_records(np.random.RandomState(0), 2, IMG_HW, 4),
                             train_transforms(IMG_HW, max_gt=32), max_gt=32)
     # the periodic eval reaches an unported val dataset type at step 1
