@@ -22,7 +22,16 @@ Run from the repository root, with one card:  python3 chip_smoke.py
    through the plain version, the float32 forward against the CPU
    forward, and the untouched random init for NaNs;
 4. times the main path at batch 8 and 128 and the kernel against the plain
-   version at B=128, K=512 with CUDA events, beside the call's bound;
+   version at B=128, K=512 with CUDA events, beside the call's bound; then
+   serves that detector: ``BatchingDetector`` at batch 16 and a 5 ms
+   budget against ``inference_detector`` (480x640, 540x720 resized,
+   427x640 padded; a portrait request raises in ``submit``), one vote-NMS
+   launch per served batch, img/s, fill and p50/p99 latency at 1, 16 and
+   64 submitter threads beside the bare step from pinned memory,
+   cancellation while queued and after dispatch, and ``python -m
+   radet_tpu_torch.tools.serve`` in a subprocess over HTTP (the JPEG
+   fixtures and a PNG against the in-process batcher, status codes, 16
+   client threads, SIGTERM);
 5. evaluates: the kernel against the plain version at every (B, K) of
    ``KERNEL_SHAPES`` (K from 512 to 4420), both modes, timing both on the
    card in turns, each beside the call's bound and its share of it, and
@@ -135,9 +144,19 @@ IOU_OPS = 15  # per same-label IoU test
 VOTE_OPS = 36  # per member: weight, 3 passes over 4 coordinates
 # kernel_by_k's (B, K): deploy and interactive inference (K = 512), a whole
 # and a partial last 32-box word (1024, 1025), the strict eval (K = 2048,
-# its batch 16), and the flagship's largest per-level set (4420)
-KERNEL_SHAPES = ((8, 512), (128, 512), (8, 1024), (8, 1025), (8, 2048), (16, 2048), (128, 2048),
+# its batch 16), and the flagship's largest per-level set (4420); (16, 512) is
+# the serving batch
+KERNEL_SHAPES = ((8, 512), (16, 512), (128, 512), (8, 1024), (8, 1025), (8, 2048), (16, 2048), (128, 2048),
                  (8, 4420))
+# serving: the CLI's default batch and latency budget; the bit-for-bit
+# check's images at YCB-V's size, T-LESS's (resized) and COCO's common
+# 427x640 (padded); submitter threads of the sweep, SERVE_REQUESTS each
+SERVE_BATCH = 16
+SERVE_LATENCY_MS = 5.0
+SERVE_SIZES = ((480, 640), (540, 720), (427, 640))
+SERVE_SUBMITTERS = (1, 16, 64)
+SERVE_REQUESTS = 256
+SERVE_CLIENTS = 16  # HTTP client threads against the CLI
 
 
 def fail(msg: str) -> None:
@@ -966,6 +985,323 @@ def mix_phase(mix_config: str, pbr_checkpoints: str, gpu: str, eval_opts, memory
           f"[{gpu}]")
 
 
+def compare_results(got, want, what: str) -> bool:
+    """Per-image detection dicts against a reference, as :func:`compare`
+    holds kernel outputs: the same kept detections with equal labels and
+    scores, boxes within BOX_ATOL but a BOX_TAIL share.  Returns whether
+    they are equal bit for bit."""
+    if len(got) != len(want):
+        fail(f"{what}: {len(got)} results for {len(want)} images")
+    for i, (g, w) in enumerate(zip(got, want)):
+        if (len(g["boxes"]) != len(w["boxes"]) or not np.array_equal(g["labels"], w["labels"])
+                or not np.array_equal(g["scores"], w["scores"])):
+            fail(f"{what}: image {i}: kept detections, labels or scores differ")
+    err = np.concatenate([np.abs(g["boxes"] - w["boxes"]).ravel() for g, w in zip(got, want)] + [np.zeros(0)])
+    tail = float((err > BOX_ATOL).mean()) if err.size else 0.0
+    bit_equal = all(np.array_equal(g[k], w[k]) for g, w in zip(got, want) for k in ("boxes", "scores", "labels"))
+    print(f"  {what}: {len(got)} images, {sum(len(g['boxes']) for g in got)} detections, kept sets, labels and "
+          f"scores equal, box max abs err {err.max(initial=0.0):.3g} px, share > {BOX_ATOL} px {tail:.4%}; "
+          f"bit for bit equal: {bit_equal}")
+    if not sum(len(g["boxes"]) for g in got):
+        fail(f"{what}: no detections")
+    if tail > BOX_TAIL:
+        fail(f"{what}: {tail:.4%} of box coordinates off by more than {BOX_ATOL} px")
+    return bit_equal
+
+
+class Gate:
+    """Stands in front of a detector's step: records that the dispatcher
+    reached it and holds it there until opened."""
+
+    def __init__(self, infer):
+        import threading
+
+        self.infer = infer
+        self.entered = threading.Event()
+        self.open = threading.Event()
+
+    def __call__(self, *args):
+        self.entered.set()
+        if not self.open.wait(120):
+            fail("the gate in front of the serving step was never opened")
+        return self.infer(*args)
+
+
+def position_diff(got, want) -> str:
+    """How far per-image detections of the same images at other batch
+    positions are from a reference (the bf16 forward depends on the
+    position): images with equal kept sets and labels, bit-equal images,
+    and the largest score difference among the former."""
+    same = [len(a["boxes"]) == len(b["boxes"]) and np.array_equal(a["labels"], b["labels"])
+            for a, b in zip(got, want)]
+    bits = sum(all(np.array_equal(a[k], b[k]) for k in b) for a, b in zip(got, want))
+    err = max((float(np.abs(a["scores"] - b["scores"]).max(initial=0.0))
+               for a, b, ok in zip(got, want, same) if ok), default=0.0)
+    return (f"kept sets and labels equal on {sum(same)} of {len(want)} images, bit for bit equal {bits}, "
+            f"score max abs difference {err:.3g}")
+
+
+def percentiles(lat_s):
+    p50, p99 = np.percentile(np.asarray(lat_s) * 1e3, [50, 99])
+    return f"p50 {p50:.2f} ms, p99 {p99:.2f} ms"
+
+
+def serving_phase(det, gpu: str, work: str) -> None:
+    """Serving on the card with ``det`` (the flagship at full width, bf16,
+    cls bias 0): ``BatchingDetector`` at batch SERVE_BATCH and
+    SERVE_LATENCY_MS against ``inference_detector``, vote-NMS launches per
+    batch, img/s and latency at SERVE_SUBMITTERS threads beside the bare
+    step from pinned memory, cancellation, and ``python -m
+    radet_tpu_torch.tools.serve`` in a subprocess over HTTP."""
+    import copy
+    import http.client
+    import socket
+    import threading
+
+    import radet_tpu_torch.ops.vote_nms_cuda as vnc
+    from radet_tpu_torch import BatchingDetector, inference_detector
+    from radet_tpu_torch.data import image_io
+    from synthetic_bop import JPEG_FIXTURES, write_png
+
+    h, w = det.input_size
+    rng = np.random.RandomState(SEED + 7)
+    imgs = [rng.randint(0, 256, (*SERVE_SIZES[i % len(SERVE_SIZES)], 3), np.uint8) for i in range(SERVE_BATCH)]
+    pool = [rng.randint(0, 256, (h, w, 3), np.uint8) for _ in range(SERVE_BATCH)]
+    t0 = time.perf_counter()
+    srv = BatchingDetector(det, batch_size=SERVE_BATCH, max_latency_ms=SERVE_LATENCY_MS)
+    print(f"serving: BatchingDetector(batch {SERVE_BATCH}, max latency {SERVE_LATENCY_MS} ms) on the main path's "
+          f"detector ({det.model.dtype}, cls bias 0): built with its warm-up batch in "
+          f"{time.perf_counter() - t0:.2f} s [{gpu}]")
+    try:
+        # a. 32 requests from one submitter (the 16 images twice) against
+        # inference_detector on the 16 at once.  The bf16 forward on the card
+        # depends on an image's position in the batch, not on the other rows
+        # (PERF.md, serving): a gate holds the dispatcher on a primer request
+        # while the 32 queue, so that they run as two full batches in
+        # submission order, each image at its position in the reference batch
+        want = inference_detector(det, imgs)
+        zeros = [np.zeros((h, w, 3), np.uint8)] * SERVE_BATCH
+        alone = inference_detector(det, imgs[:1] + zeros[1:])[:1]
+        rev = inference_detector(det, imgs[::-1])[::-1]
+        print(f"  inference_detector on the same 16 reversed: {position_diff(rev, want)}; image 0 at its "
+              f"position beside zero rows: bit for bit equal "
+              f"{all(np.array_equal(alone[0][k], want[0][k]) for k in want[0])}")
+        held = copy.copy(det)
+        gated = BatchingDetector(held, batch_size=SERVE_BATCH, max_latency_ms=SERVE_LATENCY_MS)
+        gate = held._infer = Gate(det._infer)
+        try:
+            primer = gated.submit(pool[0])
+            if not gate.entered.wait(120):
+                fail("the gated server never dispatched")
+            vnc.LAUNCHES = 0
+            futs = [gated.submit(im) for im in imgs + imgs]
+            gate.open.set()
+            primer.result(timeout=120)
+            got = [f.result(timeout=120) for f in futs]
+            launches, batches = vnc.LAUNCHES, gated.stats()["batches"]
+        finally:
+            gate.open.set()
+            gated.close()
+        compare_results(got, want + want, f"served vs inference_detector ({len(futs)} requests at "
+                                          f"{', '.join(f'{a}x{b}' for a, b in SERVE_SIZES)}, behind a primer, "
+                                          f"{batches} batches)")
+        if batches != 3 or launches != batches:
+            fail(f"{batches} served batches (expected the primer's and 2 full ones) launched vote_nms "
+                 f"{launches} times")
+        # the same 16 where the 5 ms budget puts them: other batch positions
+        free = [srv.submit(im) for im in imgs]
+        free = [f.result(timeout=120) for f in free]
+        print(f"  the 16 submitted freely at a 5 ms budget (batch positions as they came) against "
+              f"inference_detector: {position_diff(free, want)}")
+        portrait = np.ascontiguousarray(imgs[0].transpose(1, 0, 2))
+        try:
+            srv.submit(portrait)
+            fail("a portrait 640x480 request was taken at a landscape input size")
+        except ValueError as e:
+            print(f"  a portrait {portrait.shape[0]}x{portrait.shape[1]} request raises in submit, as "
+                  f"radet_tpu's inference does: {str(e)[:60]}...")
+
+        # b. the bare step at the serving batch from pinned host memory, then
+        # the sweep of submitter threads (closed loop: each waits for its answer)
+        u8 = torch.from_numpy(np.stack(pool)).pin_memory()
+        shp = torch.tensor([[h, w]] * SERVE_BATCH, dtype=torch.float32).pin_memory()
+        scl = torch.ones((SERVE_BATCH, 4), dtype=torch.float32).pin_memory()
+        for _ in range(3):
+            det._infer(det.model, u8, shp, scl)
+        step_ms = cuda_ms(lambda: det._infer(det.model, u8, shp, scl), 20)
+        print(f"timing: serving step batch {SERVE_BATCH} (uint8 from pinned host memory, CUDA events, mean of 20): "
+              f"{step_ms:.2f} ms, {SERVE_BATCH * 1000 / step_ms:.1f} img/s [{gpu}]")
+        for threads in SERVE_SUBMITTERS:
+            lat = []
+            lock = threading.Lock()
+
+            def submitter(i):
+                mine = []
+                for j in range(i, SERVE_REQUESTS, threads):
+                    t = time.perf_counter()
+                    srv.detect(pool[j % len(pool)], timeout=120)
+                    mine.append(time.perf_counter() - t)
+                with lock:
+                    lat.extend(mine)
+
+            vnc.LAUNCHES = 0
+            before = srv.stats()
+            workers = [threading.Thread(target=submitter, args=(i,)) for i in range(threads)]
+            t0 = time.perf_counter()
+            for t in workers:
+                t.start()
+            for t in workers:
+                t.join(300)
+            wall = time.perf_counter() - t0
+            after = srv.stats()
+            n, b = after["requests"] - before["requests"], after["batches"] - before["batches"]
+            print(f"timing: serving {threads} submitter threads, {n} requests {h}x{w}: {b} batches, fill "
+                  f"{n / (b * SERVE_BATCH):.3f}, {n / wall:.1f} img/s, latency submit to result "
+                  f"{percentiles(lat)}; vote_nms kernel launches {vnc.LAUNCHES}; bare step {step_ms:.2f} ms "
+                  f"({SERVE_BATCH * 1000 / step_ms:.1f} img/s) [{gpu}]")
+            if any(t.is_alive() for t in workers) or n != SERVE_REQUESTS or len(lat) != n:
+                fail(f"{threads} submitters: {n} of {SERVE_REQUESTS} requests answered")
+            if vnc.LAUNCHES != b:
+                fail(f"{b} served batches launched vote_nms {vnc.LAUNCHES} times")
+        del u8, shp, scl
+
+        # c. cancellation: one future cancelled after dispatch, one while queued
+        held = copy.copy(det)
+        gated = BatchingDetector(held, batch_size=SERVE_BATCH, max_latency_ms=0)
+        gate = held._infer = Gate(det._infer)
+        try:
+            dispatched = gated.submit(imgs[0])
+            if not gate.entered.wait(120):
+                fail("the gated server never dispatched")
+            queued = [gated.submit(im) for im in imgs[1:4]]
+            late_cancel, queued_cancel = dispatched.cancel(), queued[0].cancel()
+            gate.open.set()
+            rest = [dispatched.result(timeout=120)] + [f.result(timeout=120) for f in queued[1:]]
+            after = gated.detect(imgs[4], timeout=120)
+        finally:
+            gate.open.set()
+            gated.close()
+        if late_cancel or not queued_cancel or not queued[0].cancelled():
+            fail(f"cancel after dispatch gave {late_cancel}, while queued {queued_cancel}")
+        # each batch padded with zero rows: held to inference_detector on the
+        # same rows at the same positions, zero images after them
+        at_positions = (inference_detector(det, imgs[2:4] + zeros[2:])[:2]
+                        + inference_detector(det, imgs[4:5] + zeros[1:])[:1])
+        compare_results(rest + [after], [want[0]] + at_positions,
+                        "cancellation: the dispatched (cancel refused), the queued beside the cancelled one, "
+                        "and a later request, in batches padded with zero rows")
+        print(f"  cancellation: cancel() after dispatch returned False, while queued True; the server answered "
+              f"on and closed with {gated.stats()['requests']} requests run")
+    finally:
+        srv.close()
+    print(f"  BatchingDetector.close() drained: {srv.stats()}")
+
+    # d. the CLI in a subprocess, over HTTP
+    ckpt = osp.join(work, "serve.pth")
+    torch.save({k: v.cpu() for k, v in det.model.state_dict().items()}, ckpt)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    log_path = osp.join(work, "serve.log")
+    cmd = [sys.executable, "-m", "radet_tpu_torch.tools.serve", CONFIG, ckpt, "--batch", str(SERVE_BATCH),
+           "--max-latency-ms", str(SERVE_LATENCY_MS), "--port", str(port)]
+    bodies = []
+    for name in sorted(n for n in os.listdir(JPEG_FIXTURES) if n.endswith(".jpg")):
+        with open(osp.join(JPEG_FIXTURES, name), "rb") as f:
+            bodies.append((name, f.read()))
+    write_png(osp.join(work, "serve.png"), imgs[1])
+    with open(osp.join(work, "serve.png"), "rb") as f:
+        bodies.append((f"{imgs[1].shape[0]}x{imgs[1].shape[1]} PNG", f.read()))
+
+    def request(method, path, body=None, headers=None):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            conn.putrequest(method, path, skip_accept_encoding=True)
+            for k, v in (headers or ({"Content-Length": str(len(body))} if body is not None else {})).items():
+                conn.putheader(k, v)
+            conn.endheaders(body)
+            r = conn.getresponse()
+            return r.status, json.loads(r.read())
+        finally:
+            conn.close()
+
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, cwd=str(Path(__file__).resolve().parent))
+    try:
+        while True:
+            if proc.poll() is not None:
+                with open(log_path) as f:
+                    fail(f"the serve CLI exited {proc.returncode} before it answered /healthz:\n{f.read()[-3000:]}")
+            try:
+                if request("GET", "/healthz") == (200, {"ok": True}):
+                    break
+            except OSError:
+                pass
+            if time.perf_counter() - t0 > 300:
+                fail("the serve CLI did not answer /healthz within 300 s")
+            time.sleep(0.5)
+        print(f"serving: python -m radet_tpu_torch.tools.serve {CONFIG} serve.pth --batch {SERVE_BATCH} "
+              f"--max-latency-ms {SERVE_LATENCY_MS:g}: /healthz answered {time.perf_counter() - t0:.1f} s after "
+              f"start (start-up, model build, load and warm-up included)")
+        local = BatchingDetector(det, batch_size=SERVE_BATCH, max_latency_ms=SERVE_LATENCY_MS)
+        try:
+            for name, body in bodies:
+                status, out = request("POST", "/detect", body)
+                if status != 200 or out.get("classes") != list(det.classes):
+                    fail(f"POST /detect of {name}: {status} {str(out)[:300]}")
+                got = dict(boxes=np.asarray(out["boxes"], np.float32).reshape(-1, 4),
+                           scores=np.asarray(out["scores"], np.float32), labels=np.asarray(out["labels"]))
+                compare_results([got], [local.detect(image_io.imdecode(body), timeout=120)],
+                                f"CLI answer to {name} vs the in-process batcher")
+        finally:
+            local.close()
+        _, stats = request("GET", "/stats")
+        garbage, _ = request("POST", "/detect", b"not an image")
+        bad_length, _ = request("POST", "/detect", b"", {"Content-Length": "twelve"})
+        print(f"  /stats {stats}; a garbage body gets {garbage}, a malformed Content-Length {bad_length}")
+        if stats.get("requests") != len(bodies) or garbage != 400 or bad_length != 400:
+            fail("the CLI's stats or status codes are wrong")
+        jpegs = [b for n, b in bodies if n.endswith(".jpg")]
+        lat, lock = [], threading.Lock()
+
+        def client(i):
+            mine = []
+            for j in range(i, SERVE_REQUESTS, SERVE_CLIENTS):
+                t = time.perf_counter()
+                status, _ = request("POST", "/detect", jpegs[j % len(jpegs)])
+                if status == 200:
+                    mine.append(time.perf_counter() - t)
+            with lock:
+                lat.extend(mine)
+
+        clients = [threading.Thread(target=client, args=(i,)) for i in range(SERVE_CLIENTS)]
+        before = request("GET", "/stats")[1]
+        t0 = time.perf_counter()
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(300)
+        wall = time.perf_counter() - t0
+        after = request("GET", "/stats")[1]
+        n, b = after["requests"] - before["requests"], after["batches"] - before["batches"]
+        print(f"timing: serve CLI, {SERVE_CLIENTS} HTTP client threads, {SERVE_REQUESTS} POSTs of the 480x640 JPEG "
+              f"fixtures: {len(lat) / wall:.1f} req/s, latency {percentiles(lat)}; {b} batches, fill "
+              f"{n / (b * SERVE_BATCH):.3f} [{gpu}]")
+        if len(lat) != SERVE_REQUESTS:
+            fail(f"{len(lat)} of {SERVE_REQUESTS} POSTs answered 200")
+        proc.terminate()
+        code = proc.wait(120)
+        print(f"  SIGTERM: the server drained and exited {code}")
+        if code != 0:
+            with open(log_path) as f:
+                fail(f"the serve CLI exited {code} on SIGTERM:\n{f.read()[-3000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(60)
+
+
 def kernel_by_k() -> None:
     """The kernel against the plain version in float64 on the CPU at
     ``KERNEL_SHAPES``, both modes, with the kernel's and the plain version's
@@ -1367,6 +1703,8 @@ def main() -> None:
     print(f"timing: vote_nms B=128 K=512: kernel {kernel_ms:.4f} ms (runs {kernel_runs}), "
           f"plain {plain_ms:.3f} ms (runs {plain_runs}), bound {bound_ms * 1e3:.3f} us by {bound_by} "
           f"[{gpu}]")
+    with tempfile.TemporaryDirectory() as work:
+        serving_phase(det, gpu, work)
     del det, model, bench_inputs
     torch.cuda.empty_cache()
 

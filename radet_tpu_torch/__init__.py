@@ -6,10 +6,22 @@ The package mirrors ``radet_tpu``'s layout (``core/``, ``models/``, ``ops/``,
 path.  It imports torch and numpy only: never jax, never ``radet_tpu``.
 
 Entry points: :func:`radet_tpu_torch.apis.init_detector` and
-:func:`radet_tpu_torch.apis.inference_detector` for inference,
-:func:`radet_tpu_torch.apis.train_detector` for training.
+:func:`radet_tpu_torch.apis.inference_detector` (or
+:func:`radet_tpu_torch.apis.async_inference_detector`) for inference,
+:class:`radet_tpu_torch.apis.BatchingDetector` for serving with dynamic
+batching, :func:`radet_tpu_torch.apis.train_detector` for training; the
+command lines ``python -m radet_tpu_torch.tools.train``, ``tools.test`` and
+``tools.serve`` (an HTTP server over a ``BatchingDetector``).
 """
 
-from .apis import Detector, inference_detector, init_detector, train_detector
+from .apis import (
+    BatchingDetector,
+    Detector,
+    async_inference_detector,
+    inference_detector,
+    init_detector,
+    train_detector,
+)
 
-__all__ = ["Detector", "inference_detector", "init_detector", "train_detector"]
+__all__ = ["BatchingDetector", "Detector", "async_inference_detector", "inference_detector", "init_detector",
+           "train_detector"]

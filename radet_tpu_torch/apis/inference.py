@@ -1,14 +1,16 @@
 """Programmatic inference (port of ``radet_tpu/apis/inference.py``'s
-``init_detector`` / ``inference_detector``)."""
+``init_detector``, ``inference_detector`` and ``async_inference_detector``)."""
 
 from __future__ import annotations
 
+import asyncio
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..data.pipeline import Compose, LoadImageFromFile, Pad, Resize
+from ..engine.checkpoint import load_checkpoint
 from ..utils.config import Config
 from .common import build_infer_for_cfg, build_model_and_anchors
 
@@ -36,11 +38,15 @@ def init_detector(
 ) -> Detector:
     """Build the detector of ``config`` (a path or a Config) on ``device``.
 
-    ``checkpoint``: a torch ``.pth`` holding an mmdet-named state dict, or
-    ``{"state_dict": ...}``, loaded with ``strict=True``; None means a random
-    init from ``seed``.  ``device`` is used as given: with no GPU, pass
-    ``device="cpu"``.  Convolutions run in the config's ``compute_dtype`` on
-    the card and in float32 on the CPU."""
+    ``checkpoint``: anything :func:`engine.checkpoint.load_weights` takes
+    (a ``.pth`` state dict or ``save_weights`` file, a trainer's checkpoint
+    file, step directory, ``checkpoints`` root or work dir), loaded with
+    ``strict=True``; None means a random init from ``seed``.  The class
+    names are the config's ``data.test.classes``, else the checkpoint's
+    (the trainer's ``meta.json``, else the file's ``meta["CLASSES"]``).
+    ``device`` is used as given: with no GPU, pass ``device="cpu"``.
+    Convolutions run in the config's ``compute_dtype`` on the card and in
+    float32 on the CPU."""
     cfg = config if isinstance(config, Config) else Config.fromfile(config, cfg_options)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -51,10 +57,9 @@ def init_detector(
     if checkpoint is None:
         model.init_weights(torch.Generator().manual_seed(seed))
     else:
-        ckpt = torch.load(checkpoint, map_location="cpu", weights_only=True)
-        state_dict = ckpt.get("state_dict", ckpt)
+        state_dict, ckpt_classes = load_checkpoint(checkpoint)
         model.load_state_dict(state_dict, strict=True)
-        classes = classes or tuple((ckpt.get("meta") or {}).get("CLASSES", ()) or ())
+        classes = classes or ckpt_classes
     model.to(device).eval()
     return Detector(cfg, model, anchors, counts, classes)
 
@@ -83,12 +88,17 @@ def _prepare_batch(detector: Detector, imgs):
     return np.stack(batch_imgs), np.stack(shapes), np.stack(scales)
 
 
-def _gather_results(det, n: int) -> List[Dict[str, np.ndarray]]:
-    boxes, scores, labels, valid = (t.cpu().numpy() for t in det[:4])
+def _split_results(boxes, scores, labels, valid, n: int) -> List[Dict[str, np.ndarray]]:
+    """Per-image dicts of the first ``n`` rows of numpy Detections fields;
+    each array is a copy (boolean indexing)."""
     return [
         dict(boxes=boxes[i][valid[i]], scores=scores[i][valid[i]], labels=labels[i][valid[i]])
         for i in range(n)
     ]
+
+
+def _gather_results(det, n: int) -> List[Dict[str, np.ndarray]]:
+    return _split_results(*(t.cpu().numpy() for t in det[:4]), n)
 
 
 def inference_detector(detector: Detector, imgs):
@@ -102,4 +112,19 @@ def inference_detector(detector: Detector, imgs):
         imgs = [imgs]
     det = detector._infer(detector.model, *_prepare_batch(detector, imgs))
     out = _gather_results(det, len(imgs))
+    return out[0] if single else out
+
+
+async def async_inference_detector(detector: Detector, imgs):
+    """:func:`inference_detector` as a coroutine: reading and resizing the
+    images, the step (its launches, and on the CPU its compute) and the
+    readback each run in the event loop's default executor, so the loop
+    never blocks on a decode, a launch or a copy to the host."""
+    single = not isinstance(imgs, (list, tuple))
+    if single:
+        imgs = [imgs]
+    loop = asyncio.get_running_loop()
+    batch = await loop.run_in_executor(None, _prepare_batch, detector, imgs)
+    det = await loop.run_in_executor(None, detector._infer, detector.model, *batch)
+    out = await loop.run_in_executor(None, _gather_results, det, len(imgs))
     return out[0] if single else out

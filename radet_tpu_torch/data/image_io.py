@@ -4,8 +4,9 @@ baseline JPEG with a host C++ decoder (port of
 ``cv2.imread`` calls on masks).
 
 :func:`imread` returns what ``cv2.imread(path, flags)`` returns for a PNG or
-JPEG file, with one change: ``IMREAD_COLOR`` gives RGB (cv2's BGR swapped, as
-``imread_rgb`` does).
+JPEG file, and :func:`imdecode` what ``cv2.imdecode(data, flags)`` returns
+for its bytes, with one change: ``IMREAD_COLOR`` gives RGB (cv2's BGR
+swapped, as ``imread_rgb`` does).
 
 - ``IMREAD_COLOR``: (H, W, 3) uint8 RGB; gray is replicated to 3 channels,
   alpha is dropped, and 16-bit samples keep their high byte (libpng's
@@ -220,7 +221,7 @@ def decode_jpeg(data: bytes, gray: bool = False) -> np.ndarray:
     return out
 
 
-def _imread_jpeg(path: str, data: bytes, flags: int) -> np.ndarray:
+def _imread_jpeg(where: str, data: bytes, flags: int) -> np.ndarray:
     _, _, components, orientation = jpeg_info(data)
     if flags == IMREAD_UNCHANGED:
         if components == 1:
@@ -230,7 +231,7 @@ def _imread_jpeg(path: str, data: bytes, flags: int) -> np.ndarray:
         raise ValueError(f"flags must be IMREAD_COLOR, IMREAD_GRAYSCALE or IMREAD_UNCHANGED, got {flags}")
     if 2 <= orientation <= 8:
         raise NotImplementedError(
-            f"{path}: EXIF orientation {orientation} (cv2.imread turns the image by it) is not applied "
+            f"{where}: EXIF orientation {orientation} (cv2.imread turns the image by it) is not applied "
             f"({_VARIANTS})"
         )
     return decode_jpeg(data, gray=flags == IMREAD_GRAYSCALE)
@@ -241,12 +242,27 @@ def imread(path: str, flags: int = IMREAD_COLOR) -> np.ndarray:
     ``IMREAD_COLOR`` (see the module docstring)."""
     with open(path, "rb") as f:  # a missing file raises FileNotFoundError
         data = f.read()
+    return _decode(data, flags, path)
+
+
+def imdecode(data, flags: int = IMREAD_COLOR) -> np.ndarray:
+    """``cv2.imdecode(data, flags)`` for the bytes of a PNG or JPEG file
+    (anything ``bytes()`` takes: bytes, a buffer, a uint8 array), RGB for
+    ``IMREAD_COLOR``, as :func:`imread`.  Where ``cv2.imdecode`` returns
+    None this raises ``ValueError``; a variant that is not decoded raises
+    ``NotImplementedError``."""
+    return _decode(bytes(data), flags, "image bytes")
+
+
+def _decode(data: bytes, flags: int, where: str) -> np.ndarray:
+    """The pixels of ``data``, a file's bytes; ``where`` (the path) names
+    it in errors."""
     if data.startswith(b"\xff\xd8\xff"):
-        return _imread_jpeg(path, data, flags)
+        return _imread_jpeg(where, data, flags)
     if data[:4] in (b"II*\x00", b"MM\x00*"):
-        raise NotImplementedError(f"{path}: TIFF is not decoded ({_TIFF})")
+        raise NotImplementedError(f"{where}: TIFF is not decoded ({_TIFF})")
     if not data.startswith(_PNG_SIGNATURE):
-        raise ValueError(f"{path}: not a PNG file")
+        raise ValueError(f"{where}: not a PNG or JPEG file")
     samples = decode_png(data)
     channels = samples.shape[2]
     if flags == IMREAD_UNCHANGED:
@@ -261,7 +277,7 @@ def imread(path: str, flags: int = IMREAD_COLOR) -> np.ndarray:
     if flags == IMREAD_GRAYSCALE:
         if channels > 2:
             raise NotImplementedError(
-                f"{path}: a color PNG read as grayscale is not converted ({_VARIANTS})"
+                f"{where}: a color PNG read as grayscale is not converted ({_VARIANTS})"
             )
         return np.ascontiguousarray(samples[..., 0])
     if flags != IMREAD_COLOR:

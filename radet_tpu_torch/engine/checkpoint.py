@@ -16,7 +16,7 @@ import json
 import os
 import os.path as osp
 import shutil
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -109,7 +109,17 @@ def load_meta(path: str) -> Dict[str, Any]:
 
 def load_weights(path: str) -> Dict[str, torch.Tensor]:
     """The model state dict of a ``save_weights`` file, a full checkpoint
-    file, a manager step directory, or a manager root (its latest step)."""
+    file, a manager step directory, a manager root (its latest step) or a
+    work dir holding ``checkpoints``."""
+    return load_checkpoint(path)[0]
+
+
+def load_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], Tuple[str, ...]]:
+    """(state dict, class names) of the checkpoint at ``path`` (any form
+    :func:`load_weights` takes).  The class names are the trainer's
+    ``meta.json`` ``"classes"`` (found from the checkpoint file as
+    :func:`load_meta` finds it), else the file's own ``meta["CLASSES"]``
+    (``save_weights``), else empty."""
     path = osp.abspath(path)
     if osp.isdir(path):
         root, step = resolve_manager_root(path)
@@ -118,9 +128,10 @@ def load_weights(path: str) -> Dict[str, torch.Tensor]:
             raise FileNotFoundError(f"no checkpoint found under {path}")
         path = osp.join(root, str(step), FILENAME)
     payload = torch.load(path, map_location="cpu", weights_only=True)
+    classes = load_meta(path).get("classes") or (payload.get("meta") or {}).get("CLASSES") or ()
     if "model" in payload and "tx" in payload:
-        return payload["model"]
-    return payload.get("state_dict", payload)
+        return payload["model"], tuple(classes)
+    return payload.get("state_dict", payload), tuple(classes)
 
 
 def resolve_manager_root(path: str):

@@ -315,6 +315,61 @@ def test_committed_jpeg_fixtures_match_their_hashes(name):
     assert list(ref_rgb.shape) == want["shape"] == [480, 640, 3]
 
 
+# ----------------------------------------------------------------- imdecode
+
+
+def _cv2_imdecode(data, flag):
+    ref = cv2.imdecode(np.frombuffer(data, np.uint8), flag)
+    return ref[..., ::-1] if flag == IMREAD_COLOR else ref  # the port gives RGB
+
+
+@pytest.mark.parametrize("flag", sorted(IMREAD))
+@pytest.mark.parametrize("name", sorted(_images()))
+def test_imdecode_png_equals_cv2(png_files, name, flag):
+    with open(png_files[name], "rb") as f:
+        data = f.read()
+    ref = _cv2_imdecode(data, IMREAD[flag])
+    if flag == "gray" and _images()[name][1].ndim == 3:
+        with pytest.raises(NotImplementedError, match="item 19"):
+            image_io.imdecode(data, IMREAD[flag])
+        return
+    for given in (data, bytearray(data), np.frombuffer(data, np.uint8)):
+        got = image_io.imdecode(given, IMREAD[flag])
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("flag", sorted(IMREAD))
+@pytest.mark.parametrize("name", sorted(FIXTURE_HASHES))
+def test_imdecode_jpeg_fixtures_equal_cv2(name, flag):
+    with open(osp.join(JPEG_FIXTURES, name), "rb") as f:
+        data = f.read()
+    ref = _cv2_imdecode(data, IMREAD[flag])
+    got = image_io.imdecode(data, IMREAD[flag])
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_imdecode_raises_where_cv2_gives_none_or_turns():
+    """Bytes cv2.imdecode cannot decode raise ValueError, without naming a
+    file; a variant the port does not decode raises NotImplementedError."""
+    for bad in (b"", b"not-an-image", _PNG_SIGNATURE_ONLY, b"\xff\xd8\xff\xd9"):
+        if bad:
+            assert cv2.imdecode(np.frombuffer(bad, np.uint8), cv2.IMREAD_COLOR) is None
+        with pytest.raises(ValueError, match="PNG|JPEG"):
+            image_io.imdecode(bad)
+    img = _jpeg_image(40, 56, seed=7)
+    data = _variant(cv2.imencode(".jpg", img)[1].tobytes(), "exif6")
+    with pytest.raises(NotImplementedError, match="image bytes: EXIF orientation 6"):
+        image_io.imdecode(data)
+    progressive = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes()
+    with pytest.raises(NotImplementedError, match="item 19"):
+        image_io.imdecode(progressive)
+
+
+_PNG_SIGNATURE_ONLY = b"\x89PNG\r\n\x1a\n"
+
+
 # ------------------------------------------------------------------- Resize
 
 RESIZES = {  # (source h, w) -> the flagship test Resize's (w, h) scale

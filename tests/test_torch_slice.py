@@ -152,6 +152,60 @@ def test_init_and_inference_detector_on_cpu(tmp_path):
         inference_detector(det, np.zeros((32, 48, 3), np.float32))
 
 
+TRAINED_CLASSES = ("obj_a", "obj_b", "obj_c", "obj_d")
+CHECKPOINT_FORMS = {  # init_detector's argument, under the fixture's directory
+    "manager_root": "work_dir/checkpoints",
+    "step_dir": "work_dir/checkpoints/3",
+    "work_dir": "work_dir",
+    "full_checkpoint_file": "work_dir/checkpoints/3/checkpoint.pth",
+    "save_weights_file": "weights.pth",
+}
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """What the port's trainer writes: a work dir whose ``checkpoints`` hold
+    full checkpoints of steps 2 and 3 and ``meta.json`` with the class
+    names, and a ``save_weights`` file of step 3's weights.  Returns (the
+    directory, step 3's state dict)."""
+    from radet_tpu_torch.engine import CheckpointManager, TrainState, build_optimizer, save_weights
+    from radet_tpu_torch.engine.checkpoint import write_meta
+
+    tmp = tmp_path_factory.mktemp("trained")
+    model = build_model_and_anchors(Config.fromfile(FLAGSHIP, CPU_OPTIONS), dtype="float32")[0]
+    model.init_weights(torch.Generator().manual_seed(3))
+    tx, _ = build_optimizer(dict(type="SGD", lr=0.0), dict(policy="fixed"), None, model)
+    manager = CheckpointManager(str(tmp / "work_dir" / "checkpoints"))
+    write_meta(manager.directory, dict(classes=list(TRAINED_CLASSES)))
+    state = TrainState(model, tx, step=2)
+    manager.save(2, state, force=True)
+    with torch.no_grad():
+        model.bbox_head.atss_cls.bias.add_(1.0)  # step 3's weights differ from step 2's
+    state.step = 3
+    manager.save(3, state, force=True)
+    save_weights(str(tmp / "weights.pth"), model.state_dict(), meta=dict(CLASSES=list(TRAINED_CLASSES)))
+    return tmp, {k: v.clone() for k, v in model.state_dict().items()}
+
+
+@pytest.mark.parametrize("form", sorted(CHECKPOINT_FORMS))
+def test_init_detector_loads_what_the_trainer_writes(trained, form):
+    """Each form the trainer leaves loads step 3's weights (the latest) with
+    the trained class names when the config names none; the config's
+    ``data.test.classes`` come first.  ``init_detector`` used to
+    ``torch.load`` the path as a file of ``{"state_dict"}`` or a bare state
+    dict: a directory raised IsADirectoryError, a full checkpoint failed
+    the strict load, and ``meta.json`` was never read."""
+    tmp, want = trained
+    path = str(tmp / CHECKPOINT_FORMS[form])
+    det = init_detector(FLAGSHIP, path, cfg_options=CPU_OPTIONS + ["data.test.classes=None"], device="cpu")
+    assert det.classes == TRAINED_CLASSES
+    got = det.model.state_dict()
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+    assert init_detector(FLAGSHIP, path, cfg_options=CPU_OPTIONS, device="cpu").classes[0] == "master_chef_can"
+
+
 def test_init_detector_never_swaps_the_device():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device works")
@@ -168,8 +222,13 @@ import numpy as np
 import radet_tpu_torch
 for mod in pkgutil.walk_packages(radet_tpu_torch.__path__, "radet_tpu_torch."):
     importlib.import_module(mod.name)
+from radet_tpu_torch.apis.serving import BatchingDetector
+from radet_tpu_torch.tools.serve import make_handler
 det = radet_tpu_torch.init_detector({FLAGSHIP!r}, cfg_options={CPU_OPTIONS!r}, device="cpu")
 out = radet_tpu_torch.inference_detector(det, np.zeros(({IMG_HW[0]}, {IMG_HW[1]}, 3), np.uint8))
+with BatchingDetector(det, batch_size=2) as srv:
+    served = srv.detect(np.zeros(({IMG_HW[0]}, {IMG_HW[1]}, 3), np.uint8), timeout=60)
+assert sorted(served) == sorted(out) and make_handler(srv)
 loaded = [m for m, v in sys.modules.items() if v is not None and m.split(".")[0] in ("jax", "flax", "radet_tpu")]
 assert not loaded, loaded
 print("ran", sorted(out))

@@ -92,3 +92,33 @@ def jax_assignment_noise(key, b, g, n, cap):
     draw = jax.vmap(jax.vmap(lambda k: jax.random.gumbel(k, (cap, cap))))(pairs[:, :, 0])
     return np.array(pool), np.array(draw)
 
+
+
+# the serving tests' detector: NARROW on the CPU with the test_cfg of
+# tests/test_torch_slice.py (exact top-k, nms_topk above the 516 candidate pairs)
+SERVE_TEST_CFG = ["test_cfg.approx_topk=False", "test_cfg.nms_topk=1024"]
+
+
+def serving_pair():
+    """(radet_tpu Detector, radet_tpu_torch Detector on the CPU) of the
+    narrowed flagship, carrying the same weights."""
+    from radet_tpu.apis.inference import Detector as JaxDetector
+    from radet_tpu.utils.config import Config as JaxConfig
+    from radet_tpu_torch import init_detector
+
+    jax_det = JaxDetector(JaxConfig.fromfile(FLAGSHIP, NARROW + SERVE_TEST_CFG))
+    cpu_options = [o for o in NARROW if not o.startswith("compute_dtype")] + SERVE_TEST_CFG
+    det = init_detector(FLAGSHIP, cfg_options=cpu_options, device="cpu")
+    jax_det.variables = flax_and_port_models(jax_det.model, det.model)
+    return jax_det, det
+
+
+def assert_same_detections(got, want):
+    """Per-image detection dicts: valid and labels equal, scores within
+    1e-5, boxes within 1e-2 px."""
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert len(g["boxes"]) == len(w["boxes"])
+        np.testing.assert_array_equal(g["labels"], w["labels"])
+        np.testing.assert_allclose(g["scores"], w["scores"], rtol=0, atol=1e-5)
+        np.testing.assert_allclose(g["boxes"], w["boxes"], rtol=0, atol=1e-2)
