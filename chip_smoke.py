@@ -81,7 +81,22 @@ Run from the repository root, with one card:  python3 chip_smoke.py
    checkpoints; checks the 2:1 layout and the draws from both splits, the
    load of every tensor, finite losses, the frozen stages kept and the
    head moved, and the eval's vote-NMS launches, and prints its img/s and
-   wait share.
+   wait share;
+9. runs the anchor-head family (``configs/atss``: ATSS and RetinaNet's
+   ``AnchorHead``): the kernel's no-vote mode (class-aware greedy NMS)
+   against ``batched_nms_plain`` in float64, bit for bit, at the (B, K) of
+   ``NMS_SHAPES`` with 21 labels, timed beside the plain version and the
+   bound; ``init_detector`` on each config at full width (seeded random
+   weights, bf16) and ``inference_detector`` on 8 random 480x640 images,
+   one no-vote launch per batch, the run's NMS inputs through the plain
+   version, the float32 forward against the CPU's; ATSS inference timed at
+   batch 8 and 128; the train CLI on each config from the JPEG
+   ``train_pbr`` split through its own pipeline (20 steps ATSS, 10
+   RetinaNet, batch 16, bf16, one eval on the PNG set): finite losses,
+   checkpoint, frozen stages kept, head moved, and the test CLI (``--eval
+   bbox``) on that checkpoint; each train step's time with
+   its IoU assignment's share; and ATSS's float32 step on the card against
+   the CPU at batch 1 (same ReLU sides).  Each phase prints its wall time.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero before it.  Without a CUDA card, or outside the repository, the
@@ -148,6 +163,14 @@ VOTE_OPS = 36  # per member: weight, 3 passes over 4 coordinates
 # the serving batch
 KERNEL_SHAPES = ((8, 512), (16, 512), (128, 512), (8, 1024), (8, 1025), (8, 2048), (16, 2048), (128, 2048),
                  (8, 4420))
+# the anchor family (configs/atss): train CLI steps per config; the no-vote
+# kernel's (B, K): interactive and deploy inference at nms_topk 1024, the
+# train CLI's periodic eval (B = 16), and the strict eval (K = 2048)
+ANCHOR_CONFIGS = ("configs/atss/atss_r50_fpn_ycbv_pbr.py", "configs/atss/retina_r50_fpn_ycbv_pbr.py")
+ANCHOR_STEPS = {"atss_r50_fpn_ycbv_pbr": 20, "retina_r50_fpn_ycbv_pbr": 10}
+NMS_SHAPES = ((8, 1024), (16, 1024), (128, 1024), (16, 2048))
+NMS_LABELS = 21
+ANCHOR_MAIN_SHAPE = (8, 1024)  # the kernels line's times: the main path's call (inference_detector, 8 images)
 # serving: the CLI's default batch and latency budget; the bit-for-bit
 # check's images at YCB-V's size, T-LESS's (resized) and COCO's common
 # 427x640 (padded); submitter threads of the sweep, SERVE_REQUESTS each
@@ -157,6 +180,14 @@ SERVE_SIZES = ((480, 640), (540, 720), (427, 640))
 SERVE_SUBMITTERS = (1, 16, 64)
 SERVE_REQUESTS = 256
 SERVE_CLIENTS = 16  # HTTP client threads against the CLI
+
+
+def phase(name: str, fn, *args):
+    """``fn(*args)``, printing its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s wall", flush=True)
+    return out
 
 
 def fail(msg: str) -> None:
@@ -237,22 +268,24 @@ def compare(kern, plain, what: str) -> float:
     return max_err
 
 
-def nms_bound(arrays, max_out: int):
+def nms_bound(arrays, max_out: int, vote: bool = True):
     """The least time the card could take for one vote-NMS call on these
     inputs: the larger of the bytes (each input read once, each output
     written once) over HBM3's 3.35 TB/s, and the float32 operations this
     data needs over 67 TFLOP/s (a label compare per pair of valid
     candidates, ~15 operations per same-label IoU test, ~36 per member's
-    votes).  Returns (ms, "bytes" or "operations", operations, bytes)."""
-    _, _, _, labels, valid = (a.cpu() for a in arrays)
+    votes).  ``vote=False``: the no-vote mode's call on (boxes, scores,
+    labels, valid), one score in, no votes.  Returns (ms, "bytes" or
+    "operations", operations, bytes)."""
+    labels, valid = (a.cpu() for a in arrays[-2:])
     b, k = labels.shape
     n_valid = valid.sum(1).double()
     same = 0.0
     for i in range(b):
         counts = torch.unique(labels[i][valid[i]], return_counts=True)[1].double()
         same += float((counts * (counts - 1) / 2).sum())
-    ops = float((n_valid * (n_valid - 1) / 2).sum()) + IOU_OPS * same + VOTE_OPS * float(n_valid.sum())
-    nbytes = b * k * (16 + 4 + 4 + 4 + 1) + b * max_out * (16 + 4 + 4 + 1)
+    ops = float((n_valid * (n_valid - 1) / 2).sum()) + IOU_OPS * same + VOTE_OPS * vote * float(n_valid.sum())
+    nbytes = b * k * (16 + 4 * vote + 4 + 4 + 1) + b * max_out * (16 + 4 + 4 + 1)
     by_ops, by_bytes = ops / F32_PEAK, nbytes / HBM_RATE
     return max(by_ops, by_bytes) * 1e3, "operations" if by_ops >= by_bytes else "bytes", ops, nbytes
 
@@ -280,6 +313,9 @@ def kernel_split(fn, calls: int = 10) -> str:
     total = sum(us.values())
     if total <= 0:
         return "not measured (no device time in key_averages())"
+    caught, launched = sum(count.values()), calls * len(vnc.CUDA_KERNELS)
+    if 2 * caught < launched:
+        return f"not measured (the profiler caught {caught} of {launched} kernel events)"
     return (f"{total / calls / 1e3:.4f} ms per call in {sum(count.values()) / calls:g} CUDA kernels: "
             + ", ".join(f"{n} {us[n] / calls / 1e3:.4f} ms ({us[n] / total:.1%})" for n in vnc.CUDA_KERNELS))
 
@@ -866,11 +902,13 @@ def contention_phase(train_config: str, gpu: str, device: str = "cuda") -> None:
         torch.cuda.empty_cache()
 
 
-def train_cli(config: str, work_dir: str, steps: int, mode: str, eval_opts, *opts, device: str = "cuda"):
+def train_cli(config: str, work_dir: str, steps: int, mode: str, eval_opts, *opts, device: str = "cuda",
+              nms: str = "vote_nms"):
     """``python -m radet_tpu_torch.tools.train`` on ``config`` in a
     subprocess for ``steps`` steps with ``data.workers_per_gpu`` =
     FILES_WORKERS workers of ``mode``, one eval at the last step and a
-    checkpoint there; checks its steps, eval, vote-NMS launches, losses and
+    checkpoint there; checks its steps, eval, the launches of the NMS
+    kernel's ``nms`` mode ('vote_nms' or 'batched_nms') in it, losses and
     checkpoint.  Returns (iter lines, the 'train dataset:' line, launches,
     seconds, the log)."""
     from radet_tpu_torch.engine import load_weights
@@ -889,16 +927,16 @@ def train_cli(config: str, work_dir: str, steps: int, mode: str, eval_opts, *opt
     log = [ln.split(" - ")[-1] for ln in proc.stderr.splitlines()]
     iters = [ln for ln in log if ln.startswith("iter ")]
     evals = [ln for ln in log if ln.startswith("eval: ")]
-    launches = sum(int(n) for ln in log for n in re.findall(r"vote_nms kernel launches (\d+)", ln))
+    launches = sum(int(n) for ln in log for n in re.findall(nms + r" kernel launches (\d+)", ln))
     dataset = next((ln for ln in log if ln.startswith("train dataset:")), "")
     ckpt = osp.join(work_dir, "checkpoints")
     saved = sorted(int(d) for d in os.listdir(ckpt) if d.isdigit()) if osp.isdir(ckpt) else []
     for ln in (iters[0], iters[len(iters) // 2], iters[-1]):
         print(f"  {ln}")
     for ln in evals:
-        print(f"  {ln}; vote_nms kernel launches {launches}")
+        print(f"  {ln}; {nms} kernel launches {launches}")
     if len(iters) != steps or len(evals) != 1 or launches < 1:
-        fail(f"{len(iters)} steps, {len(evals)} evals, {launches} vote_nms launches in the run on "
+        fail(f"{len(iters)} steps, {len(evals)} evals, {launches} {nms} launches in the run on "
              f"{osp.basename(config)}")
     if steps not in saved or not load_weights(ckpt):
         fail(f"the run on {osp.basename(config)} wrote checkpoints {saved}, not step {steps}")
@@ -1519,6 +1557,372 @@ def eval_phases(config: str, gpu: str, work: str):
     return val_opts
 
 
+def nms_plain_reference(arrays, **kw):
+    """``batched_nms_plain`` in float64 on the CPU, 16 images at a time,
+    with boxes and scores back in float32 (copies of the inputs, so exact):
+    what the no-vote kernel's outputs are held to, bit for bit."""
+    from radet_tpu_torch.ops.vote_nms import batched_nms_plain
+
+    outs = []
+    for i in range(0, arrays[0].shape[0], 16):
+        boxes, scores, labels, valid = (a[i:i + 16].cpu() for a in arrays)
+        outs.append(batched_nms_plain(boxes.double(), scores.double(), labels, valid, **kw))
+    return [t.float() if t.is_floating_point() else t for t in (torch.cat(x) for x in zip(*outs))]
+
+
+def compare_exact(kern, plain, what: str) -> float:
+    """No-vote kernel vs plain outputs, every slot equal bit for bit;
+    returns the max abs box error (0)."""
+    got = [t.cpu() for t in kern]
+    for name, g, p in zip(("boxes", "labels", "scores", "valid"), got, plain):
+        if not torch.equal(g, p):
+            fail(f"{what}: {name} differ in {int((g != p).sum())} places")
+    print(f"  {what}: kept {int(got[3].sum())}, every slot equal bit for bit")
+    return float((got[0] - plain[0]).abs().max()) if got[0].numel() else 0.0
+
+
+def nms_by_k(gpu: str) -> dict:
+    """The no-vote kernel against ``batched_nms_plain`` in float64 at
+    NMS_SHAPES (21 labels), timed in turns with the plain version on the
+    card, beside the call's bound.  Returns {(B, K): (kernel ms, plain ms,
+    bound ms, bound by, max abs err)}."""
+    import radet_tpu_torch.ops.vote_nms_cuda as vnc
+    from radet_tpu_torch.ops.vote_nms import batched_nms_plain
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(SEED + 8)
+    kw = dict(iou_threshold=0.6, max_out=100)
+    out = {}
+    print(f"no-vote kernel (batched_nms) on the card vs plain in float64 on the CPU by (B, K), synthetic "
+          f"clustered candidates ({NMS_LABELS} labels, 60-100% valid), iou_threshold 0.6, max_out 100:")
+    for b, k in NMS_SHAPES:
+        boxes, scores, _, labels, valid = clustered_candidates(rng, b, k, num_labels=NMS_LABELS)
+        arrays = [torch.from_numpy(a).to(dev) for a in (boxes, scores, labels, valid)]
+        kern = vnc.batched_nms_cuda(*arrays, **kw)
+        torch.cuda.synchronize()
+        err = compare_exact(kern, nms_plain_reference(arrays, **kw), f"B={b} K={k}")
+        # profiled before the plain version's thousands of small launches
+        split = kernel_split(lambda: vnc.batched_nms_cuda(*arrays, **kw))
+        kernel_ms, plain_ms, _, _ = alternate_ms(
+            lambda: vnc.batched_nms_cuda(*arrays, **kw), lambda: batched_nms_plain(*arrays, **kw), 20, 2)
+        bound_ms, bound_by, ops, nbytes = nms_bound(arrays, kw["max_out"], vote=False)
+        print(f"timing: batched_nms B={b} K={k}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
+              f"{bound_ms * 1e3:.3f} us by {bound_by} ({ops:.4g} ops, {nbytes} bytes), kernel at "
+              f"{bound_ms / kernel_ms:.2%} of it [{gpu}]")
+        print(f"  device time B={b} K={k}: {split}")
+        out[(b, k)] = (kernel_ms, plain_ms, bound_ms, bound_by, err)
+        del arrays, kern
+    torch.cuda.empty_cache()
+    return out
+
+
+def anchor_inference_phase(gpu: str, repo: Path, test_opts) -> tuple:
+    """Both anchor-head configs at full width: ``init_detector`` (seeded
+    random weights, bf16; ATSS's cls bias at 0 so that scores clear
+    score_thr), ``inference_detector`` on 8 random 480x640 images with the
+    launches counted, the NMS inputs of that run through the plain version
+    in float64, and the float32 forward against the CPU's; the ATSS step's
+    time at batch 8 and 128, and ATSS's strict eval of the PNG set
+    (``test_opts``) through the kernel and through the plain version.
+    Returns the ATSS run's (launches, max abs err)."""
+    import radet_tpu_torch.models.postprocess as postprocess
+    import radet_tpu_torch.ops.vote_nms_cuda as vnc
+    from radet_tpu_torch import inference_detector, init_detector
+    from radet_tpu_torch.models.detector import preprocess_images
+
+    dev = torch.device("cuda")
+    img_rng = np.random.RandomState(SEED + 9)
+    main = None
+    for config in ANCHOR_CONFIGS:
+        name = osp.basename(config)
+        det = init_detector(str(repo / config), device="cuda", seed=SEED)
+        model = det.model
+        head = type(model.bbox_head).__name__
+        print(f"anchor family: init_detector({config!r}, device='cuda', seed={SEED}): {head}, "
+              f"{sum(p.numel() for p in model.parameters())} parameters, {det.anchors.shape[0]} anchors, "
+              f"compute dtype {model.dtype}, input {det.input_size}")
+        if model.dtype != torch.bfloat16:
+            fail(f"{name}: compute dtype is {model.dtype}, the config asks for bfloat16")
+        if head == "ATSSHead":
+            with torch.no_grad():
+                model.bbox_head.atss_cls.bias.zero_()
+            print("  bbox_head.atss_cls.bias set to 0 so that scores clear score_thr")
+        h, w = det.input_size
+        imgs = [img_rng.randint(0, 256, (h, w, 3), dtype=np.uint8) for _ in range(8)]
+        calls = []
+        kernel_nms = postprocess.batched_nms
+
+        def recording(*args, **kw):
+            out = kernel_nms(*args, **kw)
+            calls.append(([a.clone() for a in args], kw, [t.clone() for t in out]))
+            return out
+
+        postprocess.batched_nms = recording
+        try:
+            vnc.LAUNCHES = vnc.NMS_LAUNCHES = 0
+            results = inference_detector(det, imgs)
+            torch.cuda.synchronize()
+            launches, vote_launches = vnc.NMS_LAUNCHES, vnc.LAUNCHES
+        finally:
+            postprocess.batched_nms = kernel_nms
+        print(f"  inference_detector on 8 images {h}x{w}: batched_nms kernel launches {launches} (vote_nms "
+              f"{vote_launches}), detections per image {[len(r['boxes']) for r in results]}")
+        if launches != 1 or vote_launches != 0 or len(calls) != 1:
+            fail(f"{name}: the main path launched the no-vote kernel {launches} times (vote mode "
+                 f"{vote_launches}) for one batch")
+        for r in results:
+            if not len(r["boxes"]) or r["boxes"].shape[1:] != (4,):
+                fail(f"{name}: an image has no detections, or misshapen ones")
+            if not (np.isfinite(r["boxes"]).all() and np.isfinite(r["scores"]).all()):
+                fail(f"{name}: non-finite detections")
+            if (r["labels"] < 0).any() or (r["labels"] >= 21).any():
+                fail(f"{name}: labels outside the 21 classes")
+        args, kw, kern = calls[0]
+        print(f"  NMS input: K={args[0].shape[1]}, valid candidates per image {args[3].sum(1).tolist()}")
+        err = compare_exact(kern, nms_plain_reference(args, **kw),
+                            "main-path candidates, no-vote kernel on the card vs plain in float64 on the CPU")
+        if head == "ATSSHead":
+            main = (launches, err)
+
+        # float32 forward on the card vs the CPU forward, 1 image
+        x = torch.from_numpy(imgs[0][None]).to(dev)
+        norm = det.cfg.img_norm_cfg
+        with torch.inference_mode():
+            x = preprocess_images(x, norm.mean, norm.std, torch.float32)
+            model.dtype = torch.float32
+            gpu_maps = [m.cpu() for maps in model(x) for m in maps]
+            model.dtype = torch.bfloat16
+            cpu_model = init_detector(str(repo / config), device="cpu", seed=SEED).model
+            cpu_model.load_state_dict(model.state_dict())
+            cpu_maps = [m for maps in cpu_model(x.cpu()) for m in maps]
+        rel = max(float((g - c).abs().max() / c.abs().max().clamp(min=1e-6)) for g, c in zip(gpu_maps, cpu_maps))
+        print(f"  float32 head maps ({len(gpu_maps)}), card vs CPU: max error relative to each map's max "
+              f"{rel:.3g} (limit {MAP_RTOL})")
+        if rel > MAP_RTOL:
+            fail(f"{name}: the card's float32 forward disagrees with the CPU forward")
+        del cpu_model
+
+        if head == "ATSSHead":
+            for batch, iters in ((8, 20), (128, 5)):
+                u8 = torch.randint(0, 256, (batch, h, w, 3), dtype=torch.uint8, device=dev,
+                                   generator=torch.Generator(device=dev).manual_seed(SEED))
+                shp = torch.tensor([[h, w]] * batch, dtype=torch.float32, device=dev)
+                scl = torch.ones((batch, 4), dtype=torch.float32, device=dev)
+
+                def step():
+                    det._infer(model, u8, shp, scl)
+
+                for _ in range(2):
+                    step()
+                torch.cuda.reset_peak_memory_stats()
+                ms = cuda_ms(step, iters)
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                print(f"timing: ATSS inference batch {batch} (uint8 on the card): {ms:.2f} ms/batch, "
+                      f"{batch * 1000.0 / ms:.1f} img/s, peak memory {peak:.2f} GiB [{gpu}]")
+                del u8
+            anchor_strict_eval(str(repo / config), test_opts, model, gpu)
+        del det, model, calls
+        torch.cuda.empty_cache()
+    return main
+
+
+def anchor_strict_eval(config: str, test_opts, model, gpu: str) -> None:
+    """Strict ``test_from_config`` (nms_topk 2048) of ``model`` on the PNG
+    set, files to metrics, through the no-vote kernel and then through the
+    plain version on the card: the same labels on every image, boxes equal,
+    metrics within METRIC_ATOL."""
+    import radet_tpu_torch.apis.test as port_test
+    import radet_tpu_torch.models.postprocess as postprocess
+    import radet_tpu_torch.ops.vote_nms_cuda as vnc
+    from radet_tpu_torch.ops.vote_nms import batched_nms_plain
+    from radet_tpu_torch.utils import Config
+
+    cfg = Config.fromfile(config, test_opts)
+    ks = set()
+    kernel_nms = postprocess.batched_nms
+
+    def recording(nms):
+        def run(*args, **kw):
+            ks.add(int(args[0].shape[1]))
+            return nms(*args, **kw)
+        return run
+
+    postprocess.batched_nms = recording(kernel_nms)
+    try:
+        vnc.NMS_LAUNCHES = 0
+        t0 = time.perf_counter()
+        dataset, results, metrics = port_test.test_from_config(cfg, model)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        launches, kernel_ks = vnc.NMS_LAUNCHES, sorted(ks)
+        postprocess.batched_nms = recording(batched_nms_plain)
+        t0 = time.perf_counter()
+        _, plain_results, plain_metrics = port_test.test_from_config(cfg, model)
+        plain_s = time.perf_counter() - t0
+    finally:
+        postprocess.batched_nms = kernel_nms
+    n = len(results)
+    same = all(np.array_equal(a["labels"], b["labels"]) and np.array_equal(a["boxes"], b["boxes"])
+               for a, b in zip(results, plain_results))
+    diff = max(abs(metrics[k] - plain_metrics[k]) for k in metrics)
+    print(f"eval: ATSS test_from_config strict, full width, bf16, {n} PNG images, files -> metrics: {eval_s:.2f} s, "
+          f"{n / eval_s:.1f} img/s; batched_nms kernel launches {launches} at K {kernel_ks}; through the plain "
+          f"version {plain_s:.2f} s, {n / plain_s:.1f} img/s; detections {sum(len(r['boxes']) for r in results)}, "
+          f"equal bit for bit: {same}, max |metric difference| {diff:.3g} [{gpu}]")
+    print("  metrics (kernel): " + " ".join(f"{k} {v:.4f}" for k, v in metrics.items()))
+    if launches < 1 or 2048 not in kernel_ks or not same or diff > METRIC_ATOL:
+        fail(f"the ATSS strict eval: launches {launches} at K {kernel_ks}, kernel and plain equal: {same}, "
+             f"metrics off by {diff:.3g}")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        fail("the ATSS strict eval's metrics are not finite")
+
+
+def anchor_step_timing(cfg, dataset, gpu: str) -> None:
+    """The anchor head's train step at batch 16 (bf16, the config's AdamW and
+    clip, the batch on the card) and its assignment alone, by CUDA events."""
+    from radet_tpu_torch.apis.common import anchor_head_spec, build_model_and_anchors
+    from radet_tpu_torch.data import collate
+    from radet_tpu_torch.engine import build_optimizer
+    from radet_tpu_torch.engine.train_step import TrainState, batch_to_device, build_train_step_anchor
+
+    model, anchors, _, counts = build_model_and_anchors(cfg)
+    model.init_weights(torch.Generator().manual_seed(SEED))
+    model.to("cuda").train()
+    tx, _ = build_optimizer(cfg.optimizer.to_dict(), cfg.lr_config.to_dict(), cfg.grad_clip.to_dict(), model)
+    state = TrainState(model, tx)
+    step = build_train_step_anchor(model, anchors, counts, img_norm=cfg.img_norm_cfg.to_dict(),
+                                   num_classes=int(cfg.model.bbox_head.num_classes), spec=anchor_head_spec(cfg))
+    batch_size = int(cfg.data.samples_per_gpu)
+    batch = batch_to_device(collate([dataset[i] for i in range(batch_size)]), "cuda", step.batch_keys)
+    for _ in range(3):
+        step(state, batch)
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: step(state, batch), 10)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assign_ms = cuda_ms(lambda: step.assign(batch), 10)
+    n_pos = int((step.assign(batch) > 0).sum())
+    print(f"timing: {step.head_type} train step batch {batch_size} {str(model.dtype)[6:]} (batch on the card): "
+          f"{ms:.2f} ms/step, {batch_size * 1000.0 / ms:.1f} img/s, peak memory {peak:.2f} GiB; its assignment "
+          f"({'ATSS' if step.head_type == 'ATSSHead' else 'MaxIoU'}, {anchors.shape[0]} anchors x "
+          f"{batch['gt_boxes'].shape[1]} GT slots, {n_pos} positives) alone {assign_ms:.3f} ms, "
+          f"{assign_ms / ms:.1%} of the step [{gpu}]")
+    del state, model, tx, step, batch
+    torch.cuda.empty_cache()
+
+
+def anchor_parity(cfg, dataset, gpu: str) -> None:
+    """One float32 train step of the anchor head at batch 1, card vs CPU:
+    same weights and batch, the same side of every ReLU (the CPU replays
+    the card's decisions); and the CPU with its own decisions beside it."""
+    from radet_tpu_torch.apis.common import anchor_head_spec, build_model_and_anchors
+    from radet_tpu_torch.data import collate
+    from radet_tpu_torch.engine import build_optimizer
+    from radet_tpu_torch.engine.train_step import TrainState, batch_to_device, build_train_step_anchor
+
+    one = collate([dataset[0]])
+    spec = anchor_head_spec(cfg)
+
+    def run(device):
+        model, anchors, _, counts = build_model_and_anchors(cfg, dtype="float32")
+        model.init_weights(torch.Generator().manual_seed(SEED))
+        model.to(device).train()
+        step = build_train_step_anchor(model, anchors, counts, img_norm=cfg.img_norm_cfg.to_dict(),
+                                       num_classes=int(cfg.model.bbox_head.num_classes), spec=spec)
+        batch = batch_to_device(one, device, step.batch_keys)
+        sgd0, _ = build_optimizer(dict(type="SGD", lr=0.0), dict(policy="fixed"), None, model)
+        metrics = step(TrainState(model, sgd0), batch)
+        return (step.assign(batch).cpu(), {k: float(v) for k, v in metrics.items()},
+                {k: p.grad.cpu() for k, p in model.named_parameters() if p.requires_grad})
+
+    masks = []
+    with relu_decisions(masks, replay=False):
+        ag, mg, gg = run(torch.device("cuda"))
+    with relu_decisions(masks, replay=True) as flips:
+        ac, mc, gc = run(torch.device("cpu"))
+    raw = grad_errors(run(torch.device("cpu"))[2], gg)
+    loss_err = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in mc)
+    errs = grad_errors(gg, gc)
+    flip_max = max((r for _, r in flips), default=0.0)
+    print(f"anchor train parity, {spec['head_type']} float32 batch 1, card vs CPU (TF32 off, same ReLU sides): "
+          f"assignment equal: {torch.equal(ag, ac)} ({int((ac > 0).sum())} positives); losses max rel err "
+          f"{loss_err:.3g} (loss {mg['loss']:.6f} vs {mc['loss']:.6f}); gradients max err {errs[0][0]:.3g} of the "
+          f"tensor's max abs ({errs[0][1]}) [{gpu}]")
+    print(f"  ReLU inputs on opposite sides of 0: {sum(c for c, _ in flips)} of {sum(m.numel() for m in masks)} "
+          f"in {len(masks)} calls, at most {flip_max:.3g} of their tensor's max |x|; with each side's own ReLU "
+          f"decisions the gradients differ by up to {raw[0][0]:.3g} ({raw[0][1]})")
+    if not torch.equal(ag, ac):
+        fail(f"the anchor assignment differs between card and CPU in {int((ag != ac).sum())} anchors")
+    if flip_max > FLIP_RTOL:
+        fail(f"a ReLU input differs in sign by more than rounding ({flip_max:.3g} > {FLIP_RTOL})")
+    if loss_err > LOSS_RTOL or errs[0][0] > GRAD_RTOL:
+        fail(f"card vs CPU anchor train step beyond tolerance (losses {LOSS_RTOL}, gradients {GRAD_RTOL})")
+    torch.cuda.empty_cache()
+
+
+def anchor_train_phase(files: str, gpu: str, eval_opts, test_opts, repo: Path) -> None:
+    """Both anchor-head configs through ``python -m radet_tpu_torch.tools.train``
+    on the JPEG ``train_pbr`` split of ``files`` through each config's own
+    train_pipeline (full width, bf16, batch 16, ANCHOR_STEPS steps, one eval
+    on the PNG set's landscape images): finite losses, the checkpoint, the
+    frozen stem and first stage kept and the head moved from the seeded
+    init, the eval's no-vote kernel launches; ``python -m
+    radet_tpu_torch.tools.test --eval bbox`` on that checkpoint and the PNG
+    set (``test_opts``); then each train step's time and its assignment's
+    share, and ATSS's float32 step against the CPU."""
+    from radet_tpu_torch.apis.common import build_dataset, build_model_and_anchors
+    from radet_tpu_torch.engine import load_weights
+    from radet_tpu_torch.utils import Config
+    from synthetic_bop import write_train_config
+
+    ann, prefix = osp.join(files, "train_pbr.json"), osp.join(files, "train_pbr") + "/"
+    for config in ANCHOR_CONFIGS:
+        name = osp.splitext(osp.basename(config))[0]
+        steps = ANCHOR_STEPS[name]
+        train_config = write_train_config(osp.join(files, f"{name}.py"), str(repo / config), ann, prefix,
+                                          osp.join(files, "backgrounds"))
+        cfg = Config.fromfile(train_config)
+        print(f"train anchor family: python -m radet_tpu_torch.tools.train {config} from train_pbr (its own "
+              f"train_pipeline, full width, bf16, batch {cfg.data.samples_per_gpu}, {FILES_WORKERS} loader "
+              f"thread workers, {steps} steps, one eval):")
+        work_dir = osp.join(files, f"work_dir_{name}")
+        iters, dataset_line, launches, run_s, _ = train_cli(train_config, work_dir, steps, "thread", eval_opts,
+                                                            nms="batched_nms")
+        keys = ("loss_cls", "loss_bbox", "loss_centerness") if "atss" in name else ("loss_cls", "loss_bbox")
+        if any(f"{k} " not in ln for ln in iters for k in keys + ("num_pos",)):
+            fail(f"{name}: the trainer's log misses one of {keys}")
+        model = build_model_and_anchors(cfg)[0]
+        model.init_weights(torch.Generator().manual_seed(int(cfg.get("seed", 0))))
+        init, after = model.state_dict(), load_weights(osp.join(work_dir, "checkpoints"))
+        frozen = [k for k in init if k.startswith(("backbone.conv1.", "backbone.bn1.", "backbone.layer1."))]
+        head = [k for k in init if k.startswith("bbox_head.")]
+        kept = all(torch.equal(after[k], init[k]) for k in frozen)
+        moved = max(float((after[k] - init[k]).abs().max()) for k in head)
+        ms, wait = median_iter(iters, skip=3)
+        print(f"  {len(frozen)} frozen tensors equal the seeded init: {kept}; the head's largest move "
+              f"{moved:.3g}; {steps} steps in {run_s:.1f} s in its own process (start-up, model build and eval "
+              f"included), {cfg.data.samples_per_gpu * 1000 / ms:.1f} img/s ({ms:.1f} ms/step, median of steps "
+              f"4-{steps}), loader wait {wait:.1f} ms/step; {dataset_line} [{gpu}]")
+        if not frozen or not kept or moved <= 0:
+            fail(f"{name}: the frozen stages moved or the head did not train")
+        cmd = [sys.executable, "-m", "radet_tpu_torch.tools.test", train_config, osp.join(work_dir, "checkpoints"),
+               "--device", "cuda", "--eval", "bbox", "--cfg-options", *test_opts]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=str(repo), timeout=600)
+        if proc.returncode != 0:
+            fail(f"the test CLI on {name}'s checkpoint exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+        metrics = json.loads(proc.stdout[proc.stdout.index("{"):])
+        launches = sum(int(n) for n in re.findall(r"batched_nms kernel launches (\d+)", proc.stderr))
+        print(f"  python -m radet_tpu_torch.tools.test (strict) on the checkpoint, {time.perf_counter() - t0:.1f} s "
+              f"in its own process: bbox_mAP {metrics['bbox_mAP']:.4f}, bbox_mAP_50 {metrics['bbox_mAP_50']:.4f}; "
+              f"batched_nms kernel launches {launches}")
+        if launches < 1 or not all(math.isfinite(v) for v in metrics.values()):
+            fail(f"{name}: the test CLI launched no no-vote kernel or gave non-finite metrics")
+        dataset = build_dataset(cfg, "train")
+        anchor_step_timing(cfg, dataset, gpu)
+        if "atss" in name:
+            anchor_parity(cfg, dataset, gpu)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -1546,6 +1950,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     gpu = card()
+    start = time.perf_counter()
     print(f"card: {gpu}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device count {torch.cuda.device_count()}")
@@ -1570,9 +1975,11 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
 
+    print(f"phase builds: {time.perf_counter() - start:.1f} s wall since the start", flush=True)
     with tempfile.TemporaryDirectory() as work:
-        decode_phase(gpu, work)
-    color_aug_phase(gpu)
+        phase("JPEG decode", decode_phase, gpu, work)
+    phase("CosyPose ops", color_aug_phase, gpu)
+    t_main = time.perf_counter()
 
     # 2. kernel vs plain on synthetic candidates at the bench batch
     print("kernel vs plain in float64 on the CPU, synthetic clustered candidates, B=128:")
@@ -1703,24 +2110,33 @@ def main() -> None:
     print(f"timing: vote_nms B=128 K=512: kernel {kernel_ms:.4f} ms (runs {kernel_runs}), "
           f"plain {plain_ms:.3f} ms (runs {plain_runs}), bound {bound_ms * 1e3:.3f} us by {bound_by} "
           f"[{gpu}]")
+    print(f"phase kernel vs plain, main path and its timing: {time.perf_counter() - t_main:.1f} s wall", flush=True)
     with tempfile.TemporaryDirectory() as work:
-        serving_phase(det, gpu, work)
+        phase("serving", serving_phase, det, gpu, work)
     del det, model, bench_inputs
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as work:
-        kernel_by_k()
-        eval_opts = eval_phases(config, gpu, work)
-        memory_ms = train_phases(config, gpu, eval_opts)
+        phase("kernel by (B, K)", kernel_by_k)
+        eval_opts = phase("eval", eval_phases, config, gpu, work)
+        memory_ms = phase("train in memory", train_phases, config, gpu, eval_opts)
         files = osp.join(work, "files")
         os.makedirs(files)
         train_config, mix_config = write_train_files(config, files)
-        loader_phase(train_config, gpu)
-        contention_phase(train_config, gpu)
-        pbr_checkpoints = files_phase(train_config, gpu, eval_opts, memory_ms)
-        mix_phase(mix_config, pbr_checkpoints, gpu, eval_opts, memory_ms)
+        phase("loader", loader_phase, train_config, gpu)
+        phase("loader contention", contention_phase, train_config, gpu)
+        pbr_checkpoints = phase("train from files", files_phase, train_config, gpu, eval_opts, memory_ms)
+        phase("mixpbr fine-tune", mix_phase, mix_config, pbr_checkpoints, gpu, eval_opts, memory_ms)
 
-    print(f"card: {gpu}")
+        # 9. the anchor family (configs/atss): the no-vote kernel, inference, training
+        nms_times = phase("no-vote kernel by (B, K)", nms_by_k, gpu)
+        test_opts = [f"data.test.ann_file={osp.join(work, 'test.json')!r}",
+                     f"data.test.img_prefix={osp.join(work, 'test') + '/'!r}"]
+        nms_launches, nms_err = phase("anchor inference", anchor_inference_phase, gpu, repo, test_opts)
+        phase("anchor training", anchor_train_phase, files, gpu, eval_opts, test_opts, repo)
+    nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by, _ = nms_times[ANCHOR_MAIN_SHAPE]
+
+    print(f"card: {gpu}; smoke {time.perf_counter() - start:.1f} s wall")
     print(json.dumps({"kernels": [{
         "name": "vote_nms",
         "route": "cuda",
@@ -1733,6 +2149,18 @@ def main() -> None:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,  # no PyTorch call computes vote-NMS
+    }, {
+        "name": "batched_nms (vote_nms.cu, no-vote mode)",
+        "route": "cuda",
+        "source": "radet_tpu_torch/csrc/vote_nms.cu",
+        "replaces": "radet_tpu/ops/vote_nms.py:343 (plain XLA)",
+        "launches": nms_launches,
+        "max_abs_err": nms_err,
+        "ms": nms_ms,
+        "plain_ms": nms_plain_ms,
+        "bound_ms": nms_bound_ms,
+        "bound_by": nms_bound_by,
+        "library_ms": None,  # no PyTorch call computes class-aware greedy NMS
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

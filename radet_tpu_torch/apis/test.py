@@ -27,6 +27,7 @@ from .common import (
     _to_dict,
     anchors_from_cfg,
     build_dataset,
+    build_infer_for_cfg,
     head_type_from_cfg,
     normalizer_from_cfg,
 )
@@ -66,8 +67,9 @@ def run_inference(
     ``model`` (on its device, in eval mode) over ``dataset``, loaded by
     ``num_workers`` threads (the config's ``data.workers_per_gpu``).
 
-    ``infer_step``: a step from ``engine.infer_step.build_infer_step`` to
-    reuse (periodic eval builds it once)."""
+    ``infer_step``: a step from ``apis.common.build_infer_for_cfg`` to use
+    (periodic eval builds it once); without it, RADet's step of
+    ``engine.infer_step.build_infer_step``."""
     if torch.distributed.is_available() and torch.distributed.is_initialized() \
             and torch.distributed.get_world_size() > 1:
         raise NotImplementedError(f"evaluation across processes is not ported ({_MULTI_GPU})")
@@ -80,7 +82,7 @@ def run_inference(
                         drop_last=False, infinite=False)
     results: List[dict] = []
     n_images = 0
-    launches = vote_nms_cuda.LAUNCHES
+    launches = vote_nms_cuda.LAUNCHES, vote_nms_cuda.NMS_LAUNCHES
     t_start = time.time()
 
     def drain(host, ready, img_ids):
@@ -116,7 +118,8 @@ def run_inference(
     dt = time.time() - t_start
     if n_images:
         logger.info(f"inference done: {n_images} images in {dt:.1f}s ({n_images / dt:.1f} img/s), "
-                    f"vote_nms kernel launches {vote_nms_cuda.LAUNCHES - launches}")
+                    f"vote_nms kernel launches {vote_nms_cuda.LAUNCHES - launches[0]}, "
+                    f"batched_nms kernel launches {vote_nms_cuda.NMS_LAUNCHES - launches[1]}")
     return results
 
 
@@ -147,7 +150,8 @@ def test_from_config(
     ``strict`` (default) runs the reference's candidate semantics
     (:func:`strict_eval_overrides`); ``strict=False`` the deploy path.  A
     dataset whose images disagree with ``cfg.input_size``'s orientation
-    runs as one view per orientation, each at its own static size."""
+    runs as one view per orientation, each at its own static size.
+    ATSSHead and AnchorHead configs run single-scale."""
     head_type_from_cfg(cfg)
     batch_size = batch_size or int(cfg.data.get("samples_per_gpu", 8))
     test_cfg = cfg.test_cfg.to_dict()
@@ -158,6 +162,10 @@ def test_from_config(
     dataset = build_dataset(cfg, split)
     common = dict(img_norm=cfg.img_norm_cfg.to_dict(), test_cfg=test_cfg, batch_size=batch_size,
                   num_workers=int(cfg.data.get("workers_per_gpu", 8)), normalizer=normalizer_from_cfg(cfg))
+
+    def infer(anchors, counts):
+        return build_infer_for_cfg(cfg, model, anchors, counts, test_cfg=test_cfg)
+
     h0, w0 = tuple(cfg.get("input_size", (480, 640)))
     has_portrait = any(i["height"] > i["width"] for i in dataset.data_infos)
     has_landscape = any(i["height"] < i["width"] for i in dataset.data_infos)
@@ -171,10 +179,12 @@ def test_from_config(
             view = _build_bop(cfg, dict(data_cfg, orientation=orient), True, input_size=size)
             if len(view):
                 anchors, _, counts = anchors_from_cfg(cfg, size)
-                results += run_inference(model, view, anchors=anchors, level_counts=counts, **common)
+                results += run_inference(model, view, anchors=anchors, level_counts=counts,
+                                         infer_step=infer(anchors, counts), **common)
     else:
         anchors, _, counts = anchors_from_cfg(cfg)
-        results = run_inference(model, dataset, anchors=anchors, level_counts=counts, **common)
+        results = run_inference(model, dataset, anchors=anchors, level_counts=counts,
+                                infer_step=infer(anchors, counts), **common)
     if fmt_only:
         return dataset, results, None
     return dataset, results, evaluate_results(

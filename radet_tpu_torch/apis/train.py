@@ -31,10 +31,11 @@ from ..engine.checkpoint import (
     write_meta,
 )
 from ..engine.optim import build_optimizer
-from ..engine.train_step import TrainState, batch_to_device, build_train_step
+from ..engine.train_step import TrainState, batch_to_device, build_train_step, build_train_step_anchor
 from ..utils.logging import get_root_logger
 from .common import (
     _to_dict,
+    anchor_head_spec,
     assignment_cfg_from,
     build_dataset,
     build_infer_for_cfg,
@@ -116,7 +117,7 @@ def train_detector(
     cfg.dump(osp.join(work_dir, "config.py"))
 
     check_trainable_quant(cfg.model)
-    head_type_from_cfg(cfg)
+    head_type = head_type_from_cfg(cfg)
     if dataset is None:
         dataset = build_dataset(cfg, "train", test_mode=False)
     model, anchors, ranges, counts = build_model_and_anchors(
@@ -153,14 +154,17 @@ def train_detector(
         if state.step:
             logger.info(f"resumed from step {state.step}")
 
-    train_step = build_train_step(
-        model, anchors, ranges,
-        img_norm=_to_dict(cfg.img_norm_cfg),
-        num_classes=int(cfg.model.bbox_head.num_classes),
-        assignment_cfg=assignment_cfg_from(cfg),
-        normalizer=normalizer_from_cfg(cfg),
-        loss_cfg=loss_cfg_from(cfg),
-    )
+    img_norm = _to_dict(cfg.img_norm_cfg)
+    num_classes = int(cfg.model.bbox_head.num_classes)
+    if head_type == "RADetHead":
+        train_step = build_train_step(
+            model, anchors, ranges, img_norm=img_norm, num_classes=num_classes,
+            assignment_cfg=assignment_cfg_from(cfg), normalizer=normalizer_from_cfg(cfg),
+            loss_cfg=loss_cfg_from(cfg),
+        )
+    else:  # ATSSHead, AnchorHead: IoU assignment inside the step, no distance maps
+        train_step = build_train_step_anchor(model, anchors, counts, img_norm=img_norm,
+                                             num_classes=num_classes, spec=anchor_head_spec(cfg))
     classes = list(getattr(dataset, "CLASSES", None) or cfg.data.train.get("classes") or ())
     logger.info(f"train dataset: {len(dataset)} samples, {len(classes)} classes")
     write_meta(ckpt.directory, dict(classes=classes, git_hash=_git_hash()))
@@ -194,7 +198,7 @@ def train_detector(
             t_data = time.perf_counter()
             batch = next(it)
             data_wait += time.perf_counter() - t_data
-            metrics = train_step(state, batch_to_device(batch, device))
+            metrics = train_step(state, batch_to_device(batch, device, train_step.batch_keys))
             step = state.step
             if log_interval and step % log_interval == 0:
                 values = {k: float(v) for k, v in metrics.items()}

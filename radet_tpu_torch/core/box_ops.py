@@ -1,6 +1,6 @@
-"""Aligned box IoU and GIoU (port of the aligned half of
-``radet_tpu/core/box_ops.py``): element-wise over equal-shaped (..., 4)
-xyxy tensors, differentiable."""
+"""Box IoU and GIoU (port of ``radet_tpu/core/box_ops.py``): element-wise
+over equal-shaped (..., 4) xyxy tensors, and the pairwise IoU of two box
+sets; differentiable."""
 
 from __future__ import annotations
 
@@ -34,3 +34,13 @@ def bbox_giou_aligned(a, b, eps: float = EPS):
     enclose_wh = (torch.maximum(a[..., 2:], b[..., 2:]) - torch.minimum(a[..., :2], b[..., :2])).clamp(min=0)
     enclose = (enclose_wh[..., 0] * enclose_wh[..., 1]).clamp(min=eps)
     return iou - (enclose - union) / enclose
+
+
+def bbox_iou_pairwise(a, b, eps: float = EPS):
+    """Pairwise IoU: a (..., N, 4) x b (..., M, 4) -> (..., N, M)."""
+    lt = torch.maximum(a[..., :, None, :2], b[..., None, :, :2])
+    rb = torch.minimum(a[..., :, None, 2:], b[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = bbox_area(a)[..., :, None] + bbox_area(b)[..., None, :] - inter
+    return inter / union.clamp(min=eps)

@@ -56,6 +56,13 @@
 // The 1-sigma bounds use the same intrinsics; the sums run in another order
 // than the plain version's, so voted coordinates may differ on a small tail
 // of 1-sigma boundary flips.
+//
+// The no-vote mode (do_vote = 0, with global_mode = 0) is plain class-aware
+// greedy NMS, radet_tpu/ops/vote_nms.py::batched_nms_device on candidates
+// sorted by score (ties in index order; plain version batched_nms_plain):
+// the same overlap pass and greedy keep, then the sweep lists each kept box
+// as its own only member and vote_kernel copies the kept boxes, their
+// scores and labels into the slots, with no seeds and no vote.
 
 #include <cuda_runtime.h>
 
@@ -230,7 +237,7 @@ overlap_kernel(const float4* __restrict__ boxes, const int* __restrict__ labels,
 // 2. greedy keep, global dedup, ranks, seeds and members; one block per image
 __global__ void __launch_bounds__(kThreads)
 sweep_kernel(const int* __restrict__ labels, const bool* __restrict__ valid,
-             unsigned char* __restrict__ scratch, int K, int max_out, int global_mode) {
+             unsigned char* __restrict__ scratch, int K, int max_out, int global_mode, int do_vote) {
   __shared__ unsigned s_valid[kMaxWords], s_removed[kMaxWords], s_keep[kMaxWords],
       s_final[kMaxWords];
   __shared__ int s_rank0[kMaxWords], s_scan[kWarps + 1];
@@ -331,6 +338,17 @@ sweep_kernel(const int* __restrict__ labels, const bool* __restrict__ valid,
   }
   __syncthreads();
 
+  int* offs = out + 1;
+  int* members = out + K + 2;
+  if (!do_vote) {  // each emitted box is its own only member
+    for (int r = tid; r <= n_out; r += kThreads) {
+      offs[r] = r;
+      if (r < n_out) members[r] = s_order[r];
+    }
+    if (tid == 0) out[0] = n_out;
+    return;
+  }
+
   // seeds, one warp per word of boxes: the lowest emitted final-kept row
   // i < j with bit j (only the upper triangle is stored: column j of the
   // kept rows), a final-kept box itself
@@ -366,8 +384,6 @@ sweep_kernel(const int* __restrict__ labels, const bool* __restrict__ valid,
     if (s_srank[j] >= 0) atomicAdd(&s_count[s_srank[j]], 1);
   __syncthreads();
   const int n_members = block_exclusive_scan(s_count, n_out, s_scan);
-  int* offs = out + 1;
-  int* members = out + K + 2;
   for (int r = tid; r < n_out; r += kThreads) offs[r] = s_count[r];
   if (tid == 0) {
     out[0] = n_out;
@@ -395,7 +411,7 @@ __global__ void __launch_bounds__(kThreads)
 vote_kernel(const float4* __restrict__ boxes, const float* __restrict__ cluster,
             const float* __restrict__ vote, const int* __restrict__ labels,
             unsigned char* __restrict__ scratch, int K, int max_out, int iou_enable,
-            float sigma, float4* __restrict__ out_boxes, int* __restrict__ out_labels,
+            float sigma, int do_vote, float4* __restrict__ out_boxes, int* __restrict__ out_labels,
             float* __restrict__ out_scores, bool* __restrict__ out_valid) {
   extern __shared__ __align__(16) unsigned char smem[];
   float4* s_box = reinterpret_cast<float4*>(smem);  // this block's members
@@ -415,6 +431,18 @@ vote_kernel(const float4* __restrict__ boxes, const float* __restrict__ cluster,
     out_scores[obase + slot] = 0.f;
     out_valid[obase + slot] = false;
   };
+  if (!do_vote) {  // the kept box itself, one thread per slot
+    if (lane == 0 && r < n_out) {
+      const int s = members[offs[r]];
+      out_boxes[obase + r] = boxes[base + s];
+      out_labels[obase + r] = labels[base + s];
+      out_scores[obase + r] = cluster[base + s];
+      out_valid[obase + r] = true;
+    } else if (lane == 0 && r < max_out) {
+      empty_slot(r);
+    }
+    return;
+  }
   if (r0 >= n_out) {
     if (tid < kWarps && r0 + tid < max_out) empty_slot(r0 + tid);
     return;
@@ -525,13 +553,15 @@ size_t radet_vote_nms_scratch_bytes(int B, int K) {
 
 // Launches the three kernels on `stream`; returns the first launch error
 // (cudaGetLastError(), 0 on success).  `scratch` holds
-// radet_vote_nms_scratch_bytes(B, K) bytes, 256-byte aligned.
+// radet_vote_nms_scratch_bytes(B, K) bytes, 256-byte aligned.  do_vote = 0
+// is the no-vote mode (plain greedy NMS; global_mode must be 0).
 int radet_vote_nms(const void* boxes, const void* cluster, const void* vote,
                    const void* labels, const void* valid, void* scratch, void* out_boxes,
                    void* out_labels, void* out_scores, void* out_valid, int B, int K,
                    int max_out, float iou_threshold, int iou_enable, float sigma,
-                   int global_mode, void* stream) {
+                   int global_mode, int do_vote, void* stream) {
   if (B <= 0 || B > 65535 || K <= 0 || K > kMaxK || max_out < 0) return (int)cudaErrorInvalidValue;
+  if (!do_vote && global_mode) return (int)cudaErrorInvalidValue;
   if (scratch == nullptr || reinterpret_cast<size_t>(scratch) % 256) return (int)cudaErrorInvalidValue;
   if (max_out == 0) return (int)cudaSuccess;  // no slot to fill
   cudaError_t err = allow_max_smem();
@@ -546,12 +576,12 @@ int radet_vote_nms(const void* boxes, const void* cluster, const void* vote,
       bx, lb, static_cast<const bool*>(valid), scr, K, iou_threshold);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   sweep_kernel<<<B, kThreads, sweep_smem(K), st>>>(lb, static_cast<const bool*>(valid), scr, K,
-                                                   max_out, global_mode);
+                                                   max_out, global_mode, do_vote);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  vote_kernel<<<dim3((max_out + kWarps - 1) / kWarps, B), kThreads, vote_smem(K), st>>>(
+  vote_kernel<<<dim3((max_out + kWarps - 1) / kWarps, B), kThreads, do_vote ? vote_smem(K) : 0, st>>>(
       bx, static_cast<const float*>(cluster), static_cast<const float*>(vote), lb, scr, K,
-      max_out, iou_enable, sigma, static_cast<float4*>(out_boxes), static_cast<int*>(out_labels),
-      static_cast<float*>(out_scores), static_cast<bool*>(out_valid));
+      max_out, iou_enable, sigma, do_vote, static_cast<float4*>(out_boxes),
+      static_cast<int*>(out_labels), static_cast<float*>(out_scores), static_cast<bool*>(out_valid));
   return (int)cudaGetLastError();
 }
 

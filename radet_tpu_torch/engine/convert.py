@@ -1,11 +1,14 @@
-"""Convert the JAX package's RADet variables into the port's state dict.
+"""Convert the JAX package's detector variables into the port's state dict.
 
-:func:`state_dict_from_flax` is the exact inverse of
-``tools/convert_torch_weights.py::convert_mmdet_detector``: it takes the
-``{params, batch_stats}`` tree as nested dicts of numpy arrays and returns
-mmdet-named tensors (``backbone.layer1.0.conv1.weight``,
-``neck.lateral_convs.0.conv.weight``, ``bbox_head.scales.0.scale``, ...)
-that the port's RADet loads with ``strict=True``.
+:func:`state_dict_from_flax` takes the ``{params, batch_stats}`` tree as
+nested dicts of numpy arrays and returns mmdet-named tensors
+(``backbone.layer1.0.conv1.weight``, ``neck.lateral_convs.0.conv.weight``,
+``bbox_head.scales.0.scale``, ...) that the port's detector loads with
+``strict=True``.  For RADet it is the exact inverse of
+``tools/convert_torch_weights.py::convert_mmdet_detector``; the ATSSHead
+(``cls_convs``, ``atss_cls``, ``atss_reg``, ``atss_centerness``,
+``scales``) and AnchorHead (``conv_cls``, ``conv_reg``) names are mmdet's
+too.
 """
 
 from __future__ import annotations
@@ -30,8 +33,10 @@ def _kernel(x) -> torch.Tensor:
 def state_dict_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """``{params, batch_stats}`` (nested dicts of numpy arrays) -> state dict.
 
-    Raises ValueError on any entry the float RADet/ResNet/FPN/RADetHead
-    layout does not have, so an unported variant fails loudly."""
+    The head is told apart by its variables: ``atss_cls`` (ATSSHead),
+    ``conv_iou`` (RADetHead), else AnchorHead.  Raises ValueError on any
+    entry the float ResNet/FPN/head layouts do not have, so an unported
+    variant fails loudly."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     sd: Dict[str, torch.Tensor] = {}
@@ -93,11 +98,18 @@ def state_dict_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         sd[prefix + ".conv.weight"] = _kernel(take("params", hp + ("conv", "kernel")))
         sd[prefix + ".gn.weight"] = _t(take("params", hp + ("gn", "scale")))
         sd[prefix + ".gn.bias"] = _t(take("params", hp + ("gn", "bias")))
-    for fname, tname in (("conv_cls", "atss_cls"), ("conv_reg", "atss_reg"), ("conv_iou", "atss_centerness")):
+    if "atss_cls" in head:  # ATSSHead: mmdet's names already
+        convs = {n: n for n in ("atss_cls", "atss_reg", "atss_centerness")}
+    elif "conv_iou" in head:  # RADetHead
+        convs = {"conv_cls": "atss_cls", "conv_reg": "atss_reg", "conv_iou": "atss_centerness"}
+    else:  # AnchorHead
+        convs = {"conv_cls": "conv_cls", "conv_reg": "conv_reg"}
+    for fname, tname in convs.items():
         sd[f"bbox_head.{tname}.weight"] = _kernel(take("params", ("bbox_head", fname, "kernel")))
         sd[f"bbox_head.{tname}.bias"] = _t(take("params", ("bbox_head", fname, "bias")))
-    for i, s in enumerate(np.asarray(take("params", ("bbox_head", "scales")), np.float32)):
-        sd[f"bbox_head.scales.{i}.scale"] = torch.tensor(float(s), dtype=torch.float32)
+    if "scales" in head:
+        for i, s in enumerate(np.asarray(take("params", ("bbox_head", "scales")), np.float32)):
+            sd[f"bbox_head.scales.{i}.scale"] = torch.tensor(float(s), dtype=torch.float32)
 
     leftover = [
         "/".join((col,) + path)

@@ -1,10 +1,13 @@
-"""The training step (port of ``radet_tpu/engine/train_step.py::build_train_step``).
+"""The training steps (port of ``radet_tpu/engine/train_step.py``'s
+``build_train_step`` for RADet and ``build_train_step_anchor`` for the
+generic anchor heads).
 
 One call does what the JAX package's jitted step does: uint8 -> normalized
 input, the forward pass with autograd (convolutions in ``model.dtype``,
 GroupNorm, head outputs and the loss in float32), batched label assignment
-under ``no_grad``, the RADet loss, backward, global-norm clip, the
-optimizer update and the schedule's step.
+under ``no_grad`` (RADet's sampled draw from the distance maps, or the
+anchor heads' ATSS / MaxIoU on IoU), the loss, backward, global-norm clip,
+the optimizer update and the schedule's step.
 
 The assignment noise comes from a device generator seeded by (seed, step),
 the counterpart of ``fold_in(rng_key, step)``: a run resumed from a
@@ -20,12 +23,16 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.anchor_assign import atss_assign, max_iou_assign
 from ..core.assignment import AssignResult, assign_labels
+from ..models.anchor_heads import flatten_anchor_outputs
+from ..models.anchor_loss import anchor_head_loss, atss_loss
 from ..models.detector import flatten_head_outputs, preprocess_images
 from ..models.radet_loss import radet_loss
 from .optim import ClippedOptimizer
 
 BATCH_KEYS = ("image", "gt_boxes", "gt_labels", "gt_valid", "dist_vals")
+ANCHOR_BATCH_KEYS = BATCH_KEYS[:4]  # the anchor heads assign on IoU: no distance maps
 
 
 class TrainState:
@@ -80,6 +87,8 @@ def build_train_step(
 
 
 class TrainStep:
+    batch_keys = BATCH_KEYS
+
     def __init__(self, model, anchors, regress_ranges, *, img_norm, num_classes,
                  assignment_cfg=None, normalizer=1.0 / 8.0, loss_cfg=None):
         acfg = dict(assignment_cfg or {})
@@ -130,12 +139,82 @@ class TrainStep:
         generator = None if noise is not None else state.step_generator()
         assign = self.assign(batch, noise, generator)
         state.tx.zero_grad()
-        losses = self.loss(state.model, batch, assign)
-        total = losses["loss_cls"] + losses["loss_bbox"] + losses["loss_iou"]
-        total.backward()
-        grad_norm = state.tx.step()
-        state.step += 1
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["loss"] = total.detach()
-        metrics["grad_norm"] = grad_norm
-        return metrics
+        return _update(state, self.loss(state.model, batch, assign))
+
+
+def _update(state: TrainState, losses: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Backward of the sum of the ``loss_*`` entries, clip and optimizer
+    step; returns the detached losses, ``loss`` and ``grad_norm``."""
+    total = sum(v for k, v in losses.items() if k.startswith("loss_"))
+    total.backward()
+    grad_norm = state.tx.step()
+    state.step += 1
+    metrics = {k: v.detach() for k, v in losses.items()}
+    metrics["loss"] = total.detach()
+    metrics["grad_norm"] = grad_norm
+    return metrics
+
+
+def build_train_step_anchor(
+    model,
+    anchors: np.ndarray,
+    num_level_anchors,
+    *,
+    img_norm: Dict[str, Any],
+    num_classes: int,
+    spec: Dict[str, Any],
+) -> "AnchorTrainStep":
+    """Returns ``train_step(state, batch) -> metrics`` for ATSSHead and
+    AnchorHead models.  ``spec``: ``apis.common.anchor_head_spec`` of the
+    config.  ``batch``: device tensors under :data:`ANCHOR_BATCH_KEYS`.
+    The assignment is deterministic (IoU-based): the step draws no random
+    numbers."""
+    return AnchorTrainStep(model, anchors, num_level_anchors, img_norm=img_norm, num_classes=num_classes,
+                           spec=spec)
+
+
+class AnchorTrainStep:
+    batch_keys = ANCHOR_BATCH_KEYS
+
+    def __init__(self, model, anchors, num_level_anchors, *, img_norm, num_classes, spec):
+        device = next(model.parameters()).device
+        self.head_type = spec["head_type"]
+        self.num_classes = num_classes
+        self.counts = tuple(int(c) for c in num_level_anchors)
+        self.spec = spec
+        self.anchors = torch.as_tensor(anchors, dtype=torch.float32, device=device)
+        mask = spec.get("valid_mask")
+        self.valid_mask = None if mask is None else torch.as_tensor(mask, device=device)
+        self.mean = torch.tensor(img_norm["mean"], dtype=torch.float32, device=device)
+        self.std = torch.tensor(img_norm["std"], dtype=torch.float32, device=device)
+
+    @torch.no_grad()
+    def assign(self, batch) -> torch.Tensor:
+        """The step's assignment of ``batch`` alone: (B, N) gt_inds."""
+        kw = self.spec["loss_kwargs"]
+        if self.head_type == "ATSSHead":
+            return atss_assign(self.anchors, self.counts, batch["gt_boxes"], batch["gt_valid"],
+                               topk=kw["topk"], inside_mask=self.valid_mask)[0]
+        return max_iou_assign(
+            self.anchors, batch["gt_boxes"], batch["gt_valid"], pos_iou_thr=kw["pos_iou_thr"],
+            neg_iou_thr=kw["neg_iou_thr"], min_pos_iou=kw["min_pos_iou"],
+            gt_max_assign_all=kw["gt_max_assign_all"], match_low_quality=kw["match_low_quality"],
+        )[0]
+
+    def loss(self, model, batch) -> Dict[str, torch.Tensor]:
+        """The head's losses of ``model``'s forward on ``batch``, with autograd."""
+        x = preprocess_images(batch["image"], self.mean, self.std, model.dtype)
+        outs = model(x)
+        common = dict(num_classes=self.num_classes, encode_fn=self.spec["encode_fn"],
+                      decode_fn=self.spec["decode_fn"], valid_mask=self.valid_mask, **self.spec["loss_kwargs"])
+        cls_flat = flatten_anchor_outputs(outs[0], self.num_classes)
+        reg_flat = flatten_anchor_outputs(outs[1], 4)
+        gts = (batch["gt_boxes"], batch["gt_labels"], batch["gt_valid"])
+        if self.head_type == "ATSSHead":
+            ctr_flat = flatten_anchor_outputs(outs[2], 1)[..., 0]
+            return atss_loss(cls_flat, reg_flat, ctr_flat, self.anchors, self.counts, *gts, **common)
+        return anchor_head_loss(cls_flat, reg_flat, self.anchors, *gts, **common)
+
+    def __call__(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
+        state.tx.zero_grad()
+        return _update(state, self.loss(state.model, batch))

@@ -1,18 +1,23 @@
+from .anchor_heads import AnchorHead, ATSSHead
 from .builder import build_detector
-from .detector import RADet, flatten_head_outputs, preprocess_images
+from .detector import RADet, SingleStageDetector, flatten_head_outputs, preprocess_images
 from .fpn import FPN
-from .postprocess import Detections, get_bboxes
+from .postprocess import Detections, get_bboxes, get_bboxes_anchor
 from .radet_head import RADetHead
 from .resnet import ResNet
 
 __all__ = [
+    "ATSSHead",
+    "AnchorHead",
     "Detections",
     "FPN",
     "RADet",
     "RADetHead",
     "ResNet",
+    "SingleStageDetector",
     "build_detector",
     "flatten_head_outputs",
     "get_bboxes",
+    "get_bboxes_anchor",
     "preprocess_images",
 ]

@@ -1,6 +1,6 @@
-"""Build the RADet module from a reference-style model config dict (port of
-``radet_tpu/models/builder.py::build_detector`` for the float subset the
-flagship config uses: RADet + ResNet-50 + FPN + RADetHead)."""
+"""Build a detector module from a reference-style model config dict (port of
+``radet_tpu/models/builder.py`` for its float ResNet-50 + FPN subset):
+RADet with RADetHead, and SingleStageDetector with ATSSHead or AnchorHead."""
 
 from __future__ import annotations
 
@@ -8,7 +8,9 @@ from typing import Any, Dict
 
 import torch
 
-from .detector import RADet
+from ..core.anchor_generator import build_anchor_generator
+from .anchor_heads import AnchorHead, ATSSHead
+from .detector import RADet, SingleStageDetector
 from .fpn import FPN
 from .radet_head import RADetHead
 from .resnet import ResNet
@@ -25,7 +27,25 @@ def _require(ok: bool, what: str, item: str) -> None:
         raise NotImplementedError(f"{what} is not ported ({item})")
 
 
-def build_detector(model_cfg: Dict[str, Any], dtype: Any = None) -> RADet:
+def head_spec_from_cfg(head: Dict[str, Any]) -> Dict[str, Any]:
+    """(head_type, num_base_anchors, use_sigmoid) of a bbox_head config.
+
+    The generic heads carry their anchor generator in the config, with the
+    same number of base anchors on every level."""
+    head_type = head.get("type", "RADetHead")
+    if head_type == "RADetHead":
+        return dict(head_type=head_type, num_base_anchors=1, use_sigmoid=True)
+    _require(head_type in ("ATSSHead", "AnchorHead"), f"bbox_head type {head_type!r}", _OTHER_FAMILIES)
+    if head.get("anchor_generator") is None:
+        raise ValueError(f"{head_type} requires bbox_head.anchor_generator")
+    nba = build_anchor_generator(dict(head["anchor_generator"])).num_base_anchors
+    if len(set(nba)) != 1:
+        raise ValueError(f"per-level anchor counts must be uniform for {head_type}, got {nba}")
+    use_sigmoid = bool(dict(head.get("loss_cls") or {}).get("use_sigmoid", True))
+    return dict(head_type=head_type, num_base_anchors=nba[0], use_sigmoid=use_sigmoid)
+
+
+def build_detector(model_cfg: Dict[str, Any], dtype: Any = None) -> SingleStageDetector:
     """``dtype``: compute dtype (torch dtype or one of ``DTYPES``' names);
     None reads ``model_cfg['dtype']``, default float32."""
     cfg = dict(model_cfg)
@@ -35,11 +55,15 @@ def build_detector(model_cfg: Dict[str, Any], dtype: Any = None) -> RADet:
     det_type = cfg.get("type", "RADet")
     btype = backbone.get("type", "ResNet")
     ntype = neck.get("type", "FPN")
-    htype = head.get("type", "RADetHead")
-    _require(det_type == "RADet", f"detector type {det_type!r}", _OTHER_FAMILIES)
+    _require(det_type in ("RADet", "SingleStageDetector"), f"detector type {det_type!r}", _OTHER_FAMILIES)
     _require(btype == "ResNet", f"backbone type {btype!r}", _OTHER_FAMILIES)
     _require(ntype == "FPN", f"neck type {ntype!r}", _OTHER_FAMILIES)
-    _require(htype == "RADetHead", f"bbox_head type {htype!r}", _OTHER_FAMILIES)
+    spec = head_spec_from_cfg(head)
+    htype = spec["head_type"]
+    if det_type == "RADet" and htype != "RADetHead":
+        raise ValueError("detector type 'RADet' pairs with RADetHead; use type='SingleStageDetector' "
+                         f"for {htype}")
+    _require(spec["use_sigmoid"], f"{htype} with a softmax loss_cls (use_sigmoid=False)", _OTHER_FAMILIES)
     for key in ("deep_stem", "avg_down", "stem_s2d"):
         _require(not backbone.get(key), f"backbone.{key}", _OTHER_FAMILIES)
     _require(backbone.get("groups", 1) == 1, "ResNeXt (backbone.groups)", _OTHER_FAMILIES)
@@ -59,7 +83,20 @@ def build_detector(model_cfg: Dict[str, Any], dtype: Any = None) -> RADet:
     out_indices = tuple(backbone.get("out_indices", (0, 1, 2, 3)))
     fpn_out = neck.get("out_channels", 256)
     num_outs = neck.get("num_outs", 5)
-    return RADet(
+    num_classes = head["num_classes"]
+    if htype == "AnchorHead":
+        bbox_head = AnchorHead(num_classes, in_channels=fpn_out, num_levels=num_outs,
+                               num_anchors=spec["num_base_anchors"])
+    else:
+        bbox_head = (ATSSHead if htype == "ATSSHead" else RADetHead)(
+            num_classes=num_classes,
+            in_channels=fpn_out,
+            feat_channels=head.get("feat_channels", 256),
+            stacked_convs=head.get("stacked_convs", 4),
+            num_levels=num_outs,
+            num_anchors=spec["num_base_anchors"],
+        )
+    return (RADet if det_type == "RADet" else SingleStageDetector)(
         ResNet(
             depth=backbone.get("depth", 50),
             out_indices=out_indices,
@@ -74,12 +111,6 @@ def build_detector(model_cfg: Dict[str, Any], dtype: Any = None) -> RADet:
             add_extra_convs=neck.get("add_extra_convs", "on_output"),
             relu_before_extra_convs=neck.get("relu_before_extra_convs", False),
         ),
-        RADetHead(
-            num_classes=head["num_classes"],
-            in_channels=fpn_out,
-            feat_channels=head.get("feat_channels", 256),
-            stacked_convs=head.get("stacked_convs", 4),
-            num_levels=num_outs,
-        ),
+        bbox_head,
         dtype=dtype,
     )

@@ -1,5 +1,5 @@
-"""RADet single-stage detector (backbone -> FPN -> head), port of
-``radet_tpu/models/detector.py``.
+"""Single-stage detectors (backbone -> FPN -> head): RADet and the generic
+anchor heads' ``SingleStageDetector``, port of ``radet_tpu/models/detector.py``.
 
 The model consumes normalized float NCHW images; uint8 -> float
 normalization runs on the device in :func:`preprocess_images`, so
@@ -12,7 +12,6 @@ import torch
 import torch.nn as nn
 
 from .fpn import FPN
-from .radet_head import RADetHead
 from .resnet import ResNet
 
 
@@ -30,11 +29,12 @@ def preprocess_images(images_u8, mean, std, dtype=torch.float32):
     return x.to(dtype).permute(0, 3, 1, 2)
 
 
-class RADet(nn.Module):
-    """``dtype`` is the compute dtype of the convolutions; parameters stay
-    float32, GroupNorm and the head outputs run in float32."""
+class SingleStageDetector(nn.Module):
+    """Backbone -> FPN -> dense head.  ``dtype`` is the compute dtype of the
+    convolutions; parameters stay float32, GroupNorm and the head outputs
+    run in float32."""
 
-    def __init__(self, backbone: ResNet, neck: FPN, bbox_head: RADetHead, dtype=torch.float32):
+    def __init__(self, backbone: ResNet, neck: FPN, bbox_head: nn.Module, dtype=torch.float32):
         super().__init__()
         self.backbone = backbone
         self.neck = neck
@@ -49,10 +49,15 @@ class RADet(nn.Module):
         self.bbox_head.init_weights(generator)
 
     def forward(self, images):
-        """images: (B, 3, H, W) normalized -> per-level (cls, reg, iou) lists
-        of float32 NHWC maps."""
+        """images: (B, 3, H, W) normalized -> the head's per-level lists of
+        float32 NHWC maps: (cls, reg, iou) for RADetHead, (cls, reg,
+        centerness) for ATSSHead, (cls, reg) for AnchorHead."""
         feats = self.backbone(images.to(self.dtype))
         return self.bbox_head(self.neck(feats))
+
+
+class RADet(SingleStageDetector):
+    """The RADet detector: a single-stage detector with ``RADetHead``."""
 
 
 def flatten_head_outputs(cls_list, reg_list, iou_list):

@@ -2,7 +2,8 @@
 
 RADet's wiring: start_level=1 over (C2..C5) -> 1x1 laterals on C3..C5,
 nearest top-down upsample, 3x3 output convs, and two extra stride-2 convs
-'on_output' producing P6, P7 with no ReLU between them.  No norm layers;
+'on_output' producing P6, P7 with no ReLU between them; 'on_input' (the
+ATSS and RetinaNet configs) starts the extra convs from C5 instead.  No norm layers;
 convs keep their bias.  mmdet names: ``lateral_convs.{i}.conv``,
 ``fpn_convs.{i}.conv`` (the extra convs continue the ``fpn_convs`` index).
 """
@@ -40,20 +41,21 @@ class FPN(nn.Module):
         relu_before_extra_convs: bool = False,
     ):
         super().__init__()
-        if add_extra_convs != "on_output" or relu_before_extra_convs:
+        if add_extra_convs not in ("on_output", "on_input") or relu_before_extra_convs:
             raise NotImplementedError(
                 f"FPN add_extra_convs={add_extra_convs!r}, relu_before_extra_convs="
-                f"{relu_before_extra_convs}: only RADet's 'on_output' without ReLU "
-                "is ported (ROADMAP.md Queue 1 item 12, other families)"
+                f"{relu_before_extra_convs}: only 'on_output' and 'on_input' without ReLU "
+                "are ported (ROADMAP.md Queue 1 item 12, other families)"
             )
         used = list(in_channels)[start_level:]
         self.start_level = start_level
+        self.on_input = add_extra_convs == "on_input"
         self.lateral_convs = nn.ModuleList(ConvModule(c, out_channels, 1) for c in used)
         fpn = [ConvModule(out_channels, out_channels, 3, padding=1) for _ in used]
-        fpn += [
-            ConvModule(out_channels, out_channels, 3, stride=2, padding=1)
-            for _ in range(num_outs - len(used))
-        ]
+        for i in range(num_outs - len(used)):
+            # 'on_input': the first extra conv reads the last backbone map (C5)
+            cin = in_channels[-1] if i == 0 and self.on_input else out_channels
+            fpn.append(ConvModule(cin, out_channels, 3, stride=2, padding=1))
         self.fpn_convs = nn.ModuleList(fpn)
 
     def init_weights(self, generator: torch.Generator) -> None:
@@ -74,6 +76,8 @@ class FPN(nn.Module):
                 laterals[i], laterals[i - 1].shape[2:]
             )
         outs = [self.fpn_convs[i](lat) for i, lat in enumerate(laterals)]
+        source = inputs[-1] if self.on_input else outs[-1]
         for conv in self.fpn_convs[len(laterals) :]:
-            outs.append(conv(outs[-1]))
+            source = conv(source)
+            outs.append(source)
         return tuple(outs)

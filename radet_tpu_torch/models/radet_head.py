@@ -51,6 +51,9 @@ class Scale(nn.Module):
 
 
 class RADetHead(nn.Module):
+    #: ReLU on the scaled regression (RADet's addition to the ATSS head)
+    reg_relu = True
+
     def __init__(
         self,
         num_classes: int,
@@ -58,14 +61,15 @@ class RADetHead(nn.Module):
         feat_channels: int = 256,
         stacked_convs: int = 4,
         num_levels: int = 5,
+        num_anchors: int = 1,
     ):
         super().__init__()
         chans = [in_channels] + [feat_channels] * (stacked_convs - 1)
         self.cls_convs = nn.ModuleList(ConvGNBlock(c, feat_channels) for c in chans)
         self.reg_convs = nn.ModuleList(ConvGNBlock(c, feat_channels) for c in chans)
-        self.atss_cls = Conv2d(feat_channels, num_classes, 3, padding=1)
-        self.atss_reg = Conv2d(feat_channels, 4, 3, padding=1)
-        self.atss_centerness = Conv2d(feat_channels, 1, 3, padding=1)
+        self.atss_cls = Conv2d(feat_channels, num_anchors * num_classes, 3, padding=1)
+        self.atss_reg = Conv2d(feat_channels, num_anchors * 4, 3, padding=1)
+        self.atss_centerness = Conv2d(feat_channels, num_anchors, 3, padding=1)
         self.scales = nn.ModuleList(Scale(1.0) for _ in range(num_levels))
 
     def init_weights(self, generator: torch.Generator) -> None:
@@ -97,7 +101,9 @@ class RADetHead(nn.Module):
             for blk in self.reg_convs:
                 reg_feat = blk(reg_feat)
             cls_score = self.atss_cls(cls_feat).float()
-            bbox_pred = F.relu(scale(self.atss_reg(reg_feat).float()))
+            bbox_pred = scale(self.atss_reg(reg_feat).float())
+            if self.reg_relu:
+                bbox_pred = F.relu(bbox_pred)
             iou_pred = self.atss_centerness(reg_feat).float()
             cls_out.append(cls_score.permute(0, 2, 3, 1))
             reg_out.append(bbox_pred.permute(0, 2, 3, 1))

@@ -25,13 +25,21 @@ Inputs: boxes (B, K, 4) float32 xyxy sorted by cluster score descending
 with invalid slots last, cluster and vote scores (B, K) float32, labels
 (B, K) int32, valid (B, K) bool.  Returns (boxes (B, M, 4), labels (B, M)
 int32, scores (B, M), valid (B, M) bool) with M = ``max_out``.
+
+:func:`batched_nms` is plain class-aware greedy NMS (the generic anchor
+heads' ``nms.type='nms'``): the kernel in its no-vote mode on CUDA tensors,
+:func:`batched_nms_plain` (a port of ``radet_tpu/ops/vote_nms.py::
+batched_nms_device``) on CPU tensors.  Its slots hold the kept boxes
+themselves, in score order.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .vote_nms_cuda import vote_nms_cuda
+from .vote_nms_cuda import batched_nms_cuda, vote_nms_cuda
+
+NEG_INF = -1e30
 
 
 def vote_nms(
@@ -150,3 +158,56 @@ def vote_nms_plain(
         pack(torch.where(keep, cluster_scores, torch.zeros((), device=dev)), 0.0),
         pack(keep, False),
     )
+
+
+def batched_nms(boxes, scores, labels, valid, *, iou_threshold: float = 0.6, max_out: int = 100):
+    """Class-aware greedy NMS: the kernel's no-vote mode on CUDA tensors,
+    the plain version on CPU tensors.
+
+    Inputs as :func:`vote_nms`'s with one score, sorted by it descending,
+    ties in index order, invalid slots last (the kernel keeps in index
+    order; the plain version picks the highest score, the lowest index on
+    ties, which is the same on such input).  Returns (boxes (B, M, 4),
+    labels (B, M) int32, scores (B, M), valid (B, M) bool)."""
+    kwargs = dict(iou_threshold=iou_threshold, max_out=max_out)
+    if boxes.is_cuda:
+        return batched_nms_cuda(boxes, scores, labels, valid, **kwargs)
+    if boxes.device.type != "cpu":
+        raise ValueError(f"batched_nms has no implementation for device {boxes.device}")
+    return batched_nms_plain(boxes, scores, labels, valid, **kwargs)
+
+
+def batched_nms_plain(boxes, scores, labels, valid, *, iou_threshold: float = 0.6, max_out: int = 100):
+    """Plain PyTorch class-aware greedy NMS over (B, K) candidates, in any
+    order; any device.  Step t emits the highest-scoring candidate not yet
+    suppressed (the lowest index on ties) and suppresses the candidates of
+    its label that overlap it at IoU > ``iou_threshold``."""
+    b, k, _ = boxes.shape
+    dev = boxes.device
+    if not max_out:
+        return (boxes.new_zeros((b, 0, 4)), labels.new_zeros((b, 0)), scores.new_zeros((b, 0)),
+                valid.new_zeros((b, 0)))
+    rows = torch.arange(b, device=dev)
+    suppressed = ~valid
+    areas = torch.clamp(boxes[..., 2] - boxes[..., 0], min=0) * torch.clamp(boxes[..., 3] - boxes[..., 1], min=0)
+    out_boxes, out_labels, out_scores, out_valid = [], [], [], []
+    neg_inf = torch.full((), NEG_INF, dtype=scores.dtype, device=dev)
+    for _ in range(max_out):
+        avail = torch.where(suppressed, neg_inf, scores)
+        i = avail.argmax(dim=1)  # the first maximum
+        emit = avail[rows, i] > NEG_INF
+        box = boxes[rows, i]  # (B, 4)
+        lt = torch.maximum(box[:, None, :2], boxes[..., :2])
+        rb = torch.minimum(box[:, None, 2:], boxes[..., 2:])
+        wh = torch.clamp(rb - lt, min=0)
+        inter = wh[..., 0] * wh[..., 1]
+        iou = inter / torch.clamp(areas[rows, i][:, None] + areas - inter, min=1e-12)
+        member = ~suppressed & (labels == labels[rows, i][:, None]) & (iou > iou_threshold)
+        member[rows, i] = True
+        suppressed = suppressed | (member & emit[:, None])
+        out_boxes.append(torch.where(emit[:, None], box, torch.zeros((), dtype=box.dtype, device=dev)))
+        out_labels.append(torch.where(emit, labels[rows, i], torch.full((), -1, dtype=labels.dtype, device=dev)))
+        out_scores.append(torch.where(emit, scores[rows, i], torch.zeros((), dtype=scores.dtype, device=dev)))
+        out_valid.append(emit)
+    return (torch.stack(out_boxes, 1), torch.stack(out_labels, 1), torch.stack(out_scores, 1),
+            torch.stack(out_valid, 1))

@@ -1,14 +1,17 @@
-"""Wrapper of the hand-written vote-NMS kernel (``csrc/vote_nms.cu``).
+"""Wrappers of the hand-written vote-NMS kernel (``csrc/vote_nms.cu``).
 
 The library is compiled with ``nvcc`` for ``sm_90a`` at first use, from the
 repository's source only, into ``radet_tpu_torch/_build/``
 (``utils/native.py``), and loaded with ``ctypes`` through a plain C entry
 point.  Nothing is built when the module is imported.  One call launches
 the source's three CUDA kernels (``CUDA_KERNELS``: overlap bitmask, greedy
-sweep, voting) on PyTorch's current stream and never synchronises.
+sweep, voting or, in the no-vote mode, the kept boxes' copy) on PyTorch's
+current stream and never synchronises.
 
-``LAUNCHES`` counts the calls that launched the kernel, one per call, and
-nothing else.
+:func:`vote_nms_cuda` runs the vote mode; :func:`batched_nms_cuda` the
+no-vote mode (plain class-aware greedy NMS).  ``LAUNCHES`` and
+``NMS_LAUNCHES`` count the calls that launched the kernel in each mode, one
+per call, and nothing else.
 """
 
 from __future__ import annotations
@@ -35,7 +38,8 @@ MAX_K = 8192
 CUDA_KERNELS = ("overlap_kernel", "sweep_kernel", "vote_kernel")
 MAX_B = 65535  # images go on a grid dimension of at most 65535 blocks
 
-LAUNCHES = 0
+LAUNCHES = 0  # vote mode
+NMS_LAUNCHES = 0  # no-vote mode
 
 _lib = None
 # nvcc's stderr (ptxas' register and shared-memory report) of the build this
@@ -52,7 +56,7 @@ def build() -> ctypes.CDLL:
     path, BUILD_LOG = build_library(SOURCE, nvcc, NVCC_FLAGS)
     lib = ctypes.CDLL(str(path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.radet_vote_nms.argtypes = [p] * 10 + [i, i, i, f, i, f, i, p]
+    lib.radet_vote_nms.argtypes = [p] * 10 + [i, i, i, f, i, f, i, i, p]
     lib.radet_vote_nms.restype = ctypes.c_int
     lib.radet_vote_nms_scratch_bytes.argtypes = [i, i]
     lib.radet_vote_nms_scratch_bytes.restype = ctypes.c_size_t
@@ -101,9 +105,29 @@ def vote_nms_cuda(
     ``ops.vote_nms.vote_nms_plain``: (boxes (B, M, 4), labels (B, M) int32,
     scores (B, M), valid (B, M) bool)."""
     global LAUNCHES
+    out = _launch(boxes, cluster_scores, vote_scores, labels, valid, iou_threshold, max_out,
+                  iou_enable, sigma, global_mode, vote=True)
+    LAUNCHES += 1
+    return out
+
+
+def batched_nms_cuda(boxes, scores, labels, valid, *, iou_threshold: float = 0.6, max_out: int = 100):
+    """Class-aware greedy NMS on the card (the kernel's no-vote mode): each
+    slot is a kept box with its own coordinates, score and label.  Inputs
+    sorted by score descending, ties in index order, invalid slots last;
+    same outputs as ``ops.vote_nms.batched_nms_plain`` on them."""
+    global NMS_LAUNCHES
+    out = _launch(boxes, scores, scores, labels, valid, iou_threshold, max_out, False, 0.025, False,
+                  vote=False)
+    NMS_LAUNCHES += 1
+    return out
+
+
+def _launch(boxes, cluster_scores, vote_scores, labels, valid, iou_threshold, max_out, iou_enable,
+            sigma, global_mode, *, vote: bool):
     device = boxes.device
     if device.type != "cuda":
-        raise ValueError(f"vote_nms_cuda takes CUDA tensors, got {device}")
+        raise ValueError(f"the vote_nms kernel takes CUDA tensors, got {device}")
     if boxes.dim() != 3:
         raise ValueError(f"boxes must be (B, K, 4), got {tuple(boxes.shape)}")
     b, k, _ = boxes.shape
@@ -129,11 +153,10 @@ def vote_nms_cuda(
             labels.data_ptr(), valid.data_ptr(), scratch.data_ptr(), out_boxes.data_ptr(),
             out_labels.data_ptr(), out_scores.data_ptr(), out_valid.data_ptr(),
             b, k, max_out, float(iou_threshold), int(bool(iou_enable)), float(sigma),
-            int(bool(global_mode)), torch.cuda.current_stream(device).cuda_stream,
+            int(bool(global_mode)), int(vote), torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(
             f"vote_nms kernel launch failed: {lib.radet_cuda_error_string(err).decode()}"
         )
-    LAUNCHES += 1
     return out_boxes, out_labels, out_scores, out_valid

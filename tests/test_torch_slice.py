@@ -107,7 +107,8 @@ def test_candidates_without_nms_match_jax(rng):
     np.testing.assert_array_equal(det.labels.numpy()[dv], np.asarray(ref.labels)[rv])
 
 
-@pytest.mark.parametrize("override", [{"nms_impl": "scan"}, {"nms": {"type": "nms"}}])
+@pytest.mark.parametrize("override", [{"nms_impl": "scan"},
+                                      {"nms_impl": "scan", "nms": {"type": "global_vote", "iou_threshold": 0.65}}])
 def test_unported_nms_variants_raise(override):
     maps = [[torch.zeros(1, 1, 1, d)] for d in (4, 4, 1)]
     test_cfg = {"nms": {"type": "vote", "iou_threshold": 0.65}, **override}

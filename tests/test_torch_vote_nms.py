@@ -19,7 +19,7 @@ import pytest
 import torch
 
 import radet_tpu_torch.ops.vote_nms_cuda as cuda_mod
-from radet_tpu_torch.ops.vote_nms import pairwise_iou, vote_nms, vote_nms_plain
+from radet_tpu_torch.ops.vote_nms import batched_nms, batched_nms_plain, pairwise_iou, vote_nms, vote_nms_plain
 
 THR = 0.5
 
@@ -382,6 +382,41 @@ def test_kernel_decomposition_emulated(ref, case, global_mode):
     assert n == expected.get(case, n)
 
 
+@pytest.mark.parametrize("case", sorted(_emulation_cases()))
+def test_no_vote_mode_decomposition_emulated(case):
+    """The no-vote mode's data flow (the same bitmask and word-stepped
+    greedy keep; each kept box copied into its slot) gives the slots of
+    ``batched_nms_plain`` and of the JAX package's ``batched_nms_device``
+    on candidates sorted by score."""
+    from radet_tpu.ops.vote_nms import batched_nms_device
+
+    boxes, cluster, _, labels, valid, max_out = _emulation_cases()[case]
+    _, final, _ = _emulate_kernel(boxes, cluster, labels, valid, THR, max_out, False)
+    n = min(len(final), max_out)
+    pb, pl, ps, pv = (x[0].numpy() for x in batched_nms_plain(
+        *(torch.from_numpy(a[None]) for a in (boxes, cluster, labels, valid)), iou_threshold=THR, max_out=max_out))
+    assert pv[:n].all() and not pv[n:].any()
+    np.testing.assert_array_equal(pb[:n], boxes[final[:n]])
+    np.testing.assert_array_equal(pl[:n], labels[final[:n]])
+    np.testing.assert_array_equal(ps[:n], cluster[final[:n]])
+    ref = batched_nms_device(boxes, cluster, labels, valid, iou_threshold=THR, max_out=max_out)
+    for got, want in zip((pb, pl, ps, pv), ref):
+        np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def test_batched_nms_dispatch_cpu_runs_plain_and_kernel_wrapper_refuses_cpu():
+    rng = np.random.RandomState(1)
+    boxes, cluster, _, labels, valid = (torch.from_numpy(np.stack(x))
+                                        for x in zip(*[_sorted_dets(rng, n_real=30) for _ in range(2)]))
+    before = cuda_mod.NMS_LAUNCHES, cuda_mod.LAUNCHES
+    out = batched_nms(boxes, cluster, labels, valid, iou_threshold=THR, max_out=20)
+    assert (cuda_mod.NMS_LAUNCHES, cuda_mod.LAUNCHES) == before
+    for got, want in zip(out, batched_nms_plain(boxes, cluster, labels, valid, iou_threshold=THR, max_out=20)):
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_mod.batched_nms_cuda(boxes, cluster, labels, valid, iou_threshold=THR, max_out=20)
+
+
 def _clustered_batch(rng, b, k, num_labels=5):
     """Synthetic clustered candidates, 60-100% valid, sorted per image."""
     images = []
@@ -554,3 +589,53 @@ def test_kernel_edge_cases_match_plain(cuda_device, case):
         assert n_kept == [100]
     if case == "disjoint_2048_global":
         assert n_kept == [5]
+
+
+def _nms_plain_float64(tensors, **kw):
+    """``batched_nms_plain`` in float64 on the CPU, boxes and scores back in
+    float32 (copies, so exactly the inputs' values)."""
+    boxes, scores, labels, valid = (t.cpu() for t in tensors)
+    out = batched_nms_plain(boxes.double(), scores.double(), labels, valid, **kw)
+    return [t.float() if t.is_floating_point() else t for t in out]
+
+
+def _nms_case(arrays):
+    """(boxes, scores, labels, valid) of vote-NMS test arrays: the cluster
+    score is the score, sorted descending with invalid slots last."""
+    boxes, cluster, _, labels, valid = arrays
+    return [np.ascontiguousarray(a) for a in (boxes, cluster, labels, valid)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k", [(8, 1024), (16, 1024), (16, 2048), (4, 4420)])
+def test_no_vote_kernel_matches_plain(cuda_device, b, k):
+    """The no-vote mode against ``batched_nms_plain`` in float64: every slot
+    equal, bit for bit (the slots are copies of the inputs)."""
+    arrays = _nms_case(_clustered_batch(np.random.RandomState(k + b), b, k, num_labels=21))
+    tensors = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+    tensors[2] = tensors[2].to(torch.int32)
+    kw = dict(iou_threshold=0.6, max_out=100)
+    before = cuda_mod.NMS_LAUNCHES, cuda_mod.LAUNCHES
+    kern = batched_nms(*tensors, **kw)
+    torch.cuda.synchronize()
+    assert (cuda_mod.NMS_LAUNCHES, cuda_mod.LAUNCHES) == (before[0] + 1, before[1])
+    for got, want in zip(kern, _nms_plain_float64(tensors, **kw)):
+        assert torch.equal(got.cpu(), want)
+    assert kern[3].sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(c for c in _edge_cases() if "global" not in c))
+def test_no_vote_kernel_edge_cases_match_plain(cuda_device, case):
+    arrays, kw = _edge_cases()[case]
+    kw = {k: v for k, v in kw.items() if k in ("iou_threshold", "max_out")}
+    tensors = [torch.from_numpy(a).to(cuda_device) for a in _nms_case(arrays)]
+    tensors[2] = tensors[2].to(torch.int32)
+    kern = batched_nms(*tensors, **kw)
+    torch.cuda.synchronize()
+    want = _nms_plain_float64(tensors, **kw)
+    assert kern[0].shape == want[0].shape
+    for got, w in zip(kern, want):
+        assert torch.equal(got.cpu(), w)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_mod.batched_nms_cuda(*(t.cpu() for t in tensors), **kw)

@@ -1,7 +1,9 @@
 """Shared set-up of the parity tests between ``radet_tpu`` and
 ``radet_tpu_torch`` (tests/test_torch_*.py): one seeded flax model, its
 variables randomised with numpy, and the port's model holding the same
-weights through ``radet_tpu_torch.engine.convert.state_dict_from_flax``."""
+weights through ``radet_tpu_torch.engine.convert.state_dict_from_flax``;
+the flagship narrowed (``NARROW``), and the ATSS and RetinaNet configs
+narrowed (``ANCHOR_CONFIGS``, :func:`anchor_pair`)."""
 
 import os.path as osp
 
@@ -122,3 +124,41 @@ def assert_same_detections(got, want):
         np.testing.assert_array_equal(g["labels"], w["labels"])
         np.testing.assert_allclose(g["scores"], w["scores"], rtol=0, atol=1e-5)
         np.testing.assert_allclose(g["boxes"], w["boxes"], rtol=0, atol=1e-2)
+
+
+# the anchor-head configs (configs/atss) at 128x160 with an FPN of width 32,
+# 3 classes and ATSS's tower at one 32-wide block, in float32
+ANCHOR_HW = (128, 160)
+_ANCHOR_NARROW = [
+    "model.neck.out_channels=32",
+    "model.bbox_head.in_channels=32",
+    "model.bbox_head.num_classes=3",
+    f"input_size={ANCHOR_HW}",
+    "compute_dtype='float32'",
+]
+ANCHOR_CONFIGS = {
+    "atss": (osp.join(osp.dirname(osp.dirname(FLAGSHIP)), "atss", "atss_r50_fpn_ycbv_pbr.py"),
+             _ANCHOR_NARROW + ["model.bbox_head.feat_channels=32", "model.bbox_head.stacked_convs=1"]),
+    "retina": (osp.join(osp.dirname(osp.dirname(FLAGSHIP)), "atss", "retina_r50_fpn_ycbv_pbr.py"),
+               _ANCHOR_NARROW),
+}
+
+
+def anchor_pair(name, seed=0):
+    """The narrowed anchor-head config ``name`` ('atss' or 'retina') in both
+    packages, one seeded flax model with randomised weights, and the port's
+    model on the CPU holding them.  Returns (jax_cfg, cfg, jax_model,
+    variables, port model, anchors, level counts)."""
+    from radet_tpu.apis.common import build_model_and_anchors as jax_build_model_and_anchors
+    from radet_tpu.utils.config import Config as JaxConfig
+    from radet_tpu_torch.apis.common import build_model_and_anchors
+    from radet_tpu_torch.utils.config import Config
+
+    path, options = ANCHOR_CONFIGS[name]
+    jax_cfg, cfg = JaxConfig.fromfile(path, options), Config.fromfile(path, options)
+    jax_model, anchors, _, counts = jax_build_model_and_anchors(jax_cfg)
+    port, p_anchors, _, p_counts = build_model_and_anchors(cfg)
+    np.testing.assert_array_equal(p_anchors, anchors)
+    assert list(p_counts) == list(counts)
+    variables = flax_and_port_models(jax_model, port, img_hw=ANCHOR_HW, seed=seed)
+    return jax_cfg, cfg, jax_model, variables, port, anchors, counts
