@@ -96,7 +96,20 @@ Run from the repository root, with one card:  python3 chip_smoke.py
    checkpoint, frozen stages kept, head moved, and the test CLI (``--eval
    bbox``) on that checkpoint; each train step's time with
    its IoU assignment's share; and ATSS's float32 step on the card against
-   the CPU at batch 1 (same ReLU sides).  Each phase prints its wall time.
+   the CPU at batch 1 (same ReLU sides);
+10. runs ``configs/bop``'s backbone zoo (ResNeXt-50 32x4d, Res2Net-50,
+   ResNeSt-50, RegNetX-3.2GF; ``ZOO_CONFIGS``): ``init_detector`` on each at
+   full width (seeded random weights, bf16, cls bias 0), its parameter
+   count and FPN input widths (RegNet's [96, 192, 432, 1008]),
+   ``inference_detector`` on 8 random 480x640 images with the vote-NMS
+   launches counted, that run's NMS inputs through the kernel and the plain
+   version in float64, the float32 forward against the CPU's, inference at
+   batch 8 and 128 and the train step at batch 16 timed with peak memory,
+   and the float32 step on the card against the CPU at batch 1 (same ReLU
+   sides); then RegNet through the train CLI (``ZOO_STEPS`` steps from the
+   JPEG ``train_pbr`` split, one eval), the test CLI (strict) on its
+   checkpoint and ``init_detector`` on its work dir.  Each phase prints its
+   wall time.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero before it.  Without a CUDA card, or outside the repository, the
@@ -174,6 +187,14 @@ ANCHOR_MAIN_SHAPE = (8, 1024)  # the kernels line's times: the main path's call 
 # serving: the CLI's default batch and latency budget; the bit-for-bit
 # check's images at YCB-V's size, T-LESS's (resized) and COCO's common
 # 427x640 (padded); submitter threads of the sweep, SERVE_REQUESTS each
+# 10. configs/bop's backbone zoo (full width, bf16, seeded random weights)
+ZOO_CONFIGS = ("configs/bop/x50_32x4d_ycbv_pbr.py", "configs/bop/r2_50_ycbv_pbr.py",
+               "configs/bop/s50_ycbv_pbr.py", "configs/bop/regnetx32_ycbv_pbr.py")
+ZOO_WIDTHS = {"regnetx32_ycbv_pbr": [96, 192, 432, 1008]}  # C2..C5; the others ResNet-50's
+# the zoo config furthest from the flagship (own stem, no max-pool, grouped
+# expansion-1 blocks, FPN inputs of other widths) goes through the CLIs
+ZOO_CLI_CONFIG = "configs/bop/regnetx32_ycbv_pbr.py"
+ZOO_STEPS = 10
 SERVE_BATCH = 16
 SERVE_LATENCY_MS = 5.0
 SERVE_SIZES = ((480, 640), (540, 720), (427, 640))
@@ -414,6 +435,51 @@ def grad_errors(grads, ref):
     """[(max |g - ref| / max |ref|, name)] over the tensors, worst first."""
     return sorted(((float((grads[k] - ref[k]).abs().max() / ref[k].abs().max().clamp(min=1e-30)), k)
                    for k in ref), reverse=True)
+
+
+def forward_checks(det, config: str, images, what: str = "") -> float:
+    """The vote-NMS inputs of ``det``'s forward on ``images`` (uint8 NHWC on
+    the card, at the input size) through the kernel and through the plain
+    version in float64 on the CPU; the float32 forward of the first image
+    on the card against a CPU model of ``config`` holding the same weights,
+    within MAP_RTOL.  Returns the kernel's max abs box error."""
+    import radet_tpu_torch.ops.vote_nms_cuda as vnc
+    from radet_tpu_torch import init_detector
+    from radet_tpu_torch.apis.common import normalizer_from_cfg
+    from radet_tpu_torch.models.detector import preprocess_images
+    from radet_tpu_torch.models.postprocess import vote_nms_inputs
+
+    dev = torch.device("cuda")
+    model, cfg = det.model, det.cfg
+    n, h, w = images.shape[:3]
+    level_anchors = [torch.as_tensor(a, device=dev)
+                     for a in np.split(det.anchors, np.cumsum(det.level_counts)[:-1])]
+    shapes = torch.tensor([[h, w]] * n, dtype=torch.float32, device=dev)
+    scales = torch.ones((n, 4), dtype=torch.float32, device=dev)
+    norm = cfg.img_norm_cfg
+    with torch.inference_mode():
+        x = preprocess_images(images, norm.mean, norm.std, model.dtype)
+        args, kw = vote_nms_inputs(
+            *model(x), level_anchors, shapes, scales, test_cfg=cfg.test_cfg.to_dict(),
+            normalizer=normalizer_from_cfg(cfg),
+        )
+        print(f"  {what}NMS input: K={args[0].shape[1]}, valid candidates per image {args[4].sum(1).tolist()}")
+        err = compare(vnc.vote_nms_cuda(*args, **kw), plain_reference(args, **kw),
+                      f"{what}main-path candidates, kernel on the card vs plain in float64 on the CPU")
+
+        # float32 forward on the card vs the CPU forward, 1 image
+        model.dtype = torch.float32
+        gpu_maps = [m.cpu() for maps in model(x[:1].float()) for m in maps]
+        cpu_model = init_detector(config, device="cpu", seed=SEED).model
+        cpu_model.load_state_dict(model.state_dict())
+        cpu_maps = [m for maps in cpu_model(x[:1].float().cpu()) for m in maps]
+        model.dtype = torch.bfloat16
+    rel = max(float((g - c).abs().max() / c.abs().max().clamp(min=1e-6)) for g, c in zip(gpu_maps, cpu_maps))
+    print(f"  {what}float32 head maps, card vs CPU: max error relative to each map's max "
+          f"{rel:.3g} (limit {MAP_RTOL})")
+    if rel > MAP_RTOL:
+        fail(f"{what}the card's float32 forward disagrees with the CPU forward")
+    return err
 
 
 def train_phases(config: str, gpu: str, eval_opts) -> float:
@@ -1923,6 +1989,236 @@ def anchor_train_phase(files: str, gpu: str, eval_opts, test_opts, repo: Path) -
             anchor_parity(cfg, dataset, gpu)
 
 
+def zoo_step_checks(cfg, dataset, name: str, gpu: str) -> None:
+    """The zoo config's train step at batch 16 (bf16, the config's AdamW and
+    clip, the batch on the card) by CUDA events with its peak memory; then
+    one float32 step at batch 1 on the card against the CPU, with the same
+    weights, batch, assignment noise and side of every ReLU."""
+    from radet_tpu_torch.apis.common import (
+        assignment_cfg_from,
+        build_model_and_anchors,
+        loss_cfg_from,
+        normalizer_from_cfg,
+    )
+    from radet_tpu_torch.data import collate
+    from radet_tpu_torch.engine import build_optimizer, build_train_step
+    from radet_tpu_torch.engine.train_step import TrainState, batch_to_device
+
+    dev = torch.device("cuda")
+    model_args = dict(
+        img_norm=cfg.img_norm_cfg.to_dict(), num_classes=int(cfg.model.bbox_head.num_classes),
+        assignment_cfg=assignment_cfg_from(cfg), normalizer=normalizer_from_cfg(cfg),
+        loss_cfg=loss_cfg_from(cfg),
+    )
+
+    def init_model(dtype):
+        model, anchors, ranges, _ = build_model_and_anchors(cfg, dtype=dtype)
+        model.init_weights(torch.Generator().manual_seed(SEED))
+        return model, anchors, ranges
+
+    model, anchors, ranges = init_model(None)
+    model.to(dev).train()
+    tx, _ = build_optimizer(cfg.optimizer.to_dict(), cfg.lr_config.to_dict(), cfg.grad_clip.to_dict(), model)
+    state = TrainState(model, tx, seed=SEED)
+    step = build_train_step(model, anchors, ranges, **model_args)
+    batch_size = int(cfg.data.samples_per_gpu)
+    batch = batch_to_device(collate([dataset[i] for i in range(batch_size)]), dev)
+    for _ in range(3):
+        metrics = step(state, batch)
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: step(state, batch), 10)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    loss = float(metrics["loss"])
+    print(f"timing: {name} train step batch {batch_size} {str(model.dtype)[6:]} (batch on the card): {ms:.2f} "
+          f"ms/step, {batch_size * 1000.0 / ms:.1f} img/s, peak memory {peak:.2f} GiB; loss {loss:.4f} [{gpu}]")
+    if not math.isfinite(loss):
+        fail(f"{name}: non-finite loss in the train step")
+    del state, model, tx, step, batch
+    torch.cuda.empty_cache()
+
+    one = collate([dataset[0]])
+    gpu_model, cpu_model = init_model("float32")[0].to(dev), init_model("float32")[0]
+    masks = []
+    with relu_decisions(masks, replay=False):
+        out = parity_steps(cfg, one, anchors, ranges, model_args, (("card", gpu_model, dev),))
+    with relu_decisions(masks, replay=True) as flips:
+        out.update(parity_steps(cfg, one, anchors, ranges, model_args, (("cpu", cpu_model, torch.device("cpu")),)))
+    (ac, mc, gc), (ag, mg, gg) = out["cpu"], out["card"]
+    same = torch.equal(ag.gt_idx.cpu(), ac.gt_idx)
+    w_err = float((ag.weight.cpu() - ac.weight).abs().max())
+    loss_err = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in mc)
+    errs = grad_errors(gg, gc)
+    flip_max = max((r for _, r in flips), default=0.0)
+    print(f"  {name} train parity, float32 batch 1, card vs CPU (TF32 off, same noise and ReLU sides): assignment "
+          f"gt_idx equal: {same} ({int((ac.gt_idx >= 0).sum())} positives), weight max abs err {w_err:.3g}; losses "
+          f"max rel err {loss_err:.3g} (loss {mg['loss']:.6f} vs {mc['loss']:.6f}); gradients max err "
+          f"{errs[0][0]:.3g} of the tensor's max abs ({errs[0][1]}); ReLU inputs on opposite sides of 0: "
+          f"{sum(c for c, _ in flips)} of {sum(m.numel() for m in masks)} in {len(masks)} calls, at most "
+          f"{flip_max:.3g} of their tensor's max |x| [{gpu}]")
+    if not same:
+        fail(f"{name}: the assignment differs between card and CPU")
+    if flip_max > FLIP_RTOL:
+        fail(f"{name}: a ReLU input differs in sign by more than rounding ({flip_max:.3g} > {FLIP_RTOL})")
+    if w_err > WEIGHT_ATOL or loss_err > LOSS_RTOL or errs[0][0] > GRAD_RTOL:
+        fail(f"{name}: card vs CPU train step beyond tolerance (weights {WEIGHT_ATOL}, losses {LOSS_RTOL}, "
+             f"gradients {GRAD_RTOL})")
+    del gpu_model, cpu_model, out, masks
+    torch.cuda.empty_cache()
+
+
+def zoo_phase(gpu: str, repo: Path) -> dict:
+    """Each of ZOO_CONFIGS at full width: ``init_detector`` (seeded random
+    weights, bf16, cls bias 0) with its parameter count and FPN input
+    widths; ``inference_detector`` on 8 random 480x640 images with the
+    vote-NMS launches counted; that run's NMS inputs through the kernel and
+    the plain version in float64, the float32 forward against the CPU's;
+    inference at batch 8 and 128 and the train step at batch 16 timed, and
+    the float32 step against the CPU (:func:`zoo_step_checks`).  Returns
+    {config name: vote_nms launches of its ``inference_detector`` run}."""
+    import radet_tpu_torch.ops.vote_nms_cuda as vnc
+    from radet_tpu_torch import inference_detector, init_detector
+    from radet_tpu_torch.apis.common import assignment_cfg_from
+    from radet_tpu_torch.data import InMemoryBOPDataset, train_transforms
+    from synthetic_bop import synthetic_bop_records
+
+    dev = torch.device("cuda")
+    img_rng = np.random.RandomState(SEED + 10)
+    dataset = None
+    launches_by = {}
+    for config in ZOO_CONFIGS:
+        name = osp.splitext(osp.basename(config))[0]
+        det = init_detector(str(repo / config), device="cuda", seed=SEED)
+        model, cfg = det.model, det.cfg
+        widths = list(model.backbone.out_channels)
+        lateral = [c.conv.weight.shape[1] for c in model.neck.lateral_convs]
+        print(f"zoo: init_detector({config!r}, device='cuda', seed={SEED}): {type(model.backbone).__name__} "
+              f"({cfg.model.backbone.type}), {sum(p.numel() for p in model.parameters())} parameters, FPN input "
+              f"widths {widths} (its laterals read {lateral}), compute dtype {model.dtype}, input {det.input_size}")
+        if widths != ZOO_WIDTHS.get(name, [256, 512, 1024, 2048]) or lateral != widths[1:]:
+            fail(f"{name}: the FPN takes {lateral} of a trunk giving {widths}")
+        if model.dtype != torch.bfloat16:
+            fail(f"{name}: compute dtype is {model.dtype}, the config asks for bfloat16")
+        with torch.no_grad():
+            model.bbox_head.atss_cls.bias.zero_()
+        h, w = det.input_size
+        imgs = [img_rng.randint(0, 256, (h, w, 3), dtype=np.uint8) for _ in range(8)]
+        vnc.LAUNCHES = 0
+        results = inference_detector(det, imgs)
+        torch.cuda.synchronize()
+        launches = launches_by[name] = vnc.LAUNCHES
+        print(f"  inference_detector on 8 images {h}x{w}: vote_nms kernel launches {launches}, "
+              f"detections per image {[len(r['boxes']) for r in results]}")
+        if launches < 1:
+            fail(f"{name}: the main path did not launch the vote_nms kernel")
+        for r in results:
+            if not len(r["boxes"]) or r["boxes"].shape[1:] != (4,):
+                fail(f"{name}: an image has no detections, or misshapen ones")
+            if not (np.isfinite(r["boxes"]).all() and np.isfinite(r["scores"]).all()):
+                fail(f"{name}: non-finite detections")
+            if (r["labels"] < 0).any() or (r["labels"] >= 21).any():
+                fail(f"{name}: labels outside the 21 classes")
+        forward_checks(det, str(repo / config), torch.from_numpy(np.stack(imgs)).to(dev), f"{name}: ")
+
+        for batch, iters in ((8, 20), (128, 5)):
+            u8 = torch.randint(0, 256, (batch, h, w, 3), dtype=torch.uint8, device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(SEED))
+            shp = torch.tensor([[h, w]] * batch, dtype=torch.float32, device=dev)
+            scl = torch.ones((batch, 4), dtype=torch.float32, device=dev)
+
+            def step():
+                det._infer(model, u8, shp, scl)
+
+            for _ in range(2):
+                step()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(step, iters)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            print(f"timing: {name} inference batch {batch} (uint8 on the card): {ms:.2f} ms/batch, "
+                  f"{batch * 1000.0 / ms:.1f} img/s, peak memory {peak:.2f} GiB [{gpu}]")
+            del u8
+        del det, model, results
+        torch.cuda.empty_cache()
+
+        if dataset is None:
+            max_gt = int(assignment_cfg_from(cfg).get("max_gt", 32))
+            records = synthetic_bop_records(np.random.RandomState(SEED + 2), int(cfg.data.samples_per_gpu), (h, w))
+            dataset = InMemoryBOPDataset(records, train_transforms((h, w), max_gt=max_gt, seed=SEED),
+                                         max_gt=max_gt, classes=cfg.CLASS_NAMES)
+        zoo_step_checks(cfg, dataset, name, gpu)
+    return launches_by
+
+
+def zoo_cli_phase(files: str, gpu: str, eval_opts, test_opts, repo: Path) -> None:
+    """ZOO_CLI_CONFIG through ``python -m radet_tpu_torch.tools.train`` on the
+    JPEG ``train_pbr`` split of ``files`` through its own train_pipeline
+    (full width, bf16, batch 16, ZOO_STEPS steps, one eval on the PNG
+    set's landscape images): finite losses, the checkpoint, the frozen stem
+    and first stage kept and the head moved, the eval's vote-NMS launches;
+    ``python -m radet_tpu_torch.tools.test`` (strict, K = 2048) on the
+    checkpoint and the PNG set (``test_opts``); ``init_detector`` on the
+    work dir and ``inference_detector`` with its weights."""
+    import radet_tpu_torch.ops.vote_nms_cuda as vnc
+    from radet_tpu_torch import inference_detector, init_detector
+    from radet_tpu_torch.apis.common import build_model_and_anchors
+    from radet_tpu_torch.engine import load_weights
+    from radet_tpu_torch.utils import Config
+    from synthetic_bop import write_train_config
+
+    name = osp.splitext(osp.basename(ZOO_CLI_CONFIG))[0]
+    train_config = write_train_config(osp.join(files, f"{name}.py"), str(repo / ZOO_CLI_CONFIG),
+                                      osp.join(files, "train_pbr.json"), osp.join(files, "train_pbr") + "/",
+                                      osp.join(files, "backgrounds"))
+    cfg = Config.fromfile(train_config)
+    print(f"train zoo: python -m radet_tpu_torch.tools.train {ZOO_CLI_CONFIG} from train_pbr (its own "
+          f"train_pipeline, full width, bf16, batch {cfg.data.samples_per_gpu}, {FILES_WORKERS} loader thread "
+          f"workers, {ZOO_STEPS} steps, one eval):")
+    work_dir = osp.join(files, f"work_dir_{name}")
+    iters, dataset_line, _, run_s, _ = train_cli(train_config, work_dir, ZOO_STEPS, "thread", eval_opts)
+    model = build_model_and_anchors(cfg)[0]
+    model.init_weights(torch.Generator().manual_seed(int(cfg.get("seed", 0))))
+    init, after = model.state_dict(), load_weights(osp.join(work_dir, "checkpoints"))
+    frozen = [k for k in init if k.startswith(("backbone.conv1.", "backbone.bn1.", "backbone.layer1."))]
+    kept = all(torch.equal(after[k], init[k]) for k in frozen)
+    moved = max(float((after[k] - init[k]).abs().max()) for k in init if k.startswith("bbox_head."))
+    ms, wait = median_iter(iters, skip=3)
+    print(f"  {len(frozen)} frozen tensors equal the seeded init: {kept}; the head's largest move {moved:.3g}; "
+          f"{ZOO_STEPS} steps in {run_s:.1f} s in its own process (start-up, model build and eval included), "
+          f"{cfg.data.samples_per_gpu * 1000 / ms:.1f} img/s ({ms:.1f} ms/step, median of steps 4-{ZOO_STEPS}), "
+          f"loader wait {wait:.1f} ms/step; {dataset_line} [{gpu}]")
+    if not frozen or not kept or moved <= 0:
+        fail(f"{name}: the frozen stages moved or the head did not train")
+
+    cmd = [sys.executable, "-m", "radet_tpu_torch.tools.test", train_config, osp.join(work_dir, "checkpoints"),
+           "--device", "cuda", "--eval", "bbox", "--cfg-options", *test_opts]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=str(repo), timeout=600)
+    if proc.returncode != 0:
+        fail(f"the test CLI on {name}'s checkpoint exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    metrics = json.loads(proc.stdout[proc.stdout.index("{"):])
+    launches = sum(int(n) for n in re.findall(r"vote_nms kernel launches (\d+)", proc.stderr))
+    print(f"  python -m radet_tpu_torch.tools.test (strict: vote-NMS at K = 2048) on the checkpoint, "
+          f"{time.perf_counter() - t0:.1f} s in its own process: bbox_mAP {metrics['bbox_mAP']:.4f}, "
+          f"bbox_mAP_50 {metrics['bbox_mAP_50']:.4f}; vote_nms kernel launches {launches}")
+    if launches < 1 or not all(math.isfinite(v) for v in metrics.values()):
+        fail(f"{name}: the test CLI launched no vote_nms kernel or gave non-finite metrics")
+
+    det = init_detector(train_config, work_dir, device="cuda")
+    loaded = det.model.state_dict()
+    same = all(torch.equal(loaded[k].cpu(), after[k]) for k in after)
+    imgs = [np.random.RandomState(SEED + 11).randint(0, 256, (*det.input_size, 3), dtype=np.uint8)
+            for _ in range(8)]
+    vnc.LAUNCHES = 0
+    results = inference_detector(det, imgs)
+    torch.cuda.synchronize()
+    print(f"  init_detector on the work dir: {type(det.model.backbone).__name__}, every tensor the checkpoint's: "
+          f"{same}; inference_detector on 8 images: vote_nms kernel launches {vnc.LAUNCHES}, detections per image "
+          f"{[len(r['boxes']) for r in results]}")
+    if not same or vnc.LAUNCHES < 1 or not all(np.isfinite(r["boxes"]).all() for r in results):
+        fail(f"{name}: init_detector on the trained work dir did not load or infer")
+    del det
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -1939,11 +2235,8 @@ def main() -> None:
 
     import radet_tpu_torch.ops.vote_nms_cuda as vnc
     from radet_tpu_torch import inference_detector, init_detector
-    from radet_tpu_torch.apis.common import normalizer_from_cfg
     from radet_tpu_torch.data import color_aug, image_io
-    from radet_tpu_torch.models.detector import preprocess_images
     from radet_tpu_torch.utils import native
-    from radet_tpu_torch.models.postprocess import vote_nms_inputs
     from radet_tpu_torch.ops.vote_nms import vote_nms_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2033,47 +2326,12 @@ def main() -> None:
         if (r["labels"] < 0).any() or (r["labels"] >= 21).any():
             fail("labels outside the 21 classes")
 
-    # the same NMS inputs, through the kernel and through the plain version on the CPU
-    cfg = det.cfg
-    level_anchors = [
-        torch.as_tensor(a, device=dev)
-        for a in np.split(det.anchors, np.cumsum(det.level_counts)[:-1])
-    ]
+    # the same NMS inputs, through the kernel and through the plain version
+    # on the CPU; the float32 forward against the CPU's
     images = torch.from_numpy(np.stack(imgs)).to(dev)
     shapes = torch.tensor([[h, w]] * len(imgs), dtype=torch.float32, device=dev)
     scales = torch.ones((len(imgs), 4), dtype=torch.float32, device=dev)
-    norm = cfg.img_norm_cfg
-    with torch.inference_mode():
-        x = preprocess_images(images, norm.mean, norm.std, model.dtype)
-        outs = model(x)
-        args, kw = vote_nms_inputs(
-            *outs, level_anchors, shapes, scales, test_cfg=cfg.test_cfg.to_dict(),
-            normalizer=normalizer_from_cfg(cfg),
-        )
-        n_cand = args[4].sum(1).tolist()
-        print(f"  NMS input: K={args[0].shape[1]}, valid candidates per image {n_cand}")
-        main_err = compare(
-            vnc.vote_nms_cuda(*args, **kw),
-            plain_reference(args, **kw),
-            "main-path candidates, kernel on the card vs plain in float64 on the CPU",
-        )
-
-        # float32 forward on the card vs the CPU forward, 1 image
-        model.dtype = torch.float32
-        gpu_maps = [m.cpu() for maps in model(x[:1].float()) for m in maps]
-        cpu_model = init_detector(config, device="cpu", seed=SEED).model
-        cpu_model.load_state_dict(model.state_dict())
-        cpu_maps = [m for maps in cpu_model(x[:1].float().cpu()) for m in maps]
-        model.dtype = torch.bfloat16
-        rel = max(
-            float((g - c).abs().max() / c.abs().max().clamp(min=1e-6))
-            for g, c in zip(gpu_maps, cpu_maps)
-        )
-        print(f"  float32 head maps, card vs CPU: max error relative to each map's max "
-              f"{rel:.3g} (limit {MAP_RTOL})")
-        if rel > MAP_RTOL:
-            fail("the card's float32 forward disagrees with the CPU forward")
-        del cpu_model
+    main_err = forward_checks(det, config, images)
 
     # the untouched random init: no score clears score_thr, nothing may be NaN
     det0 = init_detector(config, device="cuda", seed=SEED)
@@ -2134,6 +2392,10 @@ def main() -> None:
                      f"data.test.img_prefix={osp.join(work, 'test') + '/'!r}"]
         nms_launches, nms_err = phase("anchor inference", anchor_inference_phase, gpu, repo, test_opts)
         phase("anchor training", anchor_train_phase, files, gpu, eval_opts, test_opts, repo)
+
+        # 10. configs/bop's backbone zoo: inference, timing, parity, the CLIs
+        zoo_launches = phase("zoo", zoo_phase, gpu, repo)
+        phase("zoo CLIs", zoo_cli_phase, files, gpu, eval_opts, test_opts, repo)
     nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by, _ = nms_times[ANCHOR_MAIN_SHAPE]
 
     print(f"card: {gpu}; smoke {time.perf_counter() - start:.1f} s wall")
@@ -2149,6 +2411,7 @@ def main() -> None:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,  # no PyTorch call computes vote-NMS
+        "zoo_launches": zoo_launches,  # each zoo config's inference_detector run (phase 10)
     }, {
         "name": "batched_nms (vote_nms.cu, no-vote mode)",
         "route": "cuda",

@@ -5,17 +5,20 @@ nested dicts of numpy arrays and returns mmdet-named tensors
 (``backbone.layer1.0.conv1.weight``, ``neck.lateral_convs.0.conv.weight``,
 ``bbox_head.scales.0.scale``, ...) that the port's detector loads with
 ``strict=True``.  For RADet it is the exact inverse of
-``tools/convert_torch_weights.py::convert_mmdet_detector``; the ATSSHead
-(``cls_convs``, ``atss_cls``, ``atss_reg``, ``atss_centerness``,
-``scales``) and AnchorHead (``conv_cls``, ``conv_reg``) names are mmdet's
-too.
+``tools/convert_torch_weights.py::convert_mmdet_detector`` over the whole
+backbone zoo: the deep stem (``stem.{0,1,3,4,6,7}``), the BasicBlock's
+``conv1``/``conv2``, Res2Net's ``convs.i``/``bns.i``, ResNeSt's
+``conv2.{conv,bn0,fc1,bn1,fc2}`` and the avg-down residual path
+(``downsample.{1,2}`` behind the pool).  The ATSSHead (``cls_convs``,
+``atss_cls``, ``atss_reg``, ``atss_centerness``, ``scales``) and
+AnchorHead (``conv_cls``, ``conv_reg``) names are mmdet's too.
 """
 
 from __future__ import annotations
 
 import re
 from collections.abc import Mapping
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -30,12 +33,17 @@ def _kernel(x) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(np.asarray(x, np.float32).transpose(3, 2, 0, 1)))
 
 
-def state_dict_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+def state_dict_from_flax(variables: Dict[str, Any], avg_down: Optional[bool] = None) -> Dict[str, torch.Tensor]:
     """``{params, batch_stats}`` (nested dicts of numpy arrays) -> state dict.
 
     The head is told apart by its variables: ``atss_cls`` (ATSSHead),
-    ``conv_iou`` (RADetHead), else AnchorHead.  Raises ValueError on any
-    entry the float ResNet/FPN/head layouts do not have, so an unported
+    ``conv_iou`` (RADetHead), else AnchorHead; a tree without a neck or a
+    head (a backbone alone) gives the entries it has.  The blocks' kinds
+    show in their variables too; whether a plain or basic block's
+    downsample is avg-down does not: ``avg_down`` says so, and None takes
+    it from the deep stem (ResNetV1d pairs them).  Res2Net's and
+    ResNeSt's downsamples are always avg-down.  Raises ValueError on any
+    entry the float backbone/FPN/head layouts do not have, so an unported
     variant fails loudly."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
@@ -55,25 +63,51 @@ def state_dict_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         sd[prefix + ".running_mean"] = _t(take("batch_stats", path + ("BatchNorm_0", "mean")))
         sd[prefix + ".running_var"] = _t(take("batch_stats", path + ("BatchNorm_0", "var")))
 
+    def conv(prefix, path, bias=False):
+        sd[prefix + ".weight"] = _kernel(take("params", path + ("kernel",)))
+        if bias:
+            sd[prefix + ".bias"] = _t(take("params", path + ("bias",)))
+
     bb = ("backbone",)
-    sd["backbone.conv1.weight"] = _kernel(take("params", bb + ("conv1", "kernel")))
-    bn("backbone.bn1", bb + ("bn1",))
-    for name in sorted(params["backbone"]):
+    backbone = params.get("backbone", {})
+    if "stem_conv1" in backbone:  # deep stem: Sequential(conv, bn, relu) x 3
+        for i, idx in enumerate((0, 3, 6), start=1):
+            conv(f"backbone.stem.{idx}", bb + (f"stem_conv{i}",))
+            bn(f"backbone.stem.{idx + 1}", bb + (f"stem_bn{i}",))
+    elif "conv1" in backbone:
+        conv("backbone.conv1", bb + ("conv1",))
+        bn("backbone.bn1", bb + ("bn1",))
+    if avg_down is None:
+        avg_down = "stem_conv1" in backbone
+    for name in sorted(backbone):
         m = re.fullmatch(r"layer(\d+)_(\d+)", name)
         if not m:
             continue
         tp = f"backbone.layer{m.group(1)}.{m.group(2)}."
         fp = bb + (name,)
+        block = backbone[name]
         for ci in (1, 2, 3):
-            sd[tp + f"conv{ci}.weight"] = _kernel(take("params", fp + (f"conv{ci}", "kernel")))
-            bn(tp + f"bn{ci}", fp + (f"bn{ci}",))
-        if "downsample_conv" in params["backbone"][name]:
-            sd[tp + "downsample.0.weight"] = _kernel(
-                take("params", fp + ("downsample_conv", "kernel"))
-            )
-            bn(tp + "downsample.1", fp + ("downsample_bn",))
+            if "kernel" in block.get(f"conv{ci}", {}):
+                conv(tp + f"conv{ci}", fp + (f"conv{ci}",))
+                bn(tp + f"bn{ci}", fp + (f"bn{ci}",))
+        split_attention = "conv" in block.get("conv2", {})
+        if split_attention:
+            conv(tp + "conv2.conv", fp + ("conv2", "conv"))
+            for b in ("bn0", "bn1"):
+                bn(tp + f"conv2.{b}", fp + ("conv2", b))
+            for fc in ("fc1", "fc2"):
+                conv(tp + f"conv2.{fc}", fp + ("conv2", fc), bias=True)
+        i = 0
+        while f"convs_{i}" in block:  # Res2Net's per-scale 3x3s
+            conv(tp + f"convs.{i}", fp + (f"convs_{i}",))
+            bn(tp + f"bns.{i}", fp + (f"bns_{i}",))
+            i += 1
+        if "downsample_conv" in block:
+            j = int(avg_down or split_attention or i > 0)  # behind the avg-pool
+            conv(tp + f"downsample.{j}", fp + ("downsample_conv",))
+            bn(tp + f"downsample.{j + 1}", fp + ("downsample_bn",))
 
-    neck = params["neck"]
+    neck = params.get("neck", {})
     n_lateral = sum(1 for k in neck if re.fullmatch(r"fpn_\d+", k))
     for name in neck:
         m = re.fullmatch(r"(lateral|fpn|fpn_extra)_(\d+)", name)
@@ -88,7 +122,7 @@ def state_dict_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         sd[prefix + ".weight"] = _kernel(take("params", ("neck", name, "kernel")))
         sd[prefix + ".bias"] = _t(take("params", ("neck", name, "bias")))
 
-    head = params["bbox_head"]
+    head = params.get("bbox_head", {})
     for name in head:
         m = re.fullmatch(r"(cls|reg)_conv_(\d+)", name)
         if not m:
@@ -98,7 +132,9 @@ def state_dict_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         sd[prefix + ".conv.weight"] = _kernel(take("params", hp + ("conv", "kernel")))
         sd[prefix + ".gn.weight"] = _t(take("params", hp + ("gn", "scale")))
         sd[prefix + ".gn.bias"] = _t(take("params", hp + ("gn", "bias")))
-    if "atss_cls" in head:  # ATSSHead: mmdet's names already
+    if not head:
+        convs = {}
+    elif "atss_cls" in head:  # ATSSHead: mmdet's names already
         convs = {n: n for n in ("atss_cls", "atss_reg", "atss_centerness")}
     elif "conv_iou" in head:  # RADetHead
         convs = {"conv_cls": "atss_cls", "conv_reg": "atss_reg", "conv_iou": "atss_centerness"}

@@ -1,10 +1,10 @@
 from .anchor_heads import AnchorHead, ATSSHead
-from .builder import build_detector
+from .builder import build_backbone, build_detector
 from .detector import RADet, SingleStageDetector, flatten_head_outputs, preprocess_images
 from .fpn import FPN
 from .postprocess import Detections, get_bboxes, get_bboxes_anchor
 from .radet_head import RADetHead
-from .resnet import ResNet
+from .resnet import RegNet, ResNet
 
 __all__ = [
     "ATSSHead",
@@ -13,8 +13,10 @@ __all__ = [
     "FPN",
     "RADet",
     "RADetHead",
+    "RegNet",
     "ResNet",
     "SingleStageDetector",
+    "build_backbone",
     "build_detector",
     "flatten_head_outputs",
     "get_bboxes",

@@ -1,6 +1,8 @@
 """Build a detector module from a reference-style model config dict (port of
-``radet_tpu/models/builder.py`` for its float ResNet-50 + FPN subset):
-RADet with RADetHead, and SingleStageDetector with ATSSHead or AnchorHead."""
+``radet_tpu/models/builder.py`` for its float backbone zoo + FPN subset):
+RADet with RADetHead, and SingleStageDetector with ATSSHead or AnchorHead,
+over ResNet (depths 18-152), ResNetV1d, ResNeXt, Res2Net, ResNeSt or
+RegNet."""
 
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ from .anchor_heads import AnchorHead, ATSSHead
 from .detector import RADet, SingleStageDetector
 from .fpn import FPN
 from .radet_head import RADetHead
-from .resnet import ResNet
+from .resnet import RegNet, ResNet
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
 
@@ -45,6 +47,46 @@ def head_spec_from_cfg(head: Dict[str, Any]) -> Dict[str, Any]:
     return dict(head_type=head_type, num_base_anchors=nba[0], use_sigmoid=use_sigmoid)
 
 
+_BACKBONES = ("ResNet", "ResNetV1d", "ResNeXt", "Res2Net", "ResNeSt", "RegNet")
+_EXTRA_BACKBONES = ("Darknet", "HRNet", "SSDVGG", "DetectoRS_ResNet", "DetectoRS_ResNeXt")
+
+
+def build_backbone(backbone: Dict[str, Any]):
+    """The backbone of a ``model.backbone`` config, with the JAX builder's
+    defaults: ``deep_stem`` and ``avg_down`` on for ResNetV1d, Res2Net and
+    ResNeSt; ``groups`` read for ResNeXt and ResNeSt only; ``base_width``
+    26 for Res2Net, else 4; ``scales`` 4 (Res2Net) and ``radix`` 2
+    (ResNeSt); RegNet's ``arch`` a named preset (its ``depth`` unread)."""
+    btype = backbone.get("type", "ResNet")
+    _require(btype not in _EXTRA_BACKBONES, f"backbone type {btype!r}", _OTHER_FAMILIES)
+    if btype not in _BACKBONES:
+        raise ValueError(f"unknown backbone type {btype!r} (the port builds {_BACKBONES})")
+    _require(not backbone.get("stem_s2d"), "backbone.stem_s2d", _OTHER_FAMILIES)
+    for key in ("quant", "qat", "frozen_int8"):
+        _require(not backbone.get(key), f"backbone.{key}", _INT8)
+    _require(not backbone.get("with_cp"), "backbone.with_cp (gradient checkpointing)", _TRAINING)
+    common = dict(
+        out_indices=tuple(backbone.get("out_indices", (0, 1, 2, 3))),
+        frozen_stages=backbone.get("frozen_stages", 1),
+        norm_eval=backbone.get("norm_eval", True),
+    )
+    if btype == "RegNet":
+        return RegNet(arch=backbone["arch"], **common)
+    v1d = btype in ("ResNetV1d", "Res2Net", "ResNeSt")
+    return ResNet(
+        depth=backbone.get("depth", 50),
+        groups=backbone.get("groups", 1) if btype in ("ResNeXt", "ResNeSt") else 1,
+        base_width=backbone.get("base_width", 26 if btype == "Res2Net" else 4),
+        deep_stem=backbone.get("deep_stem", v1d),
+        avg_down=backbone.get("avg_down", v1d),
+        scales=backbone.get("scales", 4) if btype == "Res2Net" else 1,
+        radix=backbone.get("radix", 2) if btype == "ResNeSt" else 0,
+        reduction_factor=backbone.get("reduction_factor", 4),
+        avg_down_stride=backbone.get("avg_down_stride", True),
+        **common,
+    )
+
+
 def build_detector(model_cfg: Dict[str, Any], dtype: Any = None) -> SingleStageDetector:
     """``dtype``: compute dtype (torch dtype or one of ``DTYPES``' names);
     None reads ``model_cfg['dtype']``, default float32."""
@@ -53,10 +95,8 @@ def build_detector(model_cfg: Dict[str, Any], dtype: Any = None) -> SingleStageD
     neck = dict(cfg.get("neck", {}))
     head = dict(cfg.get("bbox_head", {}))
     det_type = cfg.get("type", "RADet")
-    btype = backbone.get("type", "ResNet")
     ntype = neck.get("type", "FPN")
     _require(det_type in ("RADet", "SingleStageDetector"), f"detector type {det_type!r}", _OTHER_FAMILIES)
-    _require(btype == "ResNet", f"backbone type {btype!r}", _OTHER_FAMILIES)
     _require(ntype == "FPN", f"neck type {ntype!r}", _OTHER_FAMILIES)
     spec = head_spec_from_cfg(head)
     htype = spec["head_type"]
@@ -64,14 +104,8 @@ def build_detector(model_cfg: Dict[str, Any], dtype: Any = None) -> SingleStageD
         raise ValueError("detector type 'RADet' pairs with RADetHead; use type='SingleStageDetector' "
                          f"for {htype}")
     _require(spec["use_sigmoid"], f"{htype} with a softmax loss_cls (use_sigmoid=False)", _OTHER_FAMILIES)
-    for key in ("deep_stem", "avg_down", "stem_s2d"):
-        _require(not backbone.get(key), f"backbone.{key}", _OTHER_FAMILIES)
-    _require(backbone.get("groups", 1) == 1, "ResNeXt (backbone.groups)", _OTHER_FAMILIES)
-    for key in ("quant", "qat", "frozen_int8"):
-        _require(not backbone.get(key), f"backbone.{key}", _INT8)
     for key in ("quant", "qat"):
         _require(not head.get(key), f"bbox_head.{key}", _INT8)
-    _require(not backbone.get("with_cp"), "backbone.with_cp (gradient checkpointing)", _TRAINING)
     if neck.get("act_cfg") is not None or neck.get("norm_cfg") is not None:
         raise ValueError("the FPN takes no act_cfg or norm_cfg")
 
@@ -80,7 +114,7 @@ def build_detector(model_cfg: Dict[str, Any], dtype: Any = None) -> SingleStageD
     if isinstance(dtype, str):
         dtype = DTYPES[dtype]
 
-    out_indices = tuple(backbone.get("out_indices", (0, 1, 2, 3)))
+    trunk = build_backbone(backbone)
     fpn_out = neck.get("out_channels", 256)
     num_outs = neck.get("num_outs", 5)
     num_classes = head["num_classes"]
@@ -97,14 +131,12 @@ def build_detector(model_cfg: Dict[str, Any], dtype: Any = None) -> SingleStageD
             num_anchors=spec["num_base_anchors"],
         )
     return (RADet if det_type == "RADet" else SingleStageDetector)(
-        ResNet(
-            depth=backbone.get("depth", 50),
-            out_indices=out_indices,
-            frozen_stages=backbone.get("frozen_stages", 1),
-            norm_eval=backbone.get("norm_eval", True),
-        ),
+        trunk,
+        # the backbone's widths, not neck.in_channels: the JAX package's FPN
+        # infers them, and configs/bop/regnetx32_ycbv_pbr.py inherits the
+        # flagship's [256, 512, 1024, 2048] beside a RegNet of [96, 192, 432, 1008]
         FPN(
-            in_channels=neck.get("in_channels", [256 * 2**i for i in out_indices]),
+            in_channels=trunk.out_channels,
             out_channels=fpn_out,
             num_outs=num_outs,
             start_level=neck.get("start_level", 1),

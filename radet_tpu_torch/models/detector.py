@@ -12,7 +12,6 @@ import torch
 import torch.nn as nn
 
 from .fpn import FPN
-from .resnet import ResNet
 
 
 def preprocess_images(images_u8, mean, std, dtype=torch.float32):
@@ -30,11 +29,11 @@ def preprocess_images(images_u8, mean, std, dtype=torch.float32):
 
 
 class SingleStageDetector(nn.Module):
-    """Backbone -> FPN -> dense head.  ``dtype`` is the compute dtype of the
-    convolutions; parameters stay float32, GroupNorm and the head outputs
-    run in float32."""
+    """Backbone (any of ``models/resnet.py``'s zoo) -> FPN -> dense head.
+    ``dtype`` is the compute dtype of the convolutions; parameters stay
+    float32, GroupNorm and the head outputs run in float32."""
 
-    def __init__(self, backbone: ResNet, neck: FPN, bbox_head: nn.Module, dtype=torch.float32):
+    def __init__(self, backbone: nn.Module, neck: FPN, bbox_head: nn.Module, dtype=torch.float32):
         super().__init__()
         self.backbone = backbone
         self.neck = neck

@@ -20,6 +20,13 @@ def uniform_(t: torch.Tensor, bound: float, generator: torch.Generator) -> None:
     t.copy_((torch.rand(t.shape, generator=generator) * 2 - 1) * bound)
 
 
+@torch.no_grad()
+def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    """Fill ``t`` from N(0, std^2) truncated at +-2 std, drawn on the CPU
+    from ``generator``."""
+    t.copy_(nn.init.trunc_normal_(torch.empty(t.shape), 0.0, std, -2 * std, 2 * std, generator=generator))
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` that runs in its input's dtype.
 

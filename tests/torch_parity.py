@@ -2,8 +2,10 @@
 ``radet_tpu_torch`` (tests/test_torch_*.py): one seeded flax model, its
 variables randomised with numpy, and the port's model holding the same
 weights through ``radet_tpu_torch.engine.convert.state_dict_from_flax``;
-the flagship narrowed (``NARROW``), and the ATSS and RetinaNet configs
-narrowed (``ANCHOR_CONFIGS``, :func:`anchor_pair`)."""
+the flagship narrowed (``NARROW``), the ATSS and RetinaNet configs
+narrowed (``ANCHOR_CONFIGS``, :func:`anchor_pair`), and the backbone zoo's
+configs with their neck and head narrowed (``ZOO_CONFIGS``,
+:func:`zoo_pair`)."""
 
 import os.path as osp
 
@@ -66,6 +68,28 @@ def randomize(tree, rng, path=()):
             v = rng.randn(*n) * (0.5 if "conv_cls" in p else 0.1)
         out[k] = np.asarray(v, np.float32)
     return out
+
+
+def numpy_variables(init_fn, seed=0):
+    """A variable tree of ``init_fn``'s shapes (``jax.eval_shape``, so
+    nothing is compiled), drawn with numpy: the head's kernels from
+    N(0, 0.01^2) as the JAX head initialises them, every other kernel from
+    N(0, 1 / fan_in), the rest as :func:`randomize` draws it.  A second
+    where a jitted init of a 50-layer trunk takes ten.  (A head as wide as
+    its input would leave GroupNorm on P7's 1x1 map, two channels a group,
+    at the mercy of float32 rounding: gradients that move 1e-3 under a
+    1e-7 change of the weights.)"""
+    rng = np.random.RandomState(seed)
+
+    def draw(path, s):
+        keys = [p.key for p in path]
+        if keys[-1] != "kernel":
+            return np.zeros(s.shape, np.float32)
+        std = 0.01 if "bbox_head" in keys else 1 / np.sqrt(np.prod(s.shape[:-1]))
+        return (rng.randn(*s.shape) * std).astype(np.float32)
+
+    tree = jax.tree_util.tree_map_with_path(draw, jax.eval_shape(init_fn))
+    return randomize(tree, rng)
 
 
 def flax_and_port_models(jax_model, port_model, img_hw=IMG_HW, seed=0):
@@ -162,3 +186,36 @@ def anchor_pair(name, seed=0):
     assert list(p_counts) == list(counts)
     variables = flax_and_port_models(jax_model, port, img_hw=ANCHOR_HW, seed=seed)
     return jax_cfg, cfg, jax_model, variables, port, anchors, counts
+
+
+# configs/bop's backbone zoo: NARROW's neck and head, the trunk at its
+# published widths, exact top-k over all candidate pairs
+ZOO_CONFIGS = {name: osp.join(osp.dirname(FLAGSHIP), f"{name}_ycbv_pbr.py")
+               for name in ("x50_32x4d", "r2_50", "s50", "regnetx32")}
+ZOO_NARROW = NARROW + SERVE_TEST_CFG
+
+
+def zoo_pair(name, seed=0, options=()):
+    """The zoo config ``name`` (a key of ``ZOO_CONFIGS``) in both packages
+    with ``ZOO_NARROW`` and ``options``, one seeded variable tree
+    (:func:`numpy_variables`), and the port's model on the CPU holding it.
+    Returns (jax_cfg, cfg, jax_model, variables, port model, anchors,
+    regress ranges, level counts)."""
+    from radet_tpu.apis.common import build_model_and_anchors as jax_build_model_and_anchors
+    from radet_tpu.utils.config import Config as JaxConfig
+    from radet_tpu_torch.apis.common import build_model_and_anchors
+    from radet_tpu_torch.utils.config import Config
+
+    path, options = ZOO_CONFIGS[name], ZOO_NARROW + list(options)
+    jax_cfg, cfg = JaxConfig.fromfile(path, options), Config.fromfile(path, options)
+    jax_model, anchors, ranges, counts = jax_build_model_and_anchors(jax_cfg)
+    port, p_anchors, p_ranges, p_counts = build_model_and_anchors(cfg)
+    np.testing.assert_array_equal(p_anchors, anchors)
+    np.testing.assert_array_equal(p_ranges, ranges)
+    assert list(p_counts) == list(counts)
+    h, w = cfg.input_size
+    variables = numpy_variables(
+        lambda: jax_model.init(jax.random.PRNGKey(0), jnp.zeros((1, h, w, 3)), train=False), seed)
+    port.load_state_dict(state_dict_from_flax(variables), strict=True)
+    port.eval()
+    return jax_cfg, cfg, jax_model, variables, port, anchors, ranges, counts
