@@ -108,8 +108,19 @@ Run from the repository root, with one card:  python3 chip_smoke.py
    and the float32 step on the card against the CPU at batch 1 (same ReLU
    sides); then RegNet through the train CLI (``ZOO_STEPS`` steps from the
    JPEG ``train_pbr`` split, one eval), the test CLI (strict) on its
-   checkpoint and ``init_detector`` on its work dir.  Each phase prints its
-   wall time.
+   checkpoint and ``init_detector`` on its work dir;
+11. trains the flagship with live BatchNorm (``norm_eval=False``) at
+   ``frozen_stages`` -1 and 1: the bf16 step at batch 16 with and without
+   ``with_cp``, time and peak memory beside the ``norm_eval=True`` step;
+   the float32 step at batch 1 against the CPU (same ReLU sides: losses,
+   gradients, every running mean and variance); ``with_cp`` against the
+   plain float32 step on the card; then ``python -m
+   radet_tpu_torch.tools.validate_learning`` at its defaults (mAP50 at
+   least 0.5, or the smoke fails) and ``python -m
+   radet_tpu_torch.tools.run_bop_sweep --mode test`` over the seven BOP
+   datasets' synthetic PNG sets (each BOP submission's category ids that
+   config's), both evals' vote-NMS calls held to the plain version.  Each
+   phase prints its wall time.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero before it.  Without a CUDA card, or outside the repository, the
@@ -195,6 +206,21 @@ ZOO_WIDTHS = {"regnetx32_ycbv_pbr": [96, 192, 432, 1008]}  # C2..C5; the others 
 # expansion-1 blocks, FPN inputs of other widths) goes through the CLIs
 ZOO_CLI_CONFIG = "configs/bop/regnetx32_ycbv_pbr.py"
 ZOO_STEPS = 10
+# 11. live BatchNorm and checkpointing on the flagship (norm_eval=False at
+# these frozen_stages), the learning check, the BOP sweep
+LIVE_FROZEN = (-1, 1)
+STAT_RTOL = 1e-4  # BN running statistics after the float32 step, card vs CPU, relative to each tensor's max
+CP_RTOL = 1e-6  # with_cp against the same float32 step without it on the card: gradients and statistics
+# |x| / max |x| of a ReLU input the card and the CPU put on opposite sides of 0 behind a BN on batch
+# statistics: their float32 E[x^2] - mean^2 over ~1e5 values (flax's formula) differs by ~1e-6 of
+# mean^2 between the two reduction orders, which reaches 1e-5-1e-4 of the output where |mean| >> std
+LIVE_FLIP_RTOL = 1e-4
+# the gradient of a one-element parameter (the head's per-level Scale) behind those BNs, relative to
+# itself: a sum of the regression positives' terms of either sign, whose cancellation amplifies the
+# card's and the CPU's 1e-5 forward differences; every tensor of more elements keeps GRAD_RTOL
+LIVE_SCALAR_RTOL = 1e-2
+LEARN_MIN_MAP50 = 0.5  # validate_learning's own gate, at its defaults
+SWEEP_IMAGES = 4  # PNG test images per BOP dataset, 480x640
 SERVE_BATCH = 16
 SERVE_LATENCY_MS = 5.0
 SERVE_SIZES = ((480, 640), (540, 720), (427, 640))
@@ -404,10 +430,10 @@ def relu_decisions(masks, replay: bool):
 
 
 def parity_steps(cfg, one, anchors, ranges, model_args, runs):
-    """One train step (zero-lr SGD, no clip, in the model's dtype) of each
-    (name, model, device) in ``runs`` on the numpy batch ``one`` with the
-    same assignment noise; returns {name: (assignment, metrics, gradients
-    on the CPU)}."""
+    """One train step (zero-lr SGD, no clip, in the model's dtype and mode)
+    of each (name, model, device) in ``runs`` on the numpy batch ``one``
+    with the same assignment noise; returns {name: (assignment, metrics,
+    gradients on the CPU)}."""
     from radet_tpu_torch.apis.common import assignment_cfg_from
     from radet_tpu_torch.core.assignment import gumbel
     from radet_tpu_torch.engine import build_optimizer, build_train_step
@@ -415,9 +441,9 @@ def parity_steps(cfg, one, anchors, ranges, model_args, runs):
 
     acfg = assignment_cfg_from(cfg)
     cap = int(acfg.get("positive_num", 10)) * (4 if acfg.get("adapt_positive_num") else 1)
-    _, n, g = one["dist_vals"].shape
+    b, n, g = one["dist_vals"].shape
     gen = torch.Generator().manual_seed(SEED + 3)
-    noise = (gumbel((1, g, n), gen, "cpu"), gumbel((1, g, cap, cap), gen, "cpu"))
+    noise = (gumbel((b, g, n), gen, "cpu"), gumbel((b, g, cap, cap), gen, "cpu"))
     out = {}
     for name, m, d in runs:
         st = build_train_step(m, anchors, ranges, **model_args)
@@ -1989,42 +2015,27 @@ def anchor_train_phase(files: str, gpu: str, eval_opts, test_opts, repo: Path) -
             anchor_parity(cfg, dataset, gpu)
 
 
-def zoo_step_checks(cfg, dataset, name: str, gpu: str) -> None:
-    """The zoo config's train step at batch 16 (bf16, the config's AdamW and
-    clip, the batch on the card) by CUDA events with its peak memory; then
-    one float32 step at batch 1 on the card against the CPU, with the same
-    weights, batch, assignment noise and side of every ReLU."""
-    from radet_tpu_torch.apis.common import (
-        assignment_cfg_from,
-        build_model_and_anchors,
-        loss_cfg_from,
-        normalizer_from_cfg,
-    )
+def step_ms(cfg, dataset, name: str, gpu: str):
+    """The config's train step at batch ``samples_per_gpu`` (its compute
+    dtype, AdamW and clip, the batch on the card) by CUDA events; prints
+    and returns (ms per step, peak GiB)."""
+    from radet_tpu_torch.apis.common import build_model_and_anchors
     from radet_tpu_torch.data import collate
     from radet_tpu_torch.engine import build_optimizer, build_train_step
     from radet_tpu_torch.engine.train_step import TrainState, batch_to_device
 
     dev = torch.device("cuda")
-    model_args = dict(
-        img_norm=cfg.img_norm_cfg.to_dict(), num_classes=int(cfg.model.bbox_head.num_classes),
-        assignment_cfg=assignment_cfg_from(cfg), normalizer=normalizer_from_cfg(cfg),
-        loss_cfg=loss_cfg_from(cfg),
-    )
-
-    def init_model(dtype):
-        model, anchors, ranges, _ = build_model_and_anchors(cfg, dtype=dtype)
-        model.init_weights(torch.Generator().manual_seed(SEED))
-        return model, anchors, ranges
-
-    model, anchors, ranges = init_model(None)
+    model, anchors, ranges, _ = build_model_and_anchors(cfg)
+    model.init_weights(torch.Generator().manual_seed(SEED))
     model.to(dev).train()
     tx, _ = build_optimizer(cfg.optimizer.to_dict(), cfg.lr_config.to_dict(), cfg.grad_clip.to_dict(), model)
     state = TrainState(model, tx, seed=SEED)
-    step = build_train_step(model, anchors, ranges, **model_args)
+    step = build_train_step(model, anchors, ranges, **step_args(cfg))
     batch_size = int(cfg.data.samples_per_gpu)
     batch = batch_to_device(collate([dataset[i] for i in range(batch_size)]), dev)
     for _ in range(3):
         metrics = step(state, batch)
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ms = cuda_ms(lambda: step(state, batch), 10)
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2035,35 +2046,83 @@ def zoo_step_checks(cfg, dataset, name: str, gpu: str) -> None:
         fail(f"{name}: non-finite loss in the train step")
     del state, model, tx, step, batch
     torch.cuda.empty_cache()
+    return ms, peak
 
+
+def step_args(cfg) -> dict:
+    from radet_tpu_torch.apis.common import assignment_cfg_from, loss_cfg_from, normalizer_from_cfg
+
+    return dict(img_norm=cfg.img_norm_cfg.to_dict(), num_classes=int(cfg.model.bbox_head.num_classes),
+                assignment_cfg=assignment_cfg_from(cfg), normalizer=normalizer_from_cfg(cfg),
+                loss_cfg=loss_cfg_from(cfg))
+
+
+def running_stats(model) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items() if "running_" in k}
+
+
+def step_parity(cfg, dataset, name: str, gpu: str, flip_rtol: float = FLIP_RTOL,
+                scalar_rtol: float = GRAD_RTOL) -> None:
+    """One float32 step at batch 1 on the card against the CPU, with the same
+    weights, batch, assignment noise and side of every ReLU (a ReLU input
+    the two put on opposite sides may be at most ``flip_rtol`` of its
+    tensor's max |x|): assignment, losses, gradients (GRAD_RTOL, a
+    one-element tensor's ``scalar_rtol``) and every BatchNorm running
+    statistic after the step."""
+    from radet_tpu_torch.apis.common import anchors_from_cfg, build_model_and_anchors
+    from radet_tpu_torch.data import collate
+
+    dev = torch.device("cuda")
+
+    def init_model():
+        model = build_model_and_anchors(cfg, dtype="float32")[0]
+        model.init_weights(torch.Generator().manual_seed(SEED))
+        return model
+
+    anchors, ranges, _ = anchors_from_cfg(cfg)
     one = collate([dataset[0]])
-    gpu_model, cpu_model = init_model("float32")[0].to(dev), init_model("float32")[0]
+    gpu_model, cpu_model = init_model().to(dev), init_model()
     masks = []
     with relu_decisions(masks, replay=False):
-        out = parity_steps(cfg, one, anchors, ranges, model_args, (("card", gpu_model, dev),))
+        out = parity_steps(cfg, one, anchors, ranges, step_args(cfg), (("card", gpu_model, dev),))
     with relu_decisions(masks, replay=True) as flips:
-        out.update(parity_steps(cfg, one, anchors, ranges, model_args, (("cpu", cpu_model, torch.device("cpu")),)))
+        out.update(parity_steps(cfg, one, anchors, ranges, step_args(cfg),
+                                (("cpu", cpu_model, torch.device("cpu")),)))
     (ac, mc, gc), (ag, mg, gg) = out["cpu"], out["card"]
     same = torch.equal(ag.gt_idx.cpu(), ac.gt_idx)
     w_err = float((ag.weight.cpu() - ac.weight).abs().max())
     loss_err = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in mc)
-    errs = grad_errors(gg, gc)
+    errs = grad_errors({k: v for k, v in gg.items() if v.numel() > 1}, {k: v for k, v in gc.items() if v.numel() > 1})
+    scalar_errs = grad_errors({k: v for k, v in gg.items() if v.numel() == 1},
+                              {k: v for k, v in gc.items() if v.numel() == 1}) or [(0.0, "none")]
+    stat_errs = grad_errors(running_stats(gpu_model), running_stats(cpu_model))
     flip_max = max((r for _, r in flips), default=0.0)
     print(f"  {name} train parity, float32 batch 1, card vs CPU (TF32 off, same noise and ReLU sides): assignment "
           f"gt_idx equal: {same} ({int((ac.gt_idx >= 0).sum())} positives), weight max abs err {w_err:.3g}; losses "
           f"max rel err {loss_err:.3g} (loss {mg['loss']:.6f} vs {mc['loss']:.6f}); gradients max err "
-          f"{errs[0][0]:.3g} of the tensor's max abs ({errs[0][1]}); ReLU inputs on opposite sides of 0: "
-          f"{sum(c for c, _ in flips)} of {sum(m.numel() for m in masks)} in {len(masks)} calls, at most "
+          f"{errs[0][0]:.3g} of the tensor's max abs ({errs[0][1]}), of one-element tensors {scalar_errs[0][0]:.3g} "
+          f"({scalar_errs[0][1]}); running statistics max err "
+          f"{stat_errs[0][0]:.3g} ({stat_errs[0][1]}, {len(stat_errs)} tensors); ReLU inputs on opposite sides "
+          f"of 0: {sum(c for c, _ in flips)} of {sum(m.numel() for m in masks)} in {len(masks)} calls, at most "
           f"{flip_max:.3g} of their tensor's max |x| [{gpu}]")
     if not same:
         fail(f"{name}: the assignment differs between card and CPU")
-    if flip_max > FLIP_RTOL:
-        fail(f"{name}: a ReLU input differs in sign by more than rounding ({flip_max:.3g} > {FLIP_RTOL})")
-    if w_err > WEIGHT_ATOL or loss_err > LOSS_RTOL or errs[0][0] > GRAD_RTOL:
+    if flip_max > flip_rtol:
+        fail(f"{name}: a ReLU input differs in sign by more than rounding ({flip_max:.3g} > {flip_rtol})")
+    if (w_err > WEIGHT_ATOL or loss_err > LOSS_RTOL or errs[0][0] > GRAD_RTOL or scalar_errs[0][0] > scalar_rtol
+            or stat_errs[0][0] > STAT_RTOL):
         fail(f"{name}: card vs CPU train step beyond tolerance (weights {WEIGHT_ATOL}, losses {LOSS_RTOL}, "
-             f"gradients {GRAD_RTOL})")
+             f"gradients {GRAD_RTOL}, one-element gradients {scalar_rtol}, running statistics {STAT_RTOL})")
     del gpu_model, cpu_model, out, masks
     torch.cuda.empty_cache()
+
+
+def zoo_step_checks(cfg, dataset, name: str, gpu: str) -> None:
+    """The zoo config's train step at batch 16 timed with its peak memory
+    (:func:`step_ms`), and the float32 step on the card against the CPU
+    (:func:`step_parity`)."""
+    step_ms(cfg, dataset, name, gpu)
+    step_parity(cfg, dataset, name, gpu)
 
 
 def zoo_phase(gpu: str, repo: Path) -> dict:
@@ -2217,6 +2276,227 @@ def zoo_cli_phase(files: str, gpu: str, eval_opts, test_opts, repo: Path) -> Non
         fail(f"{name}: init_detector on the trained work dir did not load or infer")
     del det
     torch.cuda.empty_cache()
+
+
+def live_bn_phase(config: str, gpu: str) -> None:
+    """Phase 11a-b: the flagship with ``norm_eval=False`` at each of
+    LIVE_FROZEN, full width, 480x640.  The bf16 train step at batch 16 with
+    its peak memory, with and without ``with_cp``, beside the
+    ``norm_eval=True`` step of the same call; the float32 step at batch 1
+    on the card against the CPU with shared ReLU sides (losses, gradients,
+    every running mean and variance); and ``with_cp`` against the plain
+    float32 step at batch 2 on the card (cuDNN deterministic): gradients
+    and running statistics within CP_RTOL, the statistics moved once."""
+    from radet_tpu_torch.apis.common import anchors_from_cfg, assignment_cfg_from, build_model_and_anchors
+    from radet_tpu_torch.data import InMemoryBOPDataset, collate, train_transforms
+    from radet_tpu_torch.utils import Config
+    from synthetic_bop import synthetic_bop_records
+
+    dev = torch.device("cuda")
+    base = Config.fromfile(config)
+    h, w = base.input_size
+    max_gt = int(assignment_cfg_from(base).get("max_gt", 32))
+    records = synthetic_bop_records(np.random.RandomState(SEED + 2), int(base.data.samples_per_gpu), (h, w))
+    dataset = InMemoryBOPDataset(records, train_transforms((h, w), max_gt=max_gt, seed=SEED), max_gt=max_gt,
+                                 classes=base.CLASS_NAMES)
+    print(f"live BN: {CONFIG} with model.backbone.norm_eval=False (batch statistics in training, running "
+          f"statistics updated by 0.1 of the batch's) at frozen_stages {LIVE_FROZEN} (the config's: "
+          f"{base.model.backbone.frozen_stages}), full width, {h}x{w}")
+    times = {"norm_eval=True": step_ms(base, dataset, "flagship norm_eval=True", gpu)}
+    for frozen in LIVE_FROZEN:
+        live = [f"model.backbone.frozen_stages={frozen}", "model.backbone.norm_eval=False"]
+        for cp in (False, True):
+            name = f"norm_eval=False frozen_stages={frozen}" + (" with_cp" if cp else "")
+            cfg = Config.fromfile(config, live + [f"model.backbone.with_cp={cp}"])
+            times[name] = step_ms(cfg, dataset, f"flagship {name}", gpu)
+        step_parity(Config.fromfile(config, live), dataset, f"flagship norm_eval=False frozen_stages={frozen}", gpu,
+                    LIVE_FLIP_RTOL, LIVE_SCALAR_RTOL)
+    ref_ms, ref_peak = times["norm_eval=True"]
+    print("  train step at batch 16, bf16, against norm_eval=True in this call: " + "; ".join(
+        f"{k} {ms:.2f} ms ({ms / ref_ms:.3f}x), {peak:.2f} GiB ({peak / ref_peak:.3f}x)"
+        for k, (ms, peak) in times.items()) + f" [{gpu}]")
+
+    # with_cp against the plain float32 step on the card
+    cfg = Config.fromfile(config, ["model.backbone.frozen_stages=-1", "model.backbone.norm_eval=False"])
+    cp_cfg = Config.fromfile(config, ["model.backbone.frozen_stages=-1", "model.backbone.norm_eval=False",
+                                      "model.backbone.with_cp=True"])
+    anchors, ranges, _ = anchors_from_cfg(cfg)
+    models = {}
+    for name, c in (("plain", cfg), ("with_cp", cp_cfg)):
+        m = build_model_and_anchors(c, dtype="float32")[0]
+        m.init_weights(torch.Generator().manual_seed(SEED))
+        models[name] = m.to(dev)
+    before = running_stats(models["plain"])
+    two = collate([dataset[0], dataset[1]])
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = parity_steps(cfg, two, anchors, ranges, step_args(cfg),
+                           [(name, m, dev) for name, m in models.items()])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (_, mp, gp), (_, mc, gc) = out["plain"], out["with_cp"]
+    grad_err = grad_errors(gc, gp)[0]
+    stats_p, stats_c = running_stats(models["plain"]), running_stats(models["with_cp"])
+    stat_err = grad_errors(stats_c, stats_p)[0]
+    k = "backbone.layer2.0.bn1.running_var"
+    once = float(((stats_c[k] - 0.9 * before[k]) - (stats_p[k] - 0.9 * before[k])).abs().max())
+    loss_err = max(abs(mc[k_] - mp[k_]) / max(abs(mp[k_]), 1e-12) for k_ in mp)
+    print(f"  with_cp vs plain, float32 batch 2 on the card (frozen_stages=-1, cuDNN deterministic): losses max rel "
+          f"err {loss_err:.3g}; gradients max err {grad_err[0]:.3g} of the tensor's max abs ({grad_err[1]}); running "
+          f"statistics max err {stat_err[0]:.3g} ({stat_err[1]}); {k} minus 0.9 of its old value differs by "
+          f"{once:.3g} (moved once) [{gpu}]")
+    if loss_err > CP_RTOL or grad_err[0] > CP_RTOL or stat_err[0] > CP_RTOL:
+        fail(f"with_cp changes the step beyond {CP_RTOL}")
+    if torch.equal(stats_c[k], before[k]):
+        fail("the live BN's running statistics did not move")
+    del models, out
+    torch.cuda.empty_cache()
+
+
+def recorded_vote_nms(calls):
+    """A stand-in for ``postprocess.vote_nms`` that launches the kernel and
+    keeps a copy of each call's inputs, options and outputs in ``calls``."""
+    import radet_tpu_torch.models.postprocess as postprocess
+
+    kernel_nms = postprocess.vote_nms
+
+    def run(*args, **kw):
+        out = kernel_nms(*args, **kw)
+        calls.append(([a.clone() for a in args], kw, [t.clone() for t in out]))
+        return out
+
+    return kernel_nms, run
+
+
+def hold_to_plain(calls, what: str) -> float:
+    """The recorded kernel calls against the plain version in float64, those
+    of one K and the same options together; returns the max abs box error."""
+    groups = {}
+    for args, kw, out in calls:
+        groups.setdefault((args[0].shape[1], repr(kw)), []).append((args, kw, out))
+    err = 0.0
+    for (k, _), group in sorted(groups.items()):
+        args, kw = [torch.cat(t) for t in zip(*(a for a, _, _ in group))], group[0][1]
+        err = max(err, compare([torch.cat(t) for t in zip(*(o for _, _, o in group))], plain_reference(args, **kw),
+                               f"{what}: {len(group)} vote-NMS calls (B<={max(a[0].shape[0] for a, _, _ in group)}, "
+                               f"K={k}, {int(args[4].sum())} valid candidates), kernel vs plain in float64"))
+    return err
+
+
+def learning_phase(gpu: str):
+    """Phase 11c: ``python -m radet_tpu_torch.tools.validate_learning`` at its
+    defaults (RADet-R18 from scratch, live BN, 400 steps at batch 4,
+    128x160, then the strict eval), in this process: mAP50 at least
+    LEARN_MIN_MAP50, its eval's first vote-NMS call held to the plain
+    version.  Returns (the kernel's launches, its max abs box error there)."""
+    import radet_tpu_torch.models.postprocess as postprocess
+    import radet_tpu_torch.ops.vote_nms_cuda as vnc
+    from radet_tpu_torch.tools import validate_learning
+    from radet_tpu_torch.utils import get_root_logger
+
+    calls = []
+    kernel_nms, postprocess.vote_nms = recorded_vote_nms(calls)
+    logs = LogLines()
+    get_root_logger().addHandler(logs)
+    vnc.LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        metrics = validate_learning.main([])
+    except SystemExit as e:
+        fail(f"validate_learning exited {e.code}: its mAP50 is below {LEARN_MIN_MAP50}")
+    finally:
+        postprocess.vote_nms = kernel_nms
+        get_root_logger().removeHandler(logs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = vnc.LAUNCHES
+    iters = [ln for ln in logs.lines if ln.startswith("iter ")]
+    print(f"learning: python -m radet_tpu_torch.tools.validate_learning (defaults: 400 steps, batch 4, 128x160, "
+          f"RADet-R18 from scratch, norm_eval=False, float32): mAP50 {metrics['bbox_mAP_50']:.4f}, mAP "
+          f"{metrics['bbox_mAP']:.4f}, {wall:.1f} s wall (scenes, training and eval); vote_nms kernel launches "
+          f"{launches} [{gpu}]")
+    for ln in iters[-2:]:
+        print(f"  {ln}")
+    if launches < 1 or len(calls) != launches:
+        fail(f"validate_learning's eval launched the vote_nms kernel {launches} times ({len(calls)} recorded)")
+    err = hold_to_plain(calls[:1], "validate_learning's eval, its first batch")
+    if metrics["bbox_mAP_50"] < LEARN_MIN_MAP50:
+        fail(f"validate_learning reached mAP50 {metrics['bbox_mAP_50']:.4f} < {LEARN_MIN_MAP50}")
+    del calls
+    return launches, err
+
+
+def sweep_phase(gpu: str, work: str):
+    """Phase 11d: ``python -m radet_tpu_torch.tools.run_bop_sweep --mode
+    test`` over the seven datasets, in this process, from a directory where
+    each config's ``data/<dataset>/`` holds SWEEP_IMAGES synthetic 480x640
+    PNG test images annotated with its dataset's class names (random
+    weights at full width, bf16; ``test_cfg.score_thr=0`` so that the
+    strict eval's candidates reach vote-NMS): every dataset ok, every BOP
+    submission's category ids that config's classes', its vote-NMS calls
+    held to the plain version.  Returns (the kernel's launches, its max abs
+    box error there)."""
+    import radet_tpu_torch.models.postprocess as postprocess
+    import radet_tpu_torch.ops.vote_nms_cuda as vnc
+    from radet_tpu_torch.tools import run_bop_sweep
+    from radet_tpu_torch.utils import Config
+    from synthetic_bop import write_bop_test_set
+
+    root = osp.join(work, "sweep")
+    rng = np.random.RandomState(SEED + 12)
+    named = {}
+    for ds in run_bop_sweep.DATASETS:
+        path = osp.join(run_bop_sweep.CONFIG_DIR, f"r50_{ds}_pbr.py")
+        cfg = Config.fromfile(path)
+        data_root = osp.join(root, cfg.data_root)
+        ann = write_bop_test_set(data_root, rng, ((SWEEP_IMAGES, (480, 640)),), list(cfg.CLASS_NAMES))
+        os.makedirs(osp.join(data_root, "detector_annotations"))
+        os.replace(ann, osp.join(data_root, "detector_annotations", "test_bop19.json"))
+        with open(osp.join(data_root, "detector_annotations", "test_bop19.json")) as f:
+            cats = json.load(f)["categories"]
+        targets = {str(c) for c in cfg.data.test.classes}
+        named[ds] = {c["id"] for c in cats if c["name"] in targets}
+    tested = []
+    real_test = run_bop_sweep.test_from_config
+
+    def recording(cfg, model, **kw):
+        dataset, results, metrics = real_test(cfg, model, **kw)
+        tested.append((dataset, results))
+        return dataset, results, metrics
+
+    calls = []
+    kernel_nms, postprocess.vote_nms = recorded_vote_nms(calls)
+    run_bop_sweep.test_from_config = recording
+    cwd = os.getcwd()
+    os.chdir(root)
+    vnc.LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        summary = run_bop_sweep.main(["--mode", "test", "--out", osp.join(root, "summary.json"), "--device",
+                                      "cuda", "--cfg-options", "test_cfg.score_thr=0.0"])
+    finally:
+        os.chdir(cwd)
+        run_bop_sweep.test_from_config = real_test
+        postprocess.vote_nms = kernel_nms
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = vnc.LAUNCHES
+    print(f"sweep: python -m radet_tpu_torch.tools.run_bop_sweep --mode test, seven datasets, {SWEEP_IMAGES} PNG "
+          f"images 480x640 each, random weights, full width, bf16: {wall:.1f} s wall; vote_nms kernel launches "
+          f"{launches} [{gpu}]")
+    for (ds, entry), (dataset, results) in zip(summary.items(), tested):
+        ids = {d["category_id"] for d in dataset.bop_det2json(results)}
+        print(f"  {ds}: {entry['status']}, {len(dataset.CLASSES)} classes, {sum(len(r['boxes']) for r in results)} "
+              f"detections, BOP category ids {sorted(ids)} (the config's: {sorted(named[ds])}), "
+              f"{entry['seconds']} s")
+        if entry["status"] != "ok" or not ids or not ids <= named[ds]:
+            fail(f"sweep: {ds} {entry.get('error', '')}: category ids {sorted(ids)} outside {sorted(named[ds])}")
+    if len(tested) != len(run_bop_sweep.DATASETS) or launches < len(tested) or len(calls) != launches:
+        fail(f"sweep: {len(tested)} datasets tested, {launches} kernel launches ({len(calls)} recorded)")
+    err = hold_to_plain(calls, "the sweep's evals")
+    del calls, tested
+    torch.cuda.empty_cache()
+    return launches, err
 
 
 def main() -> None:
@@ -2396,6 +2676,11 @@ def main() -> None:
         # 10. configs/bop's backbone zoo: inference, timing, parity, the CLIs
         zoo_launches = phase("zoo", zoo_phase, gpu, repo)
         phase("zoo CLIs", zoo_cli_phase, files, gpu, eval_opts, test_opts, repo)
+
+        # 11. live BatchNorm and checkpointing, the learning check, the BOP sweep
+        phase("live BN and with_cp", live_bn_phase, config, gpu)
+        learn_launches, learn_err = phase("validate_learning", learning_phase, gpu)
+        sweep_launches, sweep_err = phase("BOP sweep", sweep_phase, gpu, work)
     nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by, _ = nms_times[ANCHOR_MAIN_SHAPE]
 
     print(f"card: {gpu}; smoke {time.perf_counter() - start:.1f} s wall")
@@ -2412,6 +2697,9 @@ def main() -> None:
         "bound_by": bound_by,
         "library_ms": None,  # no PyTorch call computes vote-NMS
         "zoo_launches": zoo_launches,  # each zoo config's inference_detector run (phase 10)
+        # phase 11: validate_learning's eval and the BOP sweep's, each held to the plain version
+        "live_bn_launches": {"validate_learning": learn_launches, "run_bop_sweep": sweep_launches},
+        "live_bn_max_abs_err": {"validate_learning": learn_err, "run_bop_sweep": sweep_err},
     }, {
         "name": "batched_nms (vote_nms.cu, no-vote mode)",
         "route": "cuda",

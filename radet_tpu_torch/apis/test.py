@@ -64,8 +64,10 @@ def run_inference(
     infer_step=None,
 ) -> List[dict]:
     """Per-image detection dicts {boxes (M, 4), scores, labels, img_id} of
-    ``model`` (on its device, in eval mode) over ``dataset``, loaded by
-    ``num_workers`` threads (the config's ``data.workers_per_gpu``).
+    ``model`` (on its device; in eval mode for the run, so that live
+    BatchNorm uses its running statistics, and back in its mode after it)
+    over ``dataset``, loaded by ``num_workers`` threads (the config's
+    ``data.workers_per_gpu``).
 
     ``infer_step``: a step from ``apis.common.build_infer_for_cfg`` to use
     (periodic eval builds it once); without it, RADet's step of
@@ -97,22 +99,27 @@ def run_inference(
         n_images += len(img_ids)
 
     pending = None
-    for bi, batch in enumerate(loader):
-        staged = [torch.from_numpy(batch[k]) for k in ("image", "img_shape", "scale_factor")]
-        if cuda:
-            staged = [t.pin_memory() for t in staged]
-        det = infer(model, *staged)
-        host = [t.to("cpu", non_blocking=True) for t in (det.boxes, det.scores, det.labels, det.valid)]
-        ready = None
-        if cuda:
-            ready = torch.cuda.Event()
-            ready.record()
-        if pending is not None:
-            drain(*pending)
-        pending = (host, ready, batch["img_id"])
-        if (bi + 1) % LOG_INTERVAL == 0:
-            ips = max(n_images, 1) / (time.time() - t_start)
-            logger.info(f"inference: {n_images}/{len(dataset)} images ({ips:.1f} img/s)")
+    training = model.training
+    model.eval()
+    try:
+        for bi, batch in enumerate(loader):
+            staged = [torch.from_numpy(batch[k]) for k in ("image", "img_shape", "scale_factor")]
+            if cuda:
+                staged = [t.pin_memory() for t in staged]
+            det = infer(model, *staged)
+            host = [t.to("cpu", non_blocking=True) for t in (det.boxes, det.scores, det.labels, det.valid)]
+            ready = None
+            if cuda:
+                ready = torch.cuda.Event()
+                ready.record()
+            if pending is not None:
+                drain(*pending)
+            pending = (host, ready, batch["img_id"])
+            if (bi + 1) % LOG_INTERVAL == 0:
+                ips = max(n_images, 1) / (time.time() - t_start)
+                logger.info(f"inference: {n_images}/{len(dataset)} images ({ips:.1f} img/s)")
+    finally:
+        model.train(training)
     if pending is not None:
         drain(*pending)
     dt = time.time() - t_start

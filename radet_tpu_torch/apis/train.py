@@ -244,8 +244,8 @@ def _run_eval(cfg, model, anchors, counts, logger, cache):
     """COCO bbox metrics of ``model`` on ``cfg.data.val`` with the config's
     test_cfg, or None (with a warning) when the val data cannot be read.
     The dataset and the inference step are built at the first call and kept
-    in ``cache``; the model is in eval mode for the run and back in train
-    mode after it."""
+    in ``cache``; ``run_inference`` puts the model in eval mode for the run
+    and back in train mode after it."""
     if "dataset" not in cache:
         try:
             cache["dataset"] = build_dataset(cfg, "val")
@@ -253,17 +253,13 @@ def _run_eval(cfg, model, anchors, counts, logger, cache):
             logger.warning(f"skipping eval: {err}")
             return None
         cache["infer"] = build_infer_for_cfg(cfg, model, anchors, counts)
-    model.eval()
-    try:
-        results = run_inference(
-            model, cache["dataset"], anchors=anchors, level_counts=counts,
-            img_norm=cfg.img_norm_cfg.to_dict(), test_cfg=cfg.test_cfg.to_dict(),
-            batch_size=int(cfg.data.get("samples_per_gpu", 8)),
-            num_workers=int(cfg.data.get("workers_per_gpu", 8)), normalizer=normalizer_from_cfg(cfg),
-            infer_step=cache["infer"],
-        )
-    finally:
-        model.train()
+    results = run_inference(
+        model, cache["dataset"], anchors=anchors, level_counts=counts,
+        img_norm=cfg.img_norm_cfg.to_dict(), test_cfg=cfg.test_cfg.to_dict(),
+        batch_size=int(cfg.data.get("samples_per_gpu", 8)),
+        num_workers=int(cfg.data.get("workers_per_gpu", 8)), normalizer=normalizer_from_cfg(cfg),
+        infer_step=cache["infer"],
+    )
     metrics = evaluate_results(cache["dataset"], results)
     logger.info("eval: " + " ".join(f"{k} {v:.4f}" for k, v in metrics.items()))
     return metrics

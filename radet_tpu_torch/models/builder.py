@@ -21,7 +21,6 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.bf
 
 _OTHER_FAMILIES = "ROADMAP.md Queue 1 item 12, other families"
 _INT8 = "ROADMAP.md Queue 1 item 14, int8 deploy family"
-_TRAINING = "ROADMAP.md Queue 1 item 18, live BatchNorm and checkpointing"
 
 
 def _require(ok: bool, what: str, item: str) -> None:
@@ -56,7 +55,10 @@ def build_backbone(backbone: Dict[str, Any]):
     defaults: ``deep_stem`` and ``avg_down`` on for ResNetV1d, Res2Net and
     ResNeSt; ``groups`` read for ResNeXt and ResNeSt only; ``base_width``
     26 for Res2Net, else 4; ``scales`` 4 (Res2Net) and ``radix`` 2
-    (ResNeSt); RegNet's ``arch`` a named preset (its ``depth`` unread)."""
+    (ResNeSt); RegNet's ``arch`` a named preset (its ``depth`` unread).
+    ``norm_eval`` and ``with_cp`` reach every trunk (the JAX package's
+    RegNet reads no ``with_cp``: checkpointing changes no number, only
+    memory and time)."""
     btype = backbone.get("type", "ResNet")
     _require(btype not in _EXTRA_BACKBONES, f"backbone type {btype!r}", _OTHER_FAMILIES)
     if btype not in _BACKBONES:
@@ -64,11 +66,11 @@ def build_backbone(backbone: Dict[str, Any]):
     _require(not backbone.get("stem_s2d"), "backbone.stem_s2d", _OTHER_FAMILIES)
     for key in ("quant", "qat", "frozen_int8"):
         _require(not backbone.get(key), f"backbone.{key}", _INT8)
-    _require(not backbone.get("with_cp"), "backbone.with_cp (gradient checkpointing)", _TRAINING)
     common = dict(
         out_indices=tuple(backbone.get("out_indices", (0, 1, 2, 3))),
         frozen_stages=backbone.get("frozen_stages", 1),
         norm_eval=backbone.get("norm_eval", True),
+        with_cp=bool(backbone.get("with_cp", False)),
     )
     if btype == "RegNet":
         return RegNet(arch=backbone["arch"], **common)

@@ -3,9 +3,13 @@
 ResNet at depths 18, 34, 50, 101 and 152, with ResNetV1d's deep stem and
 avg-down residual path, ResNeXt's grouped 3x3, Res2Net's ``Bottle2neck``
 and ResNeSt's split-attention bottleneck; and RegNetX
-(:class:`RegNet`).  'pytorch' style (stride on the 3x3 conv), BatchNorm
-frozen to its running statistics (mmcv ``norm_eval=True``; the reference
-never updates BN while training a detector).  Parameter names follow
+(:class:`RegNet`).  'pytorch' style (stride on the 3x3 conv).  BatchNorm
+is frozen to its running statistics by default (mmcv ``norm_eval=True``;
+the reference never updates BN while training a detector); with
+``norm_eval=False`` it normalizes with batch statistics in training mode
+and updates its running statistics, in every stage, frozen or not, as the
+JAX package does.  ``with_cp`` checkpoints every residual block (flax's
+``nn.remat``).  Parameter names follow
 mmdet (``layer1.0.conv1.weight``, ``stem.3.weight``,
 ``layer2.0.convs.1.weight``, ``layer1.0.conv2.fc1.bias``,
 ``layer1.0.downsample.1.running_var``), so a released checkpoint loads
@@ -14,13 +18,16 @@ with ``strict=True``.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .layers import Conv2d, normal_, trunc_normal_
 
@@ -75,29 +82,66 @@ def regnet_stage_params(arch: dict, divisor: int = 8):
     return out_widths, stage_blocks, bot_widths, groups
 
 
-class FrozenBatchNorm(nn.Module):
-    """BatchNorm applying its running statistics as a fixed affine, eps 1e-5
-    (counterpart of ``FrozenAwareBN``).  ``weight``/``bias`` stay parameters
-    (trainable under norm_eval); mean and variance are buffers."""
+_RECOMPUTE = threading.local()
+
+
+@contextlib.contextmanager
+def _recomputing():
+    """The context of a checkpointed block's recompute in backward: its
+    BatchNorms leave their running statistics alone, so that a step updates
+    them once (flax's ``nn.remat`` keeps the primal forward's mutation only)."""
+    _RECOMPUTE.active = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.active = False
+
+
+def _checkpoint_contexts():
+    return contextlib.nullcontext(), _recomputing()
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm with eps 1e-5 (counterpart of ``FrozenAwareBN``).
+
+    With ``norm_eval`` (mmcv's default, set by the backbone) it applies its
+    running statistics as a fixed affine in training and eval alike.
+    Without it, in training mode, it normalizes with the batch's statistics
+    over (N, H, W) in float32 at least (mean and E[x^2] - mean^2 clipped at
+    0, as flax's ``_compute_stats``) and updates ``running = 0.9 running +
+    0.1 batch`` with the biased variance (flax's ``momentum=0.9``; not
+    ``torch.nn.BatchNorm2d``'s unbiased one).  ``weight``/``bias`` are
+    parameters; mean and variance are buffers."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
+        self.norm_eval = True
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
-        # mmdet checkpoints carry BatchNorm's step counter; frozen statistics
-        # never use it
+        # mmdet checkpoints carry BatchNorm's step counter; flax keeps none
         state_dict.pop(prefix + "num_batches_tracked", None)
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def forward(self, x):
-        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
-        shift = self.bias - self.running_mean * scale
-        return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+        if self.norm_eval or not self.training:
+            scale = self.weight * torch.rsqrt(self.running_var + self.eps)
+            shift = self.bias - self.running_mean * scale
+            return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean((0, 2, 3))
+        var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp(min=0.0)
+        if not getattr(_RECOMPUTE, "active", False):
+            with torch.no_grad():
+                self.running_mean.mul_(0.9).add_(0.1 * mean)
+                self.running_var.mul_(0.9).add_(0.1 * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
 
 
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1, groups: int = 1) -> Conv2d:
@@ -114,7 +158,7 @@ class Downsample(nn.Sequential):
     the identity, held here as ``nn.Identity``)."""
 
     def __init__(self, cin: int, cout: int, stride: int, avg_down: bool = False):
-        mods = [_conv(cin, cout, 1, 1 if avg_down else stride), FrozenBatchNorm(cout)]
+        mods = [_conv(cin, cout, 1, 1 if avg_down else stride), BatchNorm(cout)]
         if avg_down:
             pool = nn.AvgPool2d(stride, stride, ceil_mode=True, count_include_pad=False)
             mods.insert(0, pool if stride > 1 else nn.Identity())
@@ -141,9 +185,9 @@ class BasicBlock(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: Optional[nn.Module] = None):
         super().__init__()
         self.conv1 = _conv(inplanes, planes, 3, stride)
-        self.bn1 = FrozenBatchNorm(planes)
+        self.bn1 = BatchNorm(planes)
         self.conv2 = _conv(planes, planes, 3)
-        self.bn2 = FrozenBatchNorm(planes)
+        self.bn2 = BatchNorm(planes)
         self.downsample = downsample
 
     def forward(self, x):
@@ -162,11 +206,11 @@ class Bottleneck(nn.Module):
         width = width or planes
         out = planes * expansion
         self.conv1 = _conv(inplanes, width, 1)
-        self.bn1 = FrozenBatchNorm(width)
+        self.bn1 = BatchNorm(width)
         self.conv2 = _conv(width, width, 3, stride, groups)
-        self.bn2 = FrozenBatchNorm(width)
+        self.bn2 = BatchNorm(width)
         self.conv3 = _conv(width, out, 1)
-        self.bn3 = FrozenBatchNorm(out)
+        self.bn3 = BatchNorm(out)
         self.downsample = downsample
 
     def forward(self, x):
@@ -189,12 +233,12 @@ class Bottle2neck(nn.Module):
         width = planes * base_width // 64
         self.width, self.stage = width, downsample is not None
         self.conv1 = _conv(inplanes, width * scales, 1)
-        self.bn1 = FrozenBatchNorm(width * scales)
+        self.bn1 = BatchNorm(width * scales)
         self.convs = nn.ModuleList(_conv(width, width, 3, stride) for _ in range(scales - 1))
-        self.bns = nn.ModuleList(FrozenBatchNorm(width) for _ in range(scales - 1))
+        self.bns = nn.ModuleList(BatchNorm(width) for _ in range(scales - 1))
         self.pool = nn.AvgPool2d(3, stride, 1) if self.stage and stride != 1 else None
         self.conv3 = _conv(width * scales, planes * 4, 1)
-        self.bn3 = FrozenBatchNorm(planes * 4)
+        self.bn3 = BatchNorm(planes * 4)
         self.downsample = downsample
 
     def forward(self, x):
@@ -225,9 +269,9 @@ class SplitAttentionConv(nn.Module):
         inter = max(channels * radix // reduction_factor, 32)
         self.radix, self.groups = radix, groups
         self.conv = _conv(channels, channels * radix, 3, stride, groups * radix)
-        self.bn0 = FrozenBatchNorm(channels * radix)
+        self.bn0 = BatchNorm(channels * radix)
         self.fc1 = Conv2d(channels, inter, 1, groups=groups)
-        self.bn1 = FrozenBatchNorm(inter)
+        self.bn1 = BatchNorm(inter)
         self.fc2 = Conv2d(inter, channels * radix, 1, groups=groups)
 
     def forward(self, x):
@@ -253,11 +297,11 @@ class SplitAttentionBottleneck(nn.Module):
         width = planes if groups == 1 else (planes * base_width // 64) * groups
         avd = avg_down_stride and stride > 1
         self.conv1 = _conv(inplanes, width, 1)
-        self.bn1 = FrozenBatchNorm(width)
+        self.bn1 = BatchNorm(width)
         self.conv2 = SplitAttentionConv(width, 1 if avd else stride, groups, radix, reduction_factor)
         self.avd_layer = nn.AvgPool2d(3, stride, 1) if avd else None
         self.conv3 = _conv(width, planes * 4, 1)
-        self.bn3 = FrozenBatchNorm(planes * 4)
+        self.bn3 = BatchNorm(planes * 4)
         self.downsample = downsample
 
     def forward(self, x):
@@ -273,17 +317,17 @@ class _Backbone(nn.Module):
     32), NCHW, their widths in ``out_channels``."""
 
     def _finish(self, stage_widths: Sequence[int], out_indices, frozen_stages: int, norm_eval: bool,
-                stem: Sequence[nn.Module]) -> None:
-        if not norm_eval:
-            raise NotImplementedError(
-                "norm_eval=False updates BatchNorm statistics while training "
-                "(ROADMAP.md Queue 1 item 18, live BatchNorm and checkpointing)"
-            )
+                with_cp: bool, stem: Sequence[nn.Module]) -> None:
         self.num_stages = len(stage_widths)
         self.out_indices = tuple(out_indices)
         self.out_channels = [stage_widths[i] for i in self.out_indices]
-        # mmdet _freeze_stages: the stem and the first ``frozen_stages``
-        # stages take no gradient
+        self.with_cp = with_cp
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                m.norm_eval = norm_eval
+        # the stem and the first ``frozen_stages`` stages take no gradient;
+        # their BatchNorms follow the module's mode all the same (the JAX
+        # package's stop_gradient and optimizer mask, not mmdet's eval())
         frozen = list(stem) if frozen_stages >= 0 else []
         frozen += [getattr(self, f"layer{i}") for i in range(1, frozen_stages + 1)]
         for m in frozen:
@@ -303,7 +347,7 @@ class _Backbone(nn.Module):
                                   generator)
                     with torch.no_grad():
                         m.bias.zero_()
-            elif isinstance(m, FrozenBatchNorm):
+            elif isinstance(m, BatchNorm):
                 with torch.no_grad():
                     m.weight.fill_(1.0)
                     m.bias.zero_()
@@ -312,9 +356,12 @@ class _Backbone(nn.Module):
 
     def forward(self, x):
         x = self.forward_stem(x)
+        # with_cp: each block's activations are recomputed in backward
+        cp = self.with_cp and self.training and torch.is_grad_enabled()
         outs = []
         for i in range(self.num_stages):
-            x = getattr(self, f"layer{i + 1}")(x)
+            for block in getattr(self, f"layer{i + 1}"):
+                x = checkpoint(block, x, use_reentrant=False, context_fn=_checkpoint_contexts) if cp else block(x)
             if i in self.out_indices:
                 outs.append(x)
         return tuple(outs)
@@ -341,6 +388,7 @@ class ResNet(_Backbone):
         radix: int = 0,
         reduction_factor: int = 4,
         avg_down_stride: bool = True,
+        with_cp: bool = False,
     ):
         super().__init__()
         if depth not in ARCH:
@@ -352,11 +400,11 @@ class ResNet(_Backbone):
         if deep_stem:
             stem = []
             for cin, cout, stride in ((3, 32, 2), (32, 32, 1), (32, 64, 1)):
-                stem += [_conv(cin, cout, 3, stride), FrozenBatchNorm(cout), nn.ReLU()]
+                stem += [_conv(cin, cout, 3, stride), BatchNorm(cout), nn.ReLU()]
             self.stem = nn.Sequential(*stem)
         else:
             self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-            self.bn1 = FrozenBatchNorm(64)
+            self.bn1 = BatchNorm(64)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         expansion = 1 if kind == "basic" else 4
 
@@ -383,7 +431,7 @@ class ResNet(_Backbone):
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
             inplanes = out
             widths.append(out)
-        self._finish(widths, out_indices, frozen_stages, norm_eval,
+        self._finish(widths, out_indices, frozen_stages, norm_eval, with_cp,
                      [self.stem] if deep_stem else [self.conv1, self.bn1])
 
     def forward_stem(self, x):
@@ -403,20 +451,21 @@ class RegNet(_Backbone):
         frozen_stages: int = 1,
         norm_eval: bool = True,
         stem_channels: int = 32,
+        with_cp: bool = False,
     ):
         super().__init__()
         if not isinstance(arch, str) or arch not in REGNET_ARCH:
             raise ValueError(f"RegNet arch must be a named preset, one of {sorted(REGNET_ARCH)}; got {arch!r}")
         widths, stage_blocks, bot_widths, groups = regnet_stage_params(REGNET_ARCH[arch])
         self.conv1 = _conv(3, stem_channels, 3, 2)
-        self.bn1 = FrozenBatchNorm(stem_channels)
+        self.bn1 = BatchNorm(stem_channels)
         inplanes = stem_channels
         for i, (w, n, wb, g) in enumerate(zip(widths, stage_blocks, bot_widths, groups)):
             blocks = [Bottleneck(inplanes, w, 2, Downsample(inplanes, w, 2), g, wb, expansion=1)]
             blocks += [Bottleneck(w, w, 1, None, g, wb, expansion=1) for _ in range(n - 1)]
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
             inplanes = w
-        self._finish(widths, out_indices, frozen_stages, norm_eval, [self.conv1, self.bn1])
+        self._finish(widths, out_indices, frozen_stages, norm_eval, with_cp, [self.conv1, self.bn1])
 
     def forward_stem(self, x):
         return F.relu(self.bn1(self.conv1(x)))

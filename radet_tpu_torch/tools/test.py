@@ -30,6 +30,7 @@ from ..utils.logging import get_root_logger
 
 _SHOW = "ROADMAP.md Queue 1 item 15, tools"
 _FUSE = "ROADMAP.md Queue 1 item 12, models/fuse.py"
+_MULTI_GPU = "ROADMAP.md Queue 1 item 13, multi-GPU"
 
 
 def parse_args(argv=None):
@@ -49,15 +50,27 @@ def parse_args(argv=None):
     p.add_argument("--eval-options", "--options", nargs="+", default=None,
                    help="evaluation kwargs as key=value, e.g. classwise=True")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    # --show before --show-dir, which it would otherwise abbreviate
+    p.add_argument("--show", action="store_true", help=f"not ported ({_SHOW})")
     p.add_argument("--show-dir", default=None, help=f"not ported ({_SHOW})")
+    p.add_argument("--show-score-thr", type=float, default=0.3)
     p.add_argument("--fuse-conv-bn", action="store_true", help=f"not ported ({_FUSE})")
+    # the reference CLI's launcher flags: one process, results gathered in it
+    for flag in ("--gpu-collect", "--shuffle"):
+        p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--tmpdir", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--launcher", default="none", help=f"only 'none' ({_MULTI_GPU})")
+    p.add_argument("--local_rank", type=int, default=0, help=argparse.SUPPRESS)
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.show_dir:
-        raise NotImplementedError(f"--show-dir is not ported ({_SHOW})")
+    for flag, given in (("--show", args.show), ("--show-dir", args.show_dir)):
+        if given:
+            raise NotImplementedError(f"{flag} is not ported ({_SHOW})")
+    if args.launcher != "none":
+        raise NotImplementedError(f"--launcher {args.launcher} is not ported ({_MULTI_GPU})")
     if args.fuse_conv_bn:
         raise NotImplementedError(f"--fuse-conv-bn is not ported ({_FUSE})")
     device = torch.device(args.device)

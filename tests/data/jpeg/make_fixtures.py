@@ -22,6 +22,7 @@ import numpy as np
 
 HERE = osp.dirname(osp.abspath(__file__))
 sys.path.insert(0, osp.dirname(osp.dirname(HERE)))
+sys.path.insert(0, osp.dirname(osp.dirname(osp.dirname(HERE))))  # radet_tpu_torch, for synthetic_bop
 from synthetic_bop import JPEG_FIXTURE_SEED, synthetic_bop_records  # noqa: E402
 
 # name: (record, gray, cv2.imwrite parameters)

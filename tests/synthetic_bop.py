@@ -1,17 +1,18 @@
 """Synthetic BOP data without cv2 or JAX, shared by the port's tests
 (tests/test_torch_*.py) and its card script (chip_smoke.py): in-memory
-training records of filled rectangles, an 8-bit PNG writer whose rows cycle
-through all five PNG filters, a BOP test split written with it, a BOP
-training split of given JPEG files with ``mask_visib`` PNGs, and a config
-that trains the flagship (or its mixpbr fine-tune) from such splits."""
+training records of filled rectangles, the package's 8-bit PNG writer
+(rows cycling through all five PNG filters), a BOP test split written with
+it, a BOP training split of given JPEG files with ``mask_visib`` PNGs, and
+a config that trains the flagship (or its mixpbr fine-tune) from such
+splits."""
 
 import json
 import os
 import os.path as osp
-import struct
-import zlib
 
 import numpy as np
+
+from radet_tpu_torch.data.synthetic import write_png  # noqa: F401  (the test data's PNG writer)
 
 # tests/data/jpeg: JPEG files written by cv2 (make_fixtures.py) from the
 # first records of synthetic_bop_records(RandomState(JPEG_FIXTURE_SEED), ...)
@@ -45,38 +46,6 @@ def synthetic_bop_records(rng, n, hw, num_classes=21, max_objects=6):
         records.append(dict(img=img, gt_bboxes=np.asarray(boxes, np.float32),
                             gt_labels=np.asarray(labels, np.int64), gt_masks=np.stack(masks)))
     return records
-
-
-def write_png(path: str, img: np.ndarray, level: int = 1) -> None:
-    """A uint8 (H, W) gray, (H, W, 3) RGB or (H, W, 4) RGBA image as an
-    8-bit PNG whose row y uses filter type y % 5 (None, Sub, Up, Average,
-    Paeth), so that a decoder of these files meets every filter."""
-    h, w = img.shape[:2]
-    ch = 1 if img.ndim == 2 else img.shape[2]
-    x = img.reshape(h, w * ch).astype(np.int16)
-    left = np.zeros_like(x)
-    left[:, ch:] = x[:, :-ch]
-    up = np.zeros_like(x)
-    up[1:] = x[:-1]
-    upleft = np.zeros_like(x)
-    upleft[1:, ch:] = x[:-1, :-ch]
-    p = left + up - upleft
-    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
-    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
-    predictions = (0, left, up, (left + up) >> 1, paeth)
-    kind = np.arange(h) % 5
-    rows = np.empty((h, w * ch + 1), np.uint8)
-    rows[:, 0] = kind
-    for f, pred in enumerate(predictions):
-        rows[kind == f, 1:] = ((x - pred) & 255)[kind == f]
-
-    def chunk(tag: bytes, body: bytes) -> bytes:
-        return struct.pack(">I", len(body)) + tag + body + struct.pack(">I", zlib.crc32(tag + body))
-
-    header = struct.pack(">IIBBBBB", w, h, 8, {1: 0, 3: 2, 4: 6}[ch], 0, 0, 0)
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
-                + chunk(b"IDAT", zlib.compress(rows.tobytes(), level)) + chunk(b"IEND", b""))
 
 
 def write_bop_test_set(root: str, rng, groups, class_names, max_objects: int = 6) -> str:

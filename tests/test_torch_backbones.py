@@ -18,7 +18,8 @@ carried across by ``state_dict_from_flax`` (``strict=True``).  Within
 - ``state_dict_from_flax`` then ``convert_mmdet_detector`` gives back each
   variant's flax tree, and the other way round; every builder type and
   depth maps onto the JAX package's variables;
-- what is still unported raises naming its ROADMAP item.
+- what is still unported raises naming its ROADMAP item; ``with_cp``
+  builds with the plain build's parameter names.
 """
 
 import os.path as osp
@@ -266,7 +267,7 @@ def test_builder_types_map_onto_jax_variables(backbone):
     assert widths == port.backbone.out_channels[1:]
 
 
-ITEM12, ITEM14, ITEM18 = "item 12", "item 14", "item 18"
+ITEM12, ITEM14 = "item 12", "item 14"
 
 
 @pytest.mark.parametrize("change,item", [
@@ -277,8 +278,6 @@ ITEM12, ITEM14, ITEM18 = "item 12", "item 14", "item 18"
     (dict(backbone=dict(type="DetectoRS_ResNeXt", depth=50)), ITEM12),
     (dict(neck=dict(type="ChannelMapper", out_channels=32)), ITEM12),
     (dict(neck=dict(type="FPN", out_channels=32, add_extra_convs="on_lateral")), ITEM12),
-    (dict(backbone=dict(type="ResNet", depth=50, with_cp=True)), ITEM18),
-    (dict(backbone=dict(type="ResNeXt", depth=50, groups=32, with_cp=True)), ITEM18),
     (dict(backbone=dict(type="ResNet", depth=50, quant="int8")), ITEM14),
     (dict(backbone=dict(type="ResNet", depth=50, quant="int8", qat=True)), ITEM14),
     (dict(backbone=dict(type="ResNet", depth=50, frozen_int8=True)), ITEM14),
@@ -288,6 +287,18 @@ def test_unported_variants_raise_naming_their_item(change, item):
     model_cfg = {**_small_model(dict(type="ResNet", depth=50)), **change}
     with pytest.raises(NotImplementedError, match=item):
         build_detector(model_cfg)
+
+
+@pytest.mark.parametrize("backbone", [dict(type="ResNet", depth=50), dict(type="ResNeXt", depth=50, groups=32)],
+                         ids=lambda b: b["type"])
+def test_with_cp_builds_with_the_plain_parameter_names(backbone):
+    """``with_cp`` (ported: checkpointed blocks) changes no parameter, as
+    flax's ``nn.remat`` keeps the variable tree."""
+    model_cfg = _small_model(backbone)
+    plain = build_detector(model_cfg)
+    cp = build_detector({**model_cfg, "backbone": dict(backbone, with_cp=True)})
+    assert cp.backbone.with_cp and not plain.backbone.with_cp
+    assert [k for k, _ in cp.named_parameters()] == [k for k, _ in plain.named_parameters()]
 
 
 def test_regnet_arch_must_be_a_named_preset():
