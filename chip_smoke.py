@@ -119,7 +119,21 @@ Run from the repository root, with one card:  python3 chip_smoke.py
    least 0.5, or the smoke fails) and ``python -m
    radet_tpu_torch.tools.run_bop_sweep --mode test`` over the seven BOP
    datasets' synthetic PNG sets (each BOP submission's category ids that
-   config's), both evals' vote-NMS calls held to the plain version.  Each
+   config's), both evals' vote-NMS calls held to the plain version;
+12. runs the measuring and deploy tools, each CLI in its own process at
+   full width: vote-NMS through its operator against the kernel's wrapper
+   alone at ``DISPATCH_SHAPES`` (the operator's dispatch cost); ``python -m
+   radet_tpu_torch.tools.get_flops`` (32,159,327 parameters, the FLOPs
+   equal to the same tool's CPU count); ``tools.profile_infer`` at batch
+   128 and 8 (time by module, top kernels with vote-NMS's three under
+   ``postprocess``, the roofline bound and the busy share);
+   ``tools.profile_train`` at batch 16 (the step, its parts, its MFU);
+   ``tools.export_model --verify`` at batch 8 in bf16, the program loaded
+   in a fresh process and run on the main path's images (launches counted
+   per call, outputs held to the eager step, both timed);
+   ``tools.eval_metric`` on the phase-5 test CLI's ``--out`` pickle (its
+   metrics equal to the CLI's); ``tools.profile_pipeline`` for the train
+   and test pipelines at 1 and 4 workers, threads and processes.  Each
    phase prints its wall time.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
@@ -130,6 +144,7 @@ script exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import logging
 import math
@@ -243,11 +258,10 @@ def fail(msg: str) -> None:
 
 
 def card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    return out.stdout.strip()
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    from radet_tpu_torch.utils.profiling import card as nvidia_smi_card
+
+    return nvidia_smi_card()
 
 
 def clustered_candidates(rng, b, k, num_labels=5):
@@ -1536,7 +1550,7 @@ def eval_phases(config: str, gpu: str, work: str):
     # the test CLI, strict by default, in its own process
     out = osp.join(work, "eval")
     cmd = [sys.executable, "-m", "radet_tpu_torch.tools.test", config, ckpt, "--eval", "bbox",
-           "--format-only", "--json-prefix", out, "--cfg-options", *opts]
+           "--format-only", "--json-prefix", out, "--out", out + ".pkl", "--cfg-options", *opts]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, cwd=str(Path(__file__).resolve().parent),
                           timeout=900)
@@ -1544,6 +1558,8 @@ def eval_phases(config: str, gpu: str, work: str):
     if proc.returncode != 0:
         fail(f"the test CLI exited {proc.returncode}:\n{proc.stderr[-3000:]}")
     cli_metrics = json.loads(proc.stdout[proc.stdout.index("{"):])
+    with open(out + ".metrics.json", "w") as f:  # phase 12 holds eval_metric on eval.pkl to them
+        json.dump(cli_metrics, f)
     cli_launches = sum(int(n) for n in re.findall(r"vote_nms kernel launches (\d+)", proc.stderr))
     with open(out + ".bbox.json") as f:
         bbox_json = json.load(f)
@@ -2499,6 +2515,252 @@ def sweep_phase(gpu: str, work: str):
     return launches, err
 
 
+# phase 12: the measuring and deploy tools
+TOOL_TIMEOUT = 600  # s, each tool's process
+EXPORT_BATCH = 8
+EXPORT_CALLS = 3  # calls of the loaded program, each counted
+EXPORT_SCORE_ATOL = 1e-5  # exported vs eager step on the card, float32 scores (boxes: BOX_ATOL, BOX_TAIL)
+DISPATCH_SHAPES = ((8, 512), (8, 1024), (8, 2048), (16, 2048))
+PIPELINE_BATCH = 4  # the loader runs 6 batches per worker count and mode
+# a fresh process: load the exported program (importing the package registers
+# its NMS operators), run it on the saved images, count the kernel's launches
+# per call, time it by CUDA events and save its outputs
+EXPORT_RUN = r"""
+import json, sys
+import numpy as np, torch
+import radet_tpu_torch.ops.vote_nms_cuda as vnc
+from radet_tpu_torch.tools.export_model import load
+program = load(sys.argv[1])
+images = torch.from_numpy(np.load(sys.argv[2])).cuda()
+b, h, w, _ = images.shape
+shapes = torch.tensor([[h, w]] * b, dtype=torch.float32, device="cuda")
+scales = torch.ones((b, 4), dtype=torch.float32, device="cuda")
+launches = []
+with torch.inference_mode():
+    for _ in range(int(sys.argv[4])):
+        before = vnc.LAUNCHES
+        outs = program(images, shapes, scales)
+        torch.cuda.synchronize()
+        launches.append(vnc.LAUNCHES - before)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(20):
+        program(images, shapes, scales)
+    end.record()
+    torch.cuda.synchronize()
+np.savez(sys.argv[3], *[t.cpu().numpy() for t in outs])
+print(json.dumps(dict(launches=launches, ms=start.elapsed_time(end) / 20)))
+"""
+
+
+def tool_run(repo: Path, args, what: str):
+    """``python`` with ``args`` in its own process from the repository root;
+    returns (stdout, stderr, wall s) or fails."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *map(str, args)], capture_output=True, text=True, cwd=str(repo),
+                          timeout=TOOL_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"{what} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    return proc.stdout, proc.stderr, wall
+
+
+def last_json(text: str) -> dict:
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def flops_tool(config: str, gpu: str, repo: Path) -> None:
+    """``get_flops`` on the card at batch 1 against the same tool's count on
+    the CPU (in this process)."""
+    from radet_tpu_torch.tools import get_flops
+
+    out, _, wall = tool_run(repo, ["-m", "radet_tpu_torch.tools.get_flops", config], "get_flops")
+    m = re.search(r"count: (\d+) parameters, (\d+) FLOPs", out)
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu = get_flops.main([config, "--device", "cpu"])
+    print(f"tools: python -m radet_tpu_torch.tools.get_flops {CONFIG} (card, {wall:.1f} s):")
+    for ln in out.strip().splitlines():
+        print(f"  {ln}")
+    print(f"  the same tool on the CPU: {cpu['params']} parameters, {cpu['flops']} FLOPs")
+    if not m or (int(m.group(1)), int(m.group(2))) != (cpu["params"], cpu["flops"]) or cpu["params"] != 32159327:
+        fail("get_flops: the card's counts differ from the CPU's, or the parameters from 32159327")
+
+
+def infer_profile(config: str, gpu: str, repo: Path) -> dict:
+    """``profile_infer`` at batch 128 and 8: the by-module table, the top
+    kernels (vote-NMS's three under postprocess), the roofline and the busy
+    share.  Returns the batch-128 summary."""
+    import radet_tpu_torch.ops.vote_nms_cuda as vnc
+
+    summaries = {}
+    for batch in (128, 8):
+        out, _, wall = tool_run(repo, ["-m", "radet_tpu_torch.tools.profile_infer", "--config", config, "--batch",
+                                       batch, "--iters", 3, "--top", 1000], f"profile_infer --batch {batch}")
+        s = last_json(out)
+        summaries[batch] = s
+        print(f"tools: python -m radet_tpu_torch.tools.profile_infer --batch {batch} ({wall:.1f} s):")
+        lines = out.strip().splitlines()
+        start = next(i for i, ln in enumerate(lines) if ln.startswith("== inference step"))
+        stop = next(i for i, ln in enumerate(lines) if ln.startswith("-- top"))
+        for ln in lines[start:stop + 2] + lines[stop + 2:stop + 14]:
+            if ln.strip():
+                print(f"  {ln}")
+        nms = {k["name"]: k for k in s["top"] if any(n in k["name"] for n in vnc.CUDA_KERNELS)}
+        for k in nms.values():
+            print(f"  vote-NMS kernel {k['name'][:60]}: {k['ms']:.4f} ms per step under {k['module']}")
+        if {n for n in vnc.CUDA_KERNELS if any(n in name and k["module"] == "postprocess"
+                                               for name, k in nms.items())} != set(vnc.CUDA_KERNELS):
+            fail(f"profile_infer --batch {batch}: vote-NMS's CUDA kernels are not all under postprocess")
+        if abs(sum(m["share"] for m in s["by_module"].values()) - 1) > 1e-6 or not 0 < s["busy_share"] <= 1.05:
+            fail(f"profile_infer --batch {batch}: module shares or busy share out of range")
+        top = max(s["by_module"].items(), key=lambda kv: kv[1]["ms"])
+        print(f"  batch {batch}: {s['ms_per_iter']:.3f} ms per step wall, device {s['measured_ms']:.3f} ms, "
+              f"busy {s['busy_share']:.4f}, roofline bound {s['bound_ms']:.3f} ms "
+              f"({s['bound_ms'] / s['measured_ms']:.2%} of the device time), most time in {top[0]} "
+              f"({top[1]['share']:.1%}) [{gpu}]")
+    return summaries[128]
+
+
+def train_profile(gpu: str, repo: Path) -> dict:
+    out, _, wall = tool_run(repo, ["-m", "radet_tpu_torch.tools.profile_train", "--batch", 16, "--iters", 10],
+                            "profile_train")
+    s = json.loads(out[out.index("{"):])
+    print(f"tools: python -m radet_tpu_torch.tools.profile_train --batch 16 --iters 10 ({wall:.1f} s): step "
+          f"{s['step_ms']:.3f} ms ({s['img_per_s']:.1f} img/s), forward {s['fwd_ms']:.3f}, forward + loss "
+          f"{s['fwd_loss_ms']:.3f}, backward + update {s['bwd_opt_ms']:.3f}, assignment {s['assign_ms']:.3f} ms "
+          f"({s['assign_frac']:.2%}); {s['step_tflops']:.4f} TFLOP per step, MFU {s['mfu']:.4f} of "
+          f"{s['peak_tflops']} TFLOP/s [{s['device']}]")
+    if not 0 < s["mfu"] < 1 or abs(s["mfu"] - s["step_tflops"] / (s["step_ms"] / 1e3) / s["peak_tflops"]) > 1e-9:
+        fail("profile_train: MFU out of range or not step FLOPs / step time / peak")
+    return s
+
+
+def pipeline_profile(gpu: str, repo: Path) -> None:
+    for pipeline in ("train", "test"):
+        out, _, wall = tool_run(repo, ["-m", "radet_tpu_torch.tools.profile_pipeline", "--pipeline", pipeline,
+                                       "--samples", 16, "--workers", 1, 4, "--mode", "thread", "process",
+                                       "--batch", PIPELINE_BATCH],
+                                f"profile_pipeline --pipeline {pipeline}")
+        s = last_json(out)
+        print(f"tools: python -m radet_tpu_torch.tools.profile_pipeline --pipeline {pipeline} ({wall:.1f} s): "
+              f"{s['per_sample_ms']:.2f} ms per sample, {s['single_core_img_s']:.1f} img/s on one core, "
+              f"{s['cores_needed']:.2f} cores for {s['target_img_s']} img/s; loader img/s "
+              + ", ".join(f"{k} {v:.1f}" for k, v in s["loader_scaling"].items())
+              + f"; {s['host_cores']} host cores [host of {gpu}]")
+        print("  transforms, ms per sample: " + ", ".join(f"{k} {v:.2f}" for k, v in s["transforms"].items()))
+        if set(s["loader_scaling"]) != {"threadx1", "threadx4", "processx1", "processx4"}:
+            fail(f"profile_pipeline --pipeline {pipeline}: loader runs missing")
+
+
+def export_phase(config: str, gpu: str, repo: Path, work: str, images) -> list:
+    """``export_model --verify`` of the flagship at batch EXPORT_BATCH in bf16
+    (the eval phase's weights), the program loaded in a fresh process and
+    run on the main path's images, against the eager step in this process;
+    returns the kernel's launches per call of the loaded program."""
+    from radet_tpu_torch import init_detector
+
+    ckpt = osp.join(work, "random_cls0.pth")
+    pt2, npy, npz = (osp.join(work, f"export.{ext}") for ext in ("pt2", "npy", "npz"))
+    _, err, wall = tool_run(repo, ["-m", "radet_tpu_torch.tools.export_model", config, pt2, "--checkpoint", ckpt,
+                                   "--batch-size", EXPORT_BATCH, "--verify"], "export_model")
+    print(f"tools: python -m radet_tpu_torch.tools.export_model --batch-size {EXPORT_BATCH} --verify "
+          f"({wall:.1f} s):")
+    for ln in err.splitlines():
+        if "exported" in ln or "roundtrip" in ln:
+            print(f"  {ln.split(' - ')[-1]}")
+    np.save(npy, images)
+    out, _, wall = tool_run(repo, ["-c", EXPORT_RUN, pt2, npy, npz, EXPORT_CALLS], "the exported program's run")
+    run = last_json(out)
+    with np.load(npz) as f:
+        got = [f[f"arr_{i}"] for i in range(4)]
+    det = init_detector(config, ckpt, device="cuda")
+    dev = torch.device("cuda")
+    u8 = torch.from_numpy(images).to(dev)
+    b, h, w, _ = images.shape
+    shapes = torch.tensor([[h, w]] * b, dtype=torch.float32, device=dev)
+    scales = torch.ones((b, 4), dtype=torch.float32, device=dev)
+    eager = det._infer(det.model, u8, shapes, scales)
+    want = [t.cpu().numpy() for t in (eager.boxes, eager.scores, eager.labels, eager.valid)]
+    eager_ms = cuda_ms(lambda: det._infer(det.model, u8, shapes, scales), 20)
+    valid = want[3]
+    box_err = np.abs(got[0] - want[0])[valid]
+    score_err = float(np.abs(got[1] - want[1]).max(initial=0.0))
+    tail = float((box_err > BOX_ATOL).mean()) if box_err.size else 0.0
+    bits = all(np.array_equal(g, w_) for g, w_ in zip(got, want))
+    print(f"  loaded in a fresh process ({wall:.1f} s) and run on the main path's {b} images: "
+          f"{int(valid.sum())} detections, vote_nms kernel launches per call {run['launches']}; against the eager "
+          f"step: valid and labels equal {np.array_equal(got[3], valid) and np.array_equal(got[2], want[2])}, "
+          f"box max abs diff {box_err.max(initial=0.0):.3g} px, score max abs diff {score_err:.3g}, bit for bit "
+          f"equal {bits}")
+    print(f"timing: exported program batch {b} {run['ms']:.3f} ms/batch (fresh process), eager step "
+          f"{eager_ms:.3f} ms/batch (this process), uint8 on the card [{gpu}]")
+    if not np.array_equal(got[3], valid) or not np.array_equal(got[2], want[2]) or not valid.any():
+        fail("the exported program's valid or labels differ from the eager step's, or nothing was detected")
+    if score_err > EXPORT_SCORE_ATOL or tail > BOX_TAIL:
+        fail(f"the exported program's scores ({score_err:.3g}) or boxes ({tail:.4%} past {BOX_ATOL} px) differ")
+    if run["launches"] != [1] * EXPORT_CALLS:
+        fail(f"the exported program launched the vote_nms kernel {run['launches']} times in {EXPORT_CALLS} calls")
+    del det, eager
+    torch.cuda.empty_cache()
+    return run["launches"]
+
+
+def eval_metric_phase(config: str, repo: Path, work: str, test_opts) -> None:
+    """``eval_metric`` on the eval phase's test CLI pickle: its metrics."""
+    out, _, wall = tool_run(repo, ["-m", "radet_tpu_torch.tools.eval_metric", config, osp.join(work, "eval.pkl"),
+                                   "--cfg-options", *test_opts], "eval_metric")
+    got = json.loads(out[out.index("{"):])
+    with open(osp.join(work, "eval.metrics.json")) as f:
+        want = json.load(f)
+    print(f"tools: python -m radet_tpu_torch.tools.eval_metric on the test CLI's --out pickle ({wall:.1f} s): "
+          f"bbox_mAP {got['bbox_mAP']:.4f}, bbox_mAP_50 {got['bbox_mAP_50']:.4f}; equal to the test CLI's "
+          f"{len(want)} metrics: {got == want}")
+    if got != want:
+        fail("eval_metric's metrics differ from the test CLI's")
+
+
+def dispatch_timing(gpu: str) -> dict:
+    """vote-NMS through its operator (``ops.vote_nms.vote_nms``, the path's
+    route) against the kernel's wrapper called directly, in turns, at
+    DISPATCH_SHAPES, under ``torch.inference_mode`` as the inference step
+    calls it: what the operator's dispatch costs per call."""
+    import radet_tpu_torch.ops.vote_nms_cuda as vnc
+    from radet_tpu_torch.ops.vote_nms import vote_nms
+
+    rng = np.random.RandomState(SEED + 13)
+    dev = torch.device("cuda")
+    kw = dict(iou_threshold=0.65, max_out=100, iou_enable=False, sigma=0.025, global_mode=False)
+    out = {}
+    for b, k in DISPATCH_SHAPES:
+        arrays = [torch.from_numpy(a).to(dev) for a in clustered_candidates(rng, b, k)]
+        if not all(torch.equal(x, y) for x, y in zip(vote_nms(*arrays, **kw), vnc.vote_nms_cuda(*arrays, **kw))):
+            fail(f"B={b} K={k}: the operator and the wrapper differ")
+        with torch.inference_mode():
+            op_ms, wrapper_ms, op_runs, wrapper_runs = alternate_ms(
+                lambda: vote_nms(*arrays, **kw), lambda: vnc.vote_nms_cuda(*arrays, **kw), 50, 50)
+        out[f"{b}x{k}"] = dict(op_ms=op_ms, wrapper_ms=wrapper_ms)
+        print(f"timing: vote_nms B={b} K={k}: through the operator {op_ms:.4f} ms (runs "
+              f"{', '.join(f'{x:.4f}' for x in op_runs)}), the wrapper alone {wrapper_ms:.4f} ms (runs "
+              f"{', '.join(f'{x:.4f}' for x in wrapper_runs)}) [{gpu}]")
+    return out
+
+
+def tools_phase(config: str, gpu: str, repo: Path, work: str, test_opts, images) -> tuple:
+    """Phase 12: each tool's CLI in its own process at full width on the
+    card (get_flops, profile_infer, profile_train, profile_pipeline,
+    export_model and its program in a fresh process, eval_metric), and the
+    operator's dispatch cost.  Returns (the exported program's launches per
+    call, the dispatch timings)."""
+    dispatch = dispatch_timing(gpu)
+    flops_tool(config, gpu, repo)
+    infer_profile(config, gpu, repo)
+    train_profile(gpu, repo)
+    export_launches = export_phase(config, gpu, repo, work, images)
+    eval_metric_phase(config, repo, work, test_opts)
+    pipeline_profile(gpu, repo)
+    return export_launches, dispatch
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -2681,6 +2943,10 @@ def main() -> None:
         phase("live BN and with_cp", live_bn_phase, config, gpu)
         learn_launches, learn_err = phase("validate_learning", learning_phase, gpu)
         sweep_launches, sweep_err = phase("BOP sweep", sweep_phase, gpu, work)
+
+        # 12. the measuring and deploy tools
+        export_launches, dispatch = phase("tools", tools_phase, config, gpu, repo, work, test_opts,
+                                          np.stack(imgs))
     nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by, _ = nms_times[ANCHOR_MAIN_SHAPE]
 
     print(f"card: {gpu}; smoke {time.perf_counter() - start:.1f} s wall")
@@ -2700,6 +2966,10 @@ def main() -> None:
         # phase 11: validate_learning's eval and the BOP sweep's, each held to the plain version
         "live_bn_launches": {"validate_learning": learn_launches, "run_bop_sweep": sweep_launches},
         "live_bn_max_abs_err": {"validate_learning": learn_err, "run_bop_sweep": sweep_err},
+        # phase 12: per call of the torch.export program loaded in a fresh process (batch 8)
+        "export_launches": export_launches,
+        # phase 12: ms per call through the operator and through the wrapper alone, by BxK
+        "dispatch_ms": dispatch,
     }, {
         "name": "batched_nms (vote_nms.cu, no-vote mode)",
         "route": "cuda",

@@ -11,7 +11,10 @@ Entry points: :func:`radet_tpu_torch.apis.init_detector` and
 :class:`radet_tpu_torch.apis.BatchingDetector` for serving with dynamic
 batching, :func:`radet_tpu_torch.apis.train_detector` for training; the
 command lines ``python -m radet_tpu_torch.tools.train``, ``tools.test`` and
-``tools.serve`` (an HTTP server over a ``BatchingDetector``).
+``tools.serve`` (an HTTP server over a ``BatchingDetector``); the measuring
+and deploy tools ``tools.get_flops``, ``tools.profile_infer``,
+``tools.profile_train``, ``tools.profile_pipeline``, ``tools.export_model``
+(``torch.export``) and ``tools.eval_metric``.
 """
 
 from .apis import (

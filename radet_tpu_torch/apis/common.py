@@ -12,7 +12,7 @@ from ..core.anchors import AnchorConfig, generate_anchors
 from ..core.box_coder import build_bbox_coder
 from ..data.bop import BOPDataset
 from ..data.dataset_wrappers import WRAPPERS, ClassBalancedDataset, ConcatDataset, MixDataset, RepeatDataset
-from ..engine.infer_step import build_infer_step, build_infer_step_anchor
+from ..engine.infer_step import InferenceModule, anchor_postprocess, infer_step_of, radet_postprocess
 from ..models.builder import build_detector
 
 _OTHER_DATASETS = "ROADMAP.md Queue 1 item 12, other dataset types"
@@ -225,13 +225,19 @@ def build_infer_for_cfg(cfg, model, anchors, counts, test_cfg=None):
     """The inference step of a config: RADet's (vote-NMS) or the generic
     anchor heads' (delta decode and class-aware NMS).  ``test_cfg``
     defaults to ``cfg.test_cfg``."""
+    return infer_step_of(build_infer_module(cfg, model, anchors, counts, test_cfg))
+
+
+def build_infer_module(cfg, model, anchors, counts, test_cfg=None) -> InferenceModule:
+    """:func:`build_infer_for_cfg`'s step as one module (uint8 images,
+    img_shapes and scale_factors on ``model``'s device in; boxes, scores,
+    labels and valid out), as ``torch.export`` takes it."""
     test_cfg = _to_dict(cfg.test_cfg) if test_cfg is None else test_cfg
-    img_norm = _to_dict(cfg.img_norm_cfg)
     if head_type_from_cfg(cfg) == "RADetHead":
-        return build_infer_step(model, anchors, counts, img_norm=img_norm, test_cfg=test_cfg,
-                                normalizer=normalizer_from_cfg(cfg))
-    return build_infer_step_anchor(model, anchors, counts, img_norm=img_norm, test_cfg=test_cfg,
-                                   spec=anchor_head_spec(cfg))
+        postprocess = radet_postprocess(test_cfg, normalizer_from_cfg(cfg))
+    else:
+        postprocess = anchor_postprocess(test_cfg, anchor_head_spec(cfg))
+    return InferenceModule(model, anchors, counts, _to_dict(cfg.img_norm_cfg), postprocess)
 
 
 def build_dataset(cfg, split: str, test_mode: bool | None = None):

@@ -31,6 +31,16 @@ heads' ``nms.type='nms'``): the kernel in its no-vote mode on CUDA tensors,
 :func:`batched_nms_plain` (a port of ``radet_tpu/ops/vote_nms.py::
 batched_nms_device``) on CPU tensors.  Its slots hold the kept boxes
 themselves, in score order.
+
+Both entry points reach their implementations through one PyTorch operator
+each, ``torch.ops.radet_tpu_torch.vote_nms`` and ``...batched_nms``
+(``torch.library``: the kernel's wrapper for CUDA tensors, the plain
+version for CPU tensors, and a fake implementation that gives the
+(B, max_out, ...) output shapes), so that ``torch.export`` carries the
+kernel inside an exported program as one opaque call instead of tracing
+the plain version's data-dependent loop.  The operators return fresh
+tensors and mutate no input.  A process that loads such a program imports
+this module first, which registers them.
 """
 
 from __future__ import annotations
@@ -56,18 +66,34 @@ def vote_nms(
     global_mode: bool = False,
 ):
     """The kernel on CUDA tensors, the plain version on CPU tensors."""
-    kwargs = dict(
-        iou_threshold=iou_threshold,
-        max_out=max_out,
-        iou_enable=iou_enable,
-        sigma=sigma,
-        global_mode=global_mode,
-    )
-    if boxes.is_cuda:
-        return vote_nms_cuda(boxes, cluster_scores, vote_scores, labels, valid, **kwargs)
-    if boxes.device.type != "cpu":
+    if boxes.device.type not in ("cuda", "cpu"):
         raise ValueError(f"vote_nms has no implementation for device {boxes.device}")
-    return vote_nms_plain(boxes, cluster_scores, vote_scores, labels, valid, **kwargs)
+    return _vote_nms_op(boxes, cluster_scores, vote_scores, labels, valid, float(iou_threshold), int(max_out),
+                        bool(iou_enable), float(sigma), bool(global_mode))
+
+
+def _vote_nms_cpu(boxes, cluster_scores, vote_scores, labels, valid, iou_threshold, max_out, iou_enable, sigma,
+                  global_mode):
+    out = vote_nms_plain(boxes, cluster_scores, vote_scores, labels, valid, iou_threshold=iou_threshold,
+                         max_out=max_out, iou_enable=iou_enable, sigma=sigma, global_mode=global_mode)
+    return tuple(t.contiguous() for t in out)
+
+
+def _vote_nms_kernel(boxes, cluster_scores, vote_scores, labels, valid, iou_threshold, max_out, iou_enable, sigma,
+                     global_mode):
+    return vote_nms_cuda(boxes, cluster_scores, vote_scores, labels, valid, iou_threshold=iou_threshold,
+                         max_out=max_out, iou_enable=iou_enable, sigma=sigma, global_mode=global_mode)
+
+
+def _vote_nms_fake(boxes, cluster_scores, vote_scores, labels, valid, iou_threshold, max_out, iou_enable, sigma,
+                   global_mode):
+    return _fake_outputs(boxes, cluster_scores, labels, valid, max_out)
+
+
+def _fake_outputs(boxes, scores, labels, valid, max_out: int):
+    b = boxes.shape[0]
+    return (boxes.new_empty((b, max_out, 4)), labels.new_empty((b, max_out)), scores.new_empty((b, max_out)),
+            valid.new_empty((b, max_out)))
 
 
 def pairwise_iou(boxes):
@@ -169,12 +195,42 @@ def batched_nms(boxes, scores, labels, valid, *, iou_threshold: float = 0.6, max
     order; the plain version picks the highest score, the lowest index on
     ties, which is the same on such input).  Returns (boxes (B, M, 4),
     labels (B, M) int32, scores (B, M), valid (B, M) bool)."""
-    kwargs = dict(iou_threshold=iou_threshold, max_out=max_out)
-    if boxes.is_cuda:
-        return batched_nms_cuda(boxes, scores, labels, valid, **kwargs)
-    if boxes.device.type != "cpu":
+    if boxes.device.type not in ("cuda", "cpu"):
         raise ValueError(f"batched_nms has no implementation for device {boxes.device}")
-    return batched_nms_plain(boxes, scores, labels, valid, **kwargs)
+    return _batched_nms_op(boxes, scores, labels, valid, float(iou_threshold), int(max_out))
+
+
+def _batched_nms_cpu(boxes, scores, labels, valid, iou_threshold, max_out):
+    out = batched_nms_plain(boxes, scores, labels, valid, iou_threshold=iou_threshold, max_out=max_out)
+    return tuple(t.contiguous() for t in out)
+
+
+def _batched_nms_kernel(boxes, scores, labels, valid, iou_threshold, max_out):
+    return batched_nms_cuda(boxes, scores, labels, valid, iou_threshold=iou_threshold, max_out=max_out)
+
+
+def _batched_nms_fake(boxes, scores, labels, valid, iou_threshold, max_out):
+    return _fake_outputs(boxes, scores, labels, valid, max_out)
+
+
+# The operators, defined through torch.library's low-level API, without the
+# Python autograd wrapper of a torch.library.custom_op: as one, a call took
+# 42-67 us more host time on the card with autograd on (PERF.md §6), more
+# than the kernel's device time at the deploy shapes.  Neither op has a
+# gradient.
+_LIB = torch.library.Library("radet_tpu_torch", "DEF")
+_LIB.define("vote_nms(Tensor boxes, Tensor cluster_scores, Tensor vote_scores, Tensor labels, Tensor valid, "
+            "float iou_threshold, int max_out, bool iou_enable, float sigma, bool global_mode) "
+            "-> (Tensor, Tensor, Tensor, Tensor)")
+_LIB.define("batched_nms(Tensor boxes, Tensor scores, Tensor labels, Tensor valid, float iou_threshold, "
+            "int max_out) -> (Tensor, Tensor, Tensor, Tensor)")
+for _name, _cpu, _cuda, _fake in (("vote_nms", _vote_nms_cpu, _vote_nms_kernel, _vote_nms_fake),
+                                  ("batched_nms", _batched_nms_cpu, _batched_nms_kernel, _batched_nms_fake)):
+    _LIB.impl(_name, _cpu, "CPU")
+    _LIB.impl(_name, _cuda, "CUDA")
+    torch.library.register_fake(f"radet_tpu_torch::{_name}", _fake, lib=_LIB)
+_vote_nms_op = torch.ops.radet_tpu_torch.vote_nms.default
+_batched_nms_op = torch.ops.radet_tpu_torch.batched_nms.default
 
 
 def batched_nms_plain(boxes, scores, labels, valid, *, iou_threshold: float = 0.6, max_out: int = 100):

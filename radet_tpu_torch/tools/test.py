@@ -28,7 +28,7 @@ from ..engine.checkpoint import load_weights
 from ..utils.config import Config, parse_kv_options
 from ..utils.logging import get_root_logger
 
-_SHOW = "ROADMAP.md Queue 1 item 15, tools"
+_SHOW = "ROADMAP.md Queue 1 item 15c, drawing"
 _FUSE = "ROADMAP.md Queue 1 item 12, models/fuse.py"
 _MULTI_GPU = "ROADMAP.md Queue 1 item 13, multi-GPU"
 
