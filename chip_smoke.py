@@ -37,7 +37,7 @@ Run from the repository root, with one card:  python3 chip_smoke.py
    card in turns, each beside the call's bound and its share of it, and
    the call's device time split by its three CUDA kernels (from
    torch.profiler, or "not measured"); a synthetic BOP test set written as PNG by
-   ``tests/synthetic_bop.py`` (96 images at
+   ``tests/synthetic_bop.py`` (48 images at
    480x640, 16 at T-LESS's 540x720, 16 portrait 640x480; filled rectangles
    of 21 classes, COCO json), decoded by the C++ unfilter and its numpy
    twin; the test CLI (``python -m radet_tpu_torch.tools.test --eval bbox
@@ -91,7 +91,7 @@ Run from the repository root, with one card:  python3 chip_smoke.py
    one no-vote launch per batch, the run's NMS inputs through the plain
    version, the float32 forward against the CPU's; ATSS inference timed at
    batch 8 and 128; the train CLI on each config from the JPEG
-   ``train_pbr`` split through its own pipeline (20 steps ATSS, 10
+   ``train_pbr`` split through its own pipeline (10 steps ATSS, 10
    RetinaNet, batch 16, bf16, one eval on the PNG set): finite losses,
    checkpoint, frozen stages kept, head moved, and the test CLI (``--eval
    bbox``) on that checkpoint; each train step's time with
@@ -133,8 +133,26 @@ Run from the repository root, with one card:  python3 chip_smoke.py
    per call, outputs held to the eager step, both timed);
    ``tools.eval_metric`` on the phase-5 test CLI's ``--out`` pickle (its
    metrics equal to the CLI's); ``tools.profile_pipeline`` for the train
-   and test pipelines at 1 and 4 workers, threads and processes.  Each
-   phase prints its wall time.
+   and test pipelines at 1 and 4 workers, threads and processes;
+13. runs the int8 deploy family (``configs/bop/r50_ycbv_pbr_int8*.py``):
+   builds ``csrc/int8_conv.cu`` with the other sources and holds it to its
+   plain version (float64 on the card without cuDNN, exact) bit for bit,
+   int32 sums and bf16 outputs, at every distinct int8 conv shape of
+   int8_full and int8_stream at 480x640 (the inputs recorded from their
+   forward on the main path's 8 images) and at a grouped shape with 4
+   channels a group, each timed at batch 8 and 128 beside its bound,
+   ``torch._int_mm`` (1x1 stride-1 shapes) and the bf16 cuDNN conv;
+   ``init_detector`` and ``inference_detector`` on int8, int8_conv2,
+   int8_full, int8_stream and the QAT config at full width (int8 launches
+   per forward 40, 56, 72, 92, 92), each one's float32 forward against the
+   CPU's (int8 levels and head maps); serves int8_stream (one full batch of
+   16 through ``BatchingDetector`` against ``inference_detector``: the
+   head's dynamic absmax spans the batch); the test CLI on it over the
+   eval phase's PNG set; ``profile_infer --quant int8_stream`` at batch
+   128; ``export_model`` of it, its program loaded in a fresh process
+   (int8 and vote-NMS launches per call, bit for bit against the eager
+   step); and times the flagship, int8, int8_full and int8_stream at batch
+   8 and 128.  Each phase prints its wall time.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero before it.  Without a CUDA card, or outside the repository, the
@@ -174,7 +192,7 @@ FLIP_RTOL = 1e-5  # |x| / max |x| of a ReLU input the two sides put on opposite 
 WEIGHT_ATOL = 1e-6  # assignment weights, card vs CPU
 # the PNG test set: YCB-V's size, T-LESS's (resized into the input) and
 # portrait (the per-orientation views), (images, (h, w)) per scene
-EVAL_GROUPS = ((96, (480, 640)), (16, (540, 720)), (16, (640, 480)))
+EVAL_GROUPS = ((48, (480, 640)), (16, (540, 720)), (16, (640, 480)))
 METRIC_ATOL = 1e-3  # COCO metrics, kernel vs plain vote-NMS in the same eval
 EVAL_INTERVAL = 10  # trainer steps between evaluations
 # training from files: a JPEG train_pbr split of FILES_IMAGES copies of the
@@ -183,7 +201,7 @@ EVAL_INTERVAL = 10  # trainer steps between evaluations
 # COCO's common 427x640 (decoded and resized); FILES_STEPS steps, one eval
 FILES_IMAGES = 64
 BACKGROUNDS = 48
-FILES_STEPS = 30
+FILES_STEPS = 20
 FILES_WORKERS = 4
 # the mixpbr fine-tune: a train_real split of REAL_IMAGES fixture copies
 # beside train_pbr, MIX_CONFIG (configs/bop) over both, MIX_STEPS steps
@@ -206,7 +224,7 @@ KERNEL_SHAPES = ((8, 512), (16, 512), (128, 512), (8, 1024), (8, 1025), (8, 2048
 # kernel's (B, K): interactive and deploy inference at nms_topk 1024, the
 # train CLI's periodic eval (B = 16), and the strict eval (K = 2048)
 ANCHOR_CONFIGS = ("configs/atss/atss_r50_fpn_ycbv_pbr.py", "configs/atss/retina_r50_fpn_ycbv_pbr.py")
-ANCHOR_STEPS = {"atss_r50_fpn_ycbv_pbr": 20, "retina_r50_fpn_ycbv_pbr": 10}
+ANCHOR_STEPS = {"atss_r50_fpn_ycbv_pbr": 10, "retina_r50_fpn_ycbv_pbr": 10}
 NMS_SHAPES = ((8, 1024), (16, 1024), (128, 1024), (16, 2048))
 NMS_LABELS = 21
 ANCHOR_MAIN_SHAPE = (8, 1024)  # the kernels line's times: the main path's call (inference_detector, 8 images)
@@ -240,7 +258,7 @@ SERVE_BATCH = 16
 SERVE_LATENCY_MS = 5.0
 SERVE_SIZES = ((480, 640), (540, 720), (427, 640))
 SERVE_SUBMITTERS = (1, 16, 64)
-SERVE_REQUESTS = 256
+SERVE_REQUESTS = 128
 SERVE_CLIENTS = 16  # HTTP client threads against the CLI
 
 
@@ -2528,6 +2546,7 @@ PIPELINE_BATCH = 4  # the loader runs 6 batches per worker count and mode
 EXPORT_RUN = r"""
 import json, sys
 import numpy as np, torch
+import radet_tpu_torch.ops.int8_conv_cuda as icc
 import radet_tpu_torch.ops.vote_nms_cuda as vnc
 from radet_tpu_torch.tools.export_model import load
 program = load(sys.argv[1])
@@ -2535,13 +2554,14 @@ images = torch.from_numpy(np.load(sys.argv[2])).cuda()
 b, h, w, _ = images.shape
 shapes = torch.tensor([[h, w]] * b, dtype=torch.float32, device="cuda")
 scales = torch.ones((b, 4), dtype=torch.float32, device="cuda")
-launches = []
+launches, int8_launches = [], []
 with torch.inference_mode():
     for _ in range(int(sys.argv[4])):
-        before = vnc.LAUNCHES
+        before, before8 = vnc.LAUNCHES, icc.LAUNCHES
         outs = program(images, shapes, scales)
         torch.cuda.synchronize()
         launches.append(vnc.LAUNCHES - before)
+        int8_launches.append(icc.LAUNCHES - before8)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(20):
@@ -2549,7 +2569,7 @@ with torch.inference_mode():
     end.record()
     torch.cuda.synchronize()
 np.savez(sys.argv[3], *[t.cpu().numpy() for t in outs])
-print(json.dumps(dict(launches=launches, ms=start.elapsed_time(end) / 20)))
+print(json.dumps(dict(launches=launches, int8_launches=int8_launches, ms=start.elapsed_time(end) / 20)))
 """
 
 
@@ -2638,7 +2658,7 @@ def train_profile(gpu: str, repo: Path) -> dict:
 def pipeline_profile(gpu: str, repo: Path) -> None:
     for pipeline in ("train", "test"):
         out, _, wall = tool_run(repo, ["-m", "radet_tpu_torch.tools.profile_pipeline", "--pipeline", pipeline,
-                                       "--samples", 16, "--workers", 1, 4, "--mode", "thread", "process",
+                                       "--samples", 8, "--workers", 1, 4, "--mode", "thread", "process",
                                        "--batch", PIPELINE_BATCH],
                                 f"profile_pipeline --pipeline {pipeline}")
         s = last_json(out)
@@ -2652,15 +2672,15 @@ def pipeline_profile(gpu: str, repo: Path) -> None:
             fail(f"profile_pipeline --pipeline {pipeline}: loader runs missing")
 
 
-def export_phase(config: str, gpu: str, repo: Path, work: str, images) -> list:
-    """``export_model --verify`` of the flagship at batch EXPORT_BATCH in bf16
+def export_phase(config: str, gpu: str, repo: Path, work: str, images, name: str = "export") -> dict:
+    """``export_model --verify`` of ``config`` at batch EXPORT_BATCH in bf16
     (the eval phase's weights), the program loaded in a fresh process and
     run on the main path's images, against the eager step in this process;
-    returns the kernel's launches per call of the loaded program."""
+    returns the loaded program's run (its kernels' launches per call)."""
     from radet_tpu_torch import init_detector
 
     ckpt = osp.join(work, "random_cls0.pth")
-    pt2, npy, npz = (osp.join(work, f"export.{ext}") for ext in ("pt2", "npy", "npz"))
+    pt2, npy, npz = (osp.join(work, f"{name}.{ext}") for ext in ("pt2", "npy", "npz"))
     _, err, wall = tool_run(repo, ["-m", "radet_tpu_torch.tools.export_model", config, pt2, "--checkpoint", ckpt,
                                    "--batch-size", EXPORT_BATCH, "--verify"], "export_model")
     print(f"tools: python -m radet_tpu_torch.tools.export_model --batch-size {EXPORT_BATCH} --verify "
@@ -2688,7 +2708,8 @@ def export_phase(config: str, gpu: str, repo: Path, work: str, images) -> list:
     tail = float((box_err > BOX_ATOL).mean()) if box_err.size else 0.0
     bits = all(np.array_equal(g, w_) for g, w_ in zip(got, want))
     print(f"  loaded in a fresh process ({wall:.1f} s) and run on the main path's {b} images: "
-          f"{int(valid.sum())} detections, vote_nms kernel launches per call {run['launches']}; against the eager "
+          f"{int(valid.sum())} detections, vote_nms kernel launches per call {run['launches']}, int8_conv "
+          f"{run['int8_launches']}; against the eager "
           f"step: valid and labels equal {np.array_equal(got[3], valid) and np.array_equal(got[2], want[2])}, "
           f"box max abs diff {box_err.max(initial=0.0):.3g} px, score max abs diff {score_err:.3g}, bit for bit "
           f"equal {bits}")
@@ -2702,7 +2723,7 @@ def export_phase(config: str, gpu: str, repo: Path, work: str, images) -> list:
         fail(f"the exported program launched the vote_nms kernel {run['launches']} times in {EXPORT_CALLS} calls")
     del det, eager
     torch.cuda.empty_cache()
-    return run["launches"]
+    return run
 
 
 def eval_metric_phase(config: str, repo: Path, work: str, test_opts) -> None:
@@ -2755,10 +2776,352 @@ def tools_phase(config: str, gpu: str, repo: Path, work: str, test_opts, images)
     flops_tool(config, gpu, repo)
     infer_profile(config, gpu, repo)
     train_profile(gpu, repo)
-    export_launches = export_phase(config, gpu, repo, work, images)
+    export_launches = export_phase(config, gpu, repo, work, images)["launches"]
     eval_metric_phase(config, repo, work, test_opts)
     pipeline_profile(gpu, repo)
     return export_launches, dispatch
+
+
+
+# 13. the int8 deploy family (configs/bop/*int8*): the hand-written int8
+# convolution (csrc/int8_conv.cu) under the head's towers and the trunk
+INT8_CONFIGS = ("r50_ycbv_pbr_int8", "r50_ycbv_pbr_int8_conv2", "r50_ycbv_pbr_int8_full",
+                "r50_ycbv_pbr_int8_stream", "r50_ycbv_pbr_int8_qat")
+# int8 convolutions per forward: the towers' 2 x 4 convs at 5 levels; + the
+# 16 blocks' conv2; + their conv3; + their conv1 and the 4 downsamples
+INT8_LAUNCHES = {"r50_ycbv_pbr_int8": 40, "r50_ycbv_pbr_int8_conv2": 56, "r50_ycbv_pbr_int8_full": 72,
+                 "r50_ycbv_pbr_int8_stream": 92, "r50_ycbv_pbr_int8_qat": 92}
+INT8_MAIN = "r50_ycbv_pbr_int8_stream"  # the kernels line's launches and shapes
+INT8_TIMED = ("r50_ycbv_pbr_int8", "r50_ycbv_pbr_int8_full", "r50_ycbv_pbr_int8_stream")
+INT8_TOPS = 1979e12  # H100 SXM dense int8 tensor-core rate
+# the int8 forward in float32, card vs CPU.  The float convs' and norms'
+# rounding differs, so the first int8 conv's input (before any int8
+# arithmetic) flips an occasional element by one level: at most
+# INT8_FIRST_FLIPS of them.  The following blocks carry each flip on and
+# the seeded random weights (unit BatchNorms, far from calibrated) amplify
+# it: on the card, 1.7% (int8) and 13.5% (int8_conv2) of all int8 conv
+# inputs' elements, by at most 3 and 8 levels, 0.096 and 0.153 of a head
+# map's max (tests/test_torch_quant.py against the JAX package on the CPU:
+# 2.8% by 2 levels in the stream at 64x64).  The bounds on the whole
+# forward catch a gross error (a wrong scale or layout moves most elements
+# by many levels).
+INT8_FIRST_FLIPS = 1e-3
+INT8_FLIPS, INT8_LEVELS, INT8_MAP_RTOL = 0.3, 16, 0.5
+# a grouped conv with 4 channels a group (ResNeXt-50 32x4d's layer1 3x3),
+# batch 8 at 480x640: (N, C, H, W, Cout, k, stride, groups)
+INT8_GROUPED = (8, 128, 120, 160, 128, 3, 1, 32)
+SERVE_INT8 = 16  # one full batch: the head's dynamic absmax spans the batch
+
+
+def int8_bound(x_shape, w_shape, out_shape):
+    """(ms, 'bytes' or 'operations'): int8 in, int8 weights and bf16 out over
+    3.35 TB/s against 2 N Ho Wo Cout Cin/g kh kw int8 operations at 1979 TOPS."""
+    n, _, h, w = x_shape
+    cout, cin_g, kh, kw = w_shape
+    ho, wo = out_shape[2:]
+    ops = 2.0 * n * ho * wo * cout * cin_g * kh * kw
+    nbytes = n * x_shape[1] * h * w + cout * cin_g * kh * kw + 2.0 * n * cout * ho * wo
+    t_ops, t_bytes = ops / INT8_TOPS, nbytes / HBM_RATE
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def int_mm_ms(x, wt, stride, groups, iters: int):
+    """ms of ``torch._int_mm`` on the same int8 inputs for a 1x1 stride-1
+    ungrouped conv (the int32 sums only: the one PyTorch call that computes
+    them), else None."""
+    if wt.shape[2:] != (1, 1) or stride[0] != 1 or groups != 1:
+        return None
+    a = x.permute(0, 2, 3, 1).reshape(-1, x.shape[1])
+    b = wt.reshape(wt.shape[0], -1).t()
+    try:
+        torch._int_mm(a, b)
+    except RuntimeError as e:
+        print(f"  _int_mm refused {tuple(a.shape)} x {tuple(b.shape)}: {str(e).splitlines()[0]}")
+        return None
+    return cuda_ms(lambda: torch._int_mm(a, b), iters)
+
+
+@contextlib.contextmanager
+def int8_conv_calls():
+    """Within the block, the arguments (copies) of every int8 convolution,
+    in call order (the list yielded)."""
+    from radet_tpu_torch.ops import quant
+
+    seen = []
+    op = quant._int8_conv_op
+
+    def record(*args):
+        seen.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+        return op(*args)
+
+    quant._int8_conv_op = record
+    try:
+        yield seen
+    finally:
+        quant._int8_conv_op = op
+
+
+def int8_calls(det, images) -> dict:
+    """The int8 convolutions of one forward of ``det`` on ``images``: the
+    operator's arguments of the first call of each distinct (input shape,
+    weight shape, stride, padding, groups), by that key."""
+    n, h, w = images.shape[:3]
+    dev = images.device
+    with torch.inference_mode(), int8_conv_calls() as seen:
+        det._infer(det.model, images, torch.tensor([[h, w]] * n, dtype=torch.float32, device=dev),
+                   torch.ones((n, 4), dtype=torch.float32, device=dev))
+    calls = {}
+    for args in seen:
+        calls.setdefault((tuple(args[0].shape), tuple(args[1].shape), tuple(args[4]), tuple(args[5]), args[6]), args)
+    return calls
+
+
+def int8_kernel_by_shape(gpu: str, calls: dict) -> dict:
+    """The kernel against its plain version (float64 on the card, without
+    cuDNN: an exact sum) bit for bit, int32 sums and bf16 output, at every
+    recorded shape and the grouped one; timed at batch 8 (the recorded
+    inputs) and 128 (them repeated), beside the bound, ``torch._int_mm``
+    (1x1 stride-1 shapes) and the bf16 cuDNN conv (a different function).
+    Returns {shape label: numbers}."""
+    import radet_tpu_torch.ops.int8_conv_cuda as icc
+    from radet_tpu_torch.ops.quant import int8_conv_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(SEED + 21)
+    n, c, h, w, cout, k, st, groups = INT8_GROUPED
+    grouped = (torch.randint(-127, 128, (n, c, h, w), generator=g, dtype=torch.int8).to(dev).contiguous(
+        memory_format=torch.channels_last),
+        torch.randint(-127, 128, (cout, c // groups, k, k), generator=g, dtype=torch.int8).to(dev),
+        (torch.rand(cout, generator=g) * 1e-3).to(dev), None, [st, st], [k // 2, k // 2], groups, torch.bfloat16)
+    cases = [(c, True) for c in calls.values()] + [(grouped, False)]
+    out = {}
+    print(f"int8: the kernel against its plain version at the {len(calls)} distinct int8 conv shapes of "
+          f"{', '.join(INT8_TIMED[1:])} at 480x640 (batch 8, the main path's inputs) and a grouped one "
+          f"(4 channels a group, random int8); times by CUDA events at batch 8 and 128 [{gpu}]:")
+    print("  N C H W -> Cout k/s g | batch 8: kernel ms, plain ms, bound ms (by), share | batch 128: kernel ms, "
+          "bound ms, share, _int_mm ms, cuDNN bf16 conv ms (not the same function)")
+    for (x, wt, mult, bias, stride, padding, groups, _), on_path in cases:
+        args = (mult, bias, stride, padding, groups)
+        for dtype in (torch.int32, torch.bfloat16):
+            got = icc.int8_conv_cuda(x, wt, *args, dtype)
+            with torch.backends.cudnn.flags(enabled=False):
+                want = int8_conv_plain(x, wt, *args, dtype)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"int8_conv x {tuple(x.shape)} w {tuple(wt.shape)} {dtype}: the kernel differs from the plain "
+                     f"version in {int((got != want).sum())} elements")
+        label = (f"{x.shape[0]} {x.shape[1]} {x.shape[2]} {x.shape[3]} -> {wt.shape[0]} {wt.shape[2]}/{stride[0]} "
+                 f"{groups}")
+        row = dict(x=list(x.shape), w=list(wt.shape), stride=stride[0], groups=groups, on_main_path=on_path)
+        kern = lambda: icc.int8_conv_cuda(x, wt, *args, torch.bfloat16)  # noqa: E731
+        kern()
+        row["ms"] = cuda_ms(kern, 20)
+        with torch.backends.cudnn.flags(enabled=False):
+            row["plain_ms"] = cuda_ms(lambda: int8_conv_plain(x, wt, *args, torch.bfloat16), 2)
+        row["bound_ms"], row["bound_by"] = int8_bound(x.shape, wt.shape, got.shape)
+        row["int_mm_ms"] = int_mm_ms(x, wt, stride, groups, 20)
+        big = x.repeat(16, 1, 1, 1).contiguous(memory_format=torch.channels_last)
+        kern = lambda: icc.int8_conv_cuda(big, wt, *args, torch.bfloat16)  # noqa: E731
+        out_big = kern()
+        row["ms_128"] = cuda_ms(kern, 10)
+        row["bound_ms_128"], row["bound_by_128"] = int8_bound(big.shape, wt.shape, out_big.shape)
+        row["int_mm_ms_128"] = int_mm_ms(big, wt, stride, groups, 10)
+        xb, wb = big.to(torch.bfloat16), wt.to(torch.bfloat16)
+        conv = lambda: F.conv2d(xb, wb, None, stride, padding, 1, groups)  # noqa: E731
+        conv()
+        row["cudnn_bf16_ms_128"] = cuda_ms(conv, 10)
+        del big, out_big, xb, wb
+        out[label] = row
+        print(f"  {label} | {row['ms']:.4f}, {row['plain_ms']:.3f}, {row['bound_ms']:.4f} ({row['bound_by']}), "
+              f"{row['bound_ms'] / row['ms']:.1%} | {row['ms_128']:.4f}, {row['bound_ms_128']:.4f} "
+              f"({row['bound_by_128']}), {row['bound_ms_128'] / row['ms_128']:.1%}, "
+              + ("-" if row["int_mm_ms_128"] is None else f"{row['int_mm_ms_128']:.4f}")
+              + f", {row['cudnn_bf16_ms_128']:.4f}")
+    torch.cuda.empty_cache()
+    print(f"  every shape: int32 sums and bf16 outputs equal bit for bit [{gpu}]")
+    return out
+
+
+def int8_detector(name: str, repo: Path, checkpoint=None):
+    from radet_tpu_torch import init_detector
+
+    det = init_detector(str(repo / "configs" / "bop" / f"{name}.py"), checkpoint, device="cuda", seed=SEED)
+    if checkpoint is None:
+        with torch.no_grad():
+            det.model.bbox_head.atss_cls.bias.zero_()
+    return det
+
+
+def int8_inference(name: str, gpu: str, repo: Path, imgs) -> tuple:
+    """``init_detector`` and ``inference_detector`` on 8 images at full width,
+    the int8 and vote-NMS launches of that run counted; the float32 forward
+    of the first image on the card against the CPU's.  Returns (int8
+    launches, the detector)."""
+    import radet_tpu_torch.ops.int8_conv_cuda as icc
+    import radet_tpu_torch.ops.vote_nms_cuda as vnc
+    from radet_tpu_torch import inference_detector, init_detector
+    from radet_tpu_torch.models.detector import preprocess_images
+
+    det = int8_detector(name, repo)
+    model = det.model
+    icc.LAUNCHES = vnc.LAUNCHES = 0
+    results = inference_detector(det, imgs)
+    torch.cuda.synchronize()
+    launches, nms = icc.LAUNCHES, vnc.LAUNCHES
+    print(f"  {name}: backbone.quant {model.backbone.quant!r}, bbox_head.quant {model.bbox_head.quant!r}; "
+          f"inference_detector on {len(imgs)} images: int8_conv kernel launches {launches} (expected "
+          f"{INT8_LAUNCHES[name]}), vote_nms {nms}, detections per image {[len(r['boxes']) for r in results]}")
+    if launches != INT8_LAUNCHES[name] or nms != 1:
+        fail(f"{name}: int8_conv launched {launches} times, vote_nms {nms}, in one forward")
+    for r in results:
+        if not len(r["boxes"]) or not (np.isfinite(r["boxes"]).all() and np.isfinite(r["scores"]).all()):
+            fail(f"{name}: an image without detections, or non-finite ones")
+    dev = torch.device("cuda")
+    norm = det.cfg.img_norm_cfg
+    with torch.inference_mode():
+        x = preprocess_images(torch.from_numpy(imgs[0][None]).to(dev), norm.mean, norm.std, torch.float32)
+        model.dtype = torch.float32
+        with int8_conv_calls() as gpu_q:
+            gpu_maps = [m.cpu() for maps in model(x) for m in maps]
+        model.dtype = torch.bfloat16
+        cpu_model = init_detector(str(repo / "configs" / "bop" / f"{name}.py"), device="cpu", seed=SEED).model
+        cpu_model.load_state_dict(model.state_dict())
+        with int8_conv_calls() as cpu_q:
+            cpu_maps = [m for maps in cpu_model(x.cpu()) for m in maps]
+    rel = max(float((g - c).abs().max() / c.abs().max().clamp(min=1e-6)) for g, c in zip(gpu_maps, cpu_maps))
+    if len(gpu_q) != len(cpu_q):
+        fail(f"{name}: {len(gpu_q)} int8 convs on the card, {len(cpu_q)} on the CPU")
+    gpu_q, cpu_q = [a[0].cpu() for a in gpu_q], [a[0] for a in cpu_q]
+    shares = [(g != c).float().mean().item() for g, c in zip(gpu_q, cpu_q)]
+    flips = float(np.mean(shares))
+    levels = max(int((g.int() - c.int()).abs().max()) for g, c in zip(gpu_q, cpu_q))
+    first = int((gpu_q[0].int() - cpu_q[0].int()).abs().max())
+    print(f"  {name}: float32 forward of one image, card vs CPU: the first int8 conv's input {shares[0]:.4%} of "
+          f"elements differ (limit {INT8_FIRST_FLIPS:.1%}) by at most {first} level; all {len(gpu_q)} int8 convs' "
+          f"inputs {flips:.4%} (limit {INT8_FLIPS:.0%}), by at most {levels} levels (limit {INT8_LEVELS}); head "
+          f"maps' max error relative to each map's max {rel:.3g} (limit {INT8_MAP_RTOL})")
+    if not (shares[0] <= INT8_FIRST_FLIPS and first <= 1 and flips <= INT8_FLIPS and levels <= INT8_LEVELS
+            and rel <= INT8_MAP_RTOL):
+        fail(f"{name}: the card's float32 int8 forward disagrees with the CPU's")
+    return launches, det
+
+
+def int8_timing(gpu: str, repo: Path) -> dict:
+    """ms per batch at 8 and 128 of the flagship (bf16) and INT8_TIMED, in
+    this order, with the int8 launches per batch."""
+    import radet_tpu_torch.ops.int8_conv_cuda as icc
+    from radet_tpu_torch import init_detector
+
+    dev = torch.device("cuda")
+    out = {}
+    for name in ("r50_ycbv_pbr",) + INT8_TIMED:
+        det = (init_detector(str(repo / CONFIG), device="cuda", seed=SEED) if name == "r50_ycbv_pbr"
+               else int8_detector(name, repo))
+        h, w = det.input_size
+        for batch, iters in ((8, 20), (128, 5)):
+            u8 = torch.randint(0, 256, (batch, h, w, 3), dtype=torch.uint8, device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(SEED))
+            shp = torch.tensor([[h, w]] * batch, dtype=torch.float32, device=dev)
+            scl = torch.ones((batch, 4), dtype=torch.float32, device=dev)
+
+            def step():
+                det._infer(det.model, u8, shp, scl)
+
+            step()
+            before = icc.LAUNCHES
+            step()
+            per_batch = icc.LAUNCHES - before
+            ms = cuda_ms(step, iters)
+            out[f"{name}@{batch}"] = ms
+            print(f"timing: {name} batch {batch}: {ms:.2f} ms/batch, {batch * 1000.0 / ms:.1f} img/s, int8_conv "
+                  f"launches per batch {per_batch} [{gpu}]")
+            del u8
+        del det
+        torch.cuda.empty_cache()
+    return out
+
+
+def int8_phase(gpu: str, repo: Path, work: str, test_opts, imgs) -> dict:
+    """Phase 13: the int8 deploy family at full width.  Returns the kernels
+    line's numbers."""
+    import radet_tpu_torch.ops.int8_conv_cuda as icc
+    from radet_tpu_torch import BatchingDetector, inference_detector
+
+    dev = torch.device("cuda")
+    images = torch.from_numpy(np.stack(imgs)).to(dev)
+    calls = {}
+    for name in INT8_TIMED[1:]:
+        calls.update(int8_calls(int8_detector(name, repo), images))
+    by_shape = int8_kernel_by_shape(gpu, calls)
+    del calls
+    torch.cuda.empty_cache()
+
+    print(f"int8: init_detector and inference_detector at full width, 480x640, bf16 (seeded random weights, cls "
+          f"bias 0) [{gpu}]:")
+    launches = {}
+    for name in INT8_CONFIGS:
+        launches[name], det = int8_inference(name, gpu, repo, imgs)
+        if name != INT8_MAIN:
+            del det
+            torch.cuda.empty_cache()
+            continue
+        # serve it: one full batch through BatchingDetector against inference_detector
+        # on the same images (the head's dynamic absmax spans the batch, so only
+        # equal batches compare)
+        rng = np.random.RandomState(SEED + 22)
+        batch = list(imgs) + [rng.randint(0, 256, imgs[0].shape, dtype=np.uint8) for _ in range(SERVE_INT8 - 8)]
+        want = inference_detector(det, batch)
+        before = icc.LAUNCHES
+        with BatchingDetector(det, batch_size=SERVE_INT8, max_latency_ms=60000.0) as srv:
+            futures = [srv.submit(im) for im in batch]
+            got = [f.result(timeout=300) for f in futures]
+        served = icc.LAUNCHES - before
+        print(f"  {name} served: BatchingDetector(batch {SERVE_INT8}) on one full batch: int8_conv kernel "
+              f"launches {served} (the warm-up's and the batch's)")
+        compare_results(got, want, f"{name}: served against inference_detector, same batch")
+        if served < INT8_LAUNCHES[name]:
+            fail(f"{name}: the served batch launched int8_conv {served} times")
+        del det
+        torch.cuda.empty_cache()
+
+    # the test CLI on the eval phase's PNG set and weights
+    ckpt = osp.join(work, "random_cls0.pth")
+    config = str(repo / "configs" / "bop" / f"{INT8_MAIN}.py")
+    out = osp.join(work, "eval_int8")
+    t0 = time.perf_counter()
+    _, err, _ = tool_run(repo, ["-m", "radet_tpu_torch.tools.test", config, ckpt, "--eval", "bbox", "--format-only",
+                                "--json-prefix", out, "--cfg-options", *test_opts], "the test CLI on an int8 config")
+    cli = sum(int(n) for n in re.findall(r"int8_conv kernel launches (\d+)", err))
+    with open(out + ".bbox.json") as f:
+        bbox_json = json.load(f)
+    print(f"int8: python -m radet_tpu_torch.tools.test {INT8_MAIN}.py --eval bbox --format-only (strict) on the "
+          f"eval phase's PNG set: {time.perf_counter() - t0:.1f} s, int8_conv kernel launches {cli}, "
+          f"{len(bbox_json)} COCO results")
+    if cli < INT8_LAUNCHES[INT8_MAIN] or not bbox_json:
+        fail("the test CLI on the int8 config launched no int8 kernel or wrote no results")
+
+    # profile_infer --quant int8_stream at batch 128
+    out_text, _, wall = tool_run(repo, ["-m", "radet_tpu_torch.tools.profile_infer", "--quant", "int8_stream",
+                                        "--batch", 128, "--iters", 3, "--top", 1000], "profile_infer --quant")
+    s = last_json(out_text)
+    top = sorted(s["by_module"].items(), key=lambda kv: -kv[1]["ms"])
+    int8_ms = sum(k["ms"] for k in s["top"] if "int8_conv_kernel" in k["name"])
+    print(f"tools: python -m radet_tpu_torch.tools.profile_infer --quant int8_stream --batch 128 ({wall:.1f} s): "
+          f"{s['ms_per_iter']:.3f} ms per step wall, device {s['measured_ms']:.3f} ms, busy {s['busy_share']:.4f}, "
+          f"int8_conv launches per step {s['int8_conv_launches_per_step']}, int8_conv_kernel {int8_ms:.3f} ms per "
+          f"step; by module: " + ", ".join(f"{k} {v['ms']:.3f}" for k, v in top) + f" [{gpu}]")
+    if s["int8_conv_launches_per_step"] != INT8_LAUNCHES[INT8_MAIN] or not int8_ms > 0:
+        fail("profile_infer --quant int8_stream: the int8 kernel's launches per step or time are off")
+
+    # export the int8 config; its program, loaded in a fresh process, launches the kernel
+    run = export_phase(config, gpu, repo, work, np.stack(imgs), name="export_int8")
+    if run["int8_launches"] != [INT8_LAUNCHES[INT8_MAIN]] * EXPORT_CALLS:
+        fail(f"the exported int8 program launched int8_conv {run['int8_launches']} times in {EXPORT_CALLS} calls")
+
+    times = int8_timing(gpu, repo)
+    # the kernels line: the slowest of the main path's shapes at batch 8
+    main = max((r for r in by_shape.values() if r["on_main_path"]), key=lambda r: r["ms"])
+    return dict(launches=launches, by_shape=by_shape, main=main, times=times, export=run["int8_launches"])
 
 
 def main() -> None:
@@ -2775,6 +3138,7 @@ def main() -> None:
     sys.path.append(str(repo / "tests"))  # synthetic_bop: the test data writers
     config = str(repo / CONFIG)
 
+    import radet_tpu_torch.ops.int8_conv_cuda as icc
     import radet_tpu_torch.ops.vote_nms_cuda as vnc
     from radet_tpu_torch import inference_detector, init_detector
     from radet_tpu_torch.data import color_aug, image_io
@@ -2796,18 +3160,19 @@ def main() -> None:
         fn()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         builds = [(src, flags, pool.submit(timed, fn)) for src, flags, fn in (
             (vnc.SOURCE, f"nvcc {' '.join(vnc.NVCC_FLAGS)}", vnc.build),
+            (icc.SOURCE, f"nvcc {' '.join(icc.NVCC_FLAGS)}", icc.build),
             (image_io.SOURCE, f"c++ {' '.join(image_io.CXX_FLAGS)}", image_io.build),
             (image_io.JPEG_SOURCE, f"c++ {' '.join(image_io.CXX_FLAGS)}", image_io.build_jpeg),
             (color_aug.SOURCE, f"c++ {' '.join(color_aug.CXX_FLAGS)}", color_aug.build))]
         for src, flags, fut in builds:
             print(f"build: {src.relative_to(repo)} -> {native.BUILD_DIR.relative_to(repo)} "
                   f"with {flags}: {fut.result():.2f} s [{gpu}]")
-    if vnc.BUILD_LOG is not None:
-        for line in vnc.BUILD_LOG.splitlines():
-            if "registers" in line or "spill" in line:
+    for log in (vnc.BUILD_LOG, icc.BUILD_LOG):
+        for line in (log or "").splitlines():
+            if "registers" in line or "spill" in line or "entry function" in line:
                 print(f"  ptxas: {line.strip()}")
 
     print(f"phase builds: {time.perf_counter() - start:.1f} s wall since the start", flush=True)
@@ -2947,6 +3312,9 @@ def main() -> None:
         # 12. the measuring and deploy tools
         export_launches, dispatch = phase("tools", tools_phase, config, gpu, repo, work, test_opts,
                                           np.stack(imgs))
+
+        # 13. the int8 deploy family
+        int8 = phase("int8", int8_phase, gpu, repo, work, test_opts, imgs)
     nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by, _ = nms_times[ANCHOR_MAIN_SHAPE]
 
     print(f"card: {gpu}; smoke {time.perf_counter() - start:.1f} s wall")
@@ -2982,6 +3350,26 @@ def main() -> None:
         "bound_ms": nms_bound_ms,
         "bound_by": nms_bound_by,
         "library_ms": None,  # no PyTorch call computes class-aware greedy NMS
+    }, {
+        "name": "int8_conv",
+        "route": "cuda",
+        "source": "radet_tpu_torch/csrc/int8_conv.cu",
+        "replaces": "radet_tpu/ops/quant.py:182 (XLA int8 convolution, not Pallas)",
+        "launches": int8["launches"][INT8_MAIN],  # int8_stream's inference_detector run (phase 13)
+        "max_abs_err": 0.0,  # int32 sums and bf16 outputs equal to the plain version at every shape
+        # the slowest of the main path's shapes at batch 8; "by_shape" has them all
+        "ms": int8["main"]["ms"],
+        "plain_ms": int8["main"]["plain_ms"],
+        "bound_ms": int8["main"]["bound_ms"],
+        "bound_by": int8["main"]["bound_by"],
+        # torch._int_mm where the shape is a 1x1 stride-1 conv (the sums only), else None: no PyTorch
+        # call computes an int8 convolution; by_shape has _int_mm at every 1x1 shape
+        "library_ms": int8["main"]["int_mm_ms"],
+        "shape": {"x": int8["main"]["x"], "w": int8["main"]["w"], "stride": int8["main"]["stride"]},
+        "launches_by_config": int8["launches"],
+        "export_launches": int8["export"],
+        "by_shape": int8["by_shape"],
+        "ms_per_batch": int8["times"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -20,7 +20,7 @@ import torch
 from ..data.loader import DataLoader
 from ..engine.infer_step import build_infer_step
 from ..evaluation.coco_eval import COCOEvaluator
-from ..ops import vote_nms_cuda
+from ..ops import int8_conv_cuda, vote_nms_cuda
 from ..utils.logging import get_root_logger
 from .common import (
     _build_bop,
@@ -84,7 +84,7 @@ def run_inference(
                         drop_last=False, infinite=False)
     results: List[dict] = []
     n_images = 0
-    launches = vote_nms_cuda.LAUNCHES, vote_nms_cuda.NMS_LAUNCHES
+    launches = vote_nms_cuda.LAUNCHES, vote_nms_cuda.NMS_LAUNCHES, int8_conv_cuda.LAUNCHES
     t_start = time.time()
 
     def drain(host, ready, img_ids):
@@ -126,7 +126,8 @@ def run_inference(
     if n_images:
         logger.info(f"inference done: {n_images} images in {dt:.1f}s ({n_images / dt:.1f} img/s), "
                     f"vote_nms kernel launches {vote_nms_cuda.LAUNCHES - launches[0]}, "
-                    f"batched_nms kernel launches {vote_nms_cuda.NMS_LAUNCHES - launches[1]}")
+                    f"batched_nms kernel launches {vote_nms_cuda.NMS_LAUNCHES - launches[1]}, "
+                    f"int8_conv kernel launches {int8_conv_cuda.LAUNCHES - launches[2]}")
     return results
 
 

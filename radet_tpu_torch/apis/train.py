@@ -31,6 +31,7 @@ from ..engine.checkpoint import (
     write_meta,
 )
 from ..engine.optim import build_optimizer
+from ..ops.quant import QAT_TRAINING
 from ..engine.train_step import TrainState, batch_to_device, build_train_step, build_train_step_anchor
 from ..utils.logging import get_root_logger
 from .common import (
@@ -57,6 +58,16 @@ def check_trainable_quant(model_cfg) -> None:
                 f"model.{part}.quant={pcfg.get('quant')!r} without qat=True is a deploy-time "
                 "option: train the float config, or set qat=True"
             )
+
+
+def check_int8_training(model_cfg) -> None:
+    """Quantization-aware training (``qat=True``) and frozen-stage int8
+    training (``backbone.frozen_int8=True``) are item 14b: raise before any
+    step.  (Such configs infer and evaluate: QAT at eval is the int8 deploy
+    arithmetic, ``frozen_int8`` at eval the float path.)"""
+    for part, key in (("backbone", "qat"), ("bbox_head", "qat"), ("backbone", "frozen_int8")):
+        if model_cfg.get(part, {}).get(key):
+            raise NotImplementedError(f"training with model.{part}.{key}=True is not ported ({QAT_TRAINING})")
 
 
 def _merge_pretrained(model, state_dict, logger) -> None:
@@ -117,6 +128,7 @@ def train_detector(
     cfg.dump(osp.join(work_dir, "config.py"))
 
     check_trainable_quant(cfg.model)
+    check_int8_training(cfg.model)
     head_type = head_type_from_cfg(cfg)
     if dataset is None:
         dataset = build_dataset(cfg, "train", test_mode=False)

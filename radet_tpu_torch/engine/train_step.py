@@ -29,6 +29,7 @@ from ..models.anchor_heads import flatten_anchor_outputs
 from ..models.anchor_loss import anchor_head_loss, atss_loss
 from ..models.detector import flatten_head_outputs, preprocess_images
 from ..models.radet_loss import radet_loss
+from ..ops.quant import QAT_TRAINING
 from .optim import ClippedOptimizer
 
 BATCH_KEYS = ("image", "gt_boxes", "gt_labels", "gt_valid", "dist_vals")
@@ -65,6 +66,16 @@ def batch_to_device(batch: Dict[str, Any], device, keys=BATCH_KEYS) -> Dict[str,
     return out
 
 
+def refuse_int8_training(model) -> None:
+    """Raise for a model with quantization-aware training (``qat``) or
+    frozen-stage int8 training (``frozen_int8``) switched on: item 14b."""
+    for name, m in model.named_modules():
+        for key in ("qat", "frozen_int8"):
+            if getattr(m, key, False):
+                raise NotImplementedError(f"training {name or 'the model'} with {key}=True is not ported "
+                                          f"({QAT_TRAINING})")
+
+
 def build_train_step(
     model,
     anchors: np.ndarray,
@@ -81,7 +92,9 @@ def build_train_step(
 
     ``batch``: device tensors under :data:`BATCH_KEYS` (see
     :func:`batch_to_device`).  ``noise``: optional (gumbel_pool,
-    gumbel_draw) for the assignment (``core.assignment.assign_labels``)."""
+    gumbel_draw) for the assignment (``core.assignment.assign_labels``).
+    A model with ``qat`` or ``frozen_int8`` raises (item 14b)."""
+    refuse_int8_training(model)
     return TrainStep(model, anchors, regress_ranges, img_norm=img_norm, num_classes=num_classes,
                      assignment_cfg=assignment_cfg, normalizer=normalizer, loss_cfg=loss_cfg)
 
@@ -168,7 +181,8 @@ def build_train_step_anchor(
     AnchorHead models.  ``spec``: ``apis.common.anchor_head_spec`` of the
     config.  ``batch``: device tensors under :data:`ANCHOR_BATCH_KEYS`.
     The assignment is deterministic (IoU-based): the step draws no random
-    numbers."""
+    numbers.  A model with ``qat`` raises (item 14b)."""
+    refuse_int8_training(model)
     return AnchorTrainStep(model, anchors, num_level_anchors, img_norm=img_norm, num_classes=num_classes,
                            spec=spec)
 

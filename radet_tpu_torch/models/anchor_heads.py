@@ -28,8 +28,8 @@ from .radet_head import RADetHead
 
 class ATSSHead(RADetHead):
     """RADet's head without the ReLU on the regression, with A anchors per
-    cell; same parameters, initialisation and outputs (cls, reg,
-    centerness)."""
+    cell; same parameters, initialisation, outputs (cls, reg, centerness)
+    and int8 towers (``quant='int8'``)."""
 
     reg_relu = False
 

@@ -1,8 +1,9 @@
 """Build a detector module from a reference-style model config dict (port of
-``radet_tpu/models/builder.py`` for its float backbone zoo + FPN subset):
-RADet with RADetHead, and SingleStageDetector with ATSSHead or AnchorHead,
-over ResNet (depths 18-152), ResNetV1d, ResNeXt, Res2Net, ResNeSt or
-RegNet."""
+``radet_tpu/models/builder.py`` for its backbone zoo + FPN subset): RADet
+with RADetHead, and SingleStageDetector with ATSSHead or AnchorHead, over
+ResNet (depths 18-152), ResNetV1d, ResNeXt, Res2Net, ResNeSt or RegNet;
+with the int8 deploy options ``backbone.quant`` and ``bbox_head.quant``
+(and ``qat``, ``frozen_int8``, whose training is not ported: item 14b)."""
 
 from __future__ import annotations
 
@@ -15,12 +16,11 @@ from .anchor_heads import AnchorHead, ATSSHead
 from .detector import RADet, SingleStageDetector
 from .fpn import FPN
 from .radet_head import RADetHead
-from .resnet import RegNet, ResNet
+from .resnet import QUANT_LEVELS, RegNet, ResNet
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
 
 _OTHER_FAMILIES = "ROADMAP.md Queue 1 item 12, other families"
-_INT8 = "ROADMAP.md Queue 1 item 14, int8 deploy family"
 
 
 def _require(ok: bool, what: str, item: str) -> None:
@@ -47,6 +47,48 @@ def head_spec_from_cfg(head: Dict[str, Any]) -> Dict[str, Any]:
 
 
 _BACKBONES = ("ResNet", "ResNetV1d", "ResNeXt", "Res2Net", "ResNeSt", "RegNet")
+
+
+def _backbone_quant(backbone: Dict[str, Any], btype: str):
+    """``backbone.quant``, with the JAX builder's conditions (AssertionError):
+    one of ``QUANT_LEVELS``, on the ResNet/ResNeXt trunk ('int8_stream':
+    not ResNetV1d, whose deep stem and avg-down it cannot carry)."""
+    q = backbone.get("quant", None)
+    if q is None:
+        return None
+    if q not in QUANT_LEVELS:
+        raise AssertionError(f"backbone.quant: unsupported {q!r} (None | 'int8' | 'int8_conv2' | 'int8_stream')")
+    if btype not in ("ResNet", "ResNetV1d", "ResNeXt"):
+        raise AssertionError(f"backbone.quant='int8' is implemented for the ResNet/ResNeXt trunk, not {btype}")
+    if q == "int8_stream" and btype not in ("ResNet", "ResNeXt"):
+        raise AssertionError("backbone.quant='int8_stream' needs the plain 7x7 stem and strided 1x1 downsample "
+                             "(V1d's deep_stem/avg_down: use 'int8')")
+    return q
+
+
+def _check_head_qat(head: Dict[str, Any], head_type: str) -> None:
+    """The JAX builder's fail-fast conditions on ``bbox_head.qat`` (AssertionError)."""
+    if head.get("qat"):
+        if head_type != "RADetHead":
+            raise AssertionError(f"bbox_head.qat is implemented for RADetHead's tower, not {head_type}")
+        if head.get("quant") != "int8":
+            raise AssertionError("bbox_head.qat needs quant='int8'")
+
+
+def _check_backbone_int8(backbone: Dict[str, Any]) -> None:
+    """The JAX builder's fail-fast conditions on ``backbone.qat`` and
+    ``frozen_int8`` (AssertionError)."""
+    if backbone.get("qat") and not backbone.get("quant"):
+        raise AssertionError("backbone.qat needs a backbone.quant level")
+    if backbone.get("frozen_int8"):
+        if backbone.get("quant") is not None or backbone.get("qat"):
+            raise AssertionError("backbone.frozen_int8 is the float-training lever; quant/qat configs already "
+                                 "quantize their own forward")
+        if backbone.get("type", "ResNet") not in ("ResNet", "ResNeXt"):
+            raise AssertionError("backbone.frozen_int8 reuses the int8_stream deploy path (plain 7x7-stem "
+                                 "Bottleneck trunks only)")
+        if backbone.get("frozen_stages", 1) < 0:
+            raise AssertionError("backbone.frozen_int8 quantizes the frozen prefix: it needs frozen_stages >= 0")
 _EXTRA_BACKBONES = ("Darknet", "HRNet", "SSDVGG", "DetectoRS_ResNet", "DetectoRS_ResNeXt")
 
 
@@ -58,14 +100,15 @@ def build_backbone(backbone: Dict[str, Any]):
     (ResNeSt); RegNet's ``arch`` a named preset (its ``depth`` unread).
     ``norm_eval`` and ``with_cp`` reach every trunk (the JAX package's
     RegNet reads no ``with_cp``: checkpointing changes no number, only
-    memory and time)."""
+    memory and time); ``quant``, ``qat`` and ``frozen_int8`` the ResNet
+    family."""
     btype = backbone.get("type", "ResNet")
     _require(btype not in _EXTRA_BACKBONES, f"backbone type {btype!r}", _OTHER_FAMILIES)
     if btype not in _BACKBONES:
         raise ValueError(f"unknown backbone type {btype!r} (the port builds {_BACKBONES})")
     _require(not backbone.get("stem_s2d"), "backbone.stem_s2d", _OTHER_FAMILIES)
-    for key in ("quant", "qat", "frozen_int8"):
-        _require(not backbone.get(key), f"backbone.{key}", _INT8)
+    _check_backbone_int8(backbone)
+    quant = _backbone_quant(backbone, btype)
     common = dict(
         out_indices=tuple(backbone.get("out_indices", (0, 1, 2, 3))),
         frozen_stages=backbone.get("frozen_stages", 1),
@@ -85,6 +128,9 @@ def build_backbone(backbone: Dict[str, Any]):
         radix=backbone.get("radix", 2) if btype == "ResNeSt" else 0,
         reduction_factor=backbone.get("reduction_factor", 4),
         avg_down_stride=backbone.get("avg_down_stride", True),
+        quant=quant,
+        qat=bool(backbone.get("qat", False)),
+        frozen_int8=bool(backbone.get("frozen_int8", False)),
         **common,
     )
 
@@ -106,8 +152,7 @@ def build_detector(model_cfg: Dict[str, Any], dtype: Any = None) -> SingleStageD
         raise ValueError("detector type 'RADet' pairs with RADetHead; use type='SingleStageDetector' "
                          f"for {htype}")
     _require(spec["use_sigmoid"], f"{htype} with a softmax loss_cls (use_sigmoid=False)", _OTHER_FAMILIES)
-    for key in ("quant", "qat"):
-        _require(not head.get(key), f"bbox_head.{key}", _INT8)
+    _check_head_qat(head, htype)
     if neck.get("act_cfg") is not None or neck.get("norm_cfg") is not None:
         raise ValueError("the FPN takes no act_cfg or norm_cfg")
 
@@ -121,6 +166,7 @@ def build_detector(model_cfg: Dict[str, Any], dtype: Any = None) -> SingleStageD
     num_outs = neck.get("num_outs", 5)
     num_classes = head["num_classes"]
     if htype == "AnchorHead":
+        # no tower to quantize: the JAX package's AnchorHead takes no quant either
         bbox_head = AnchorHead(num_classes, in_channels=fpn_out, num_levels=num_outs,
                                num_anchors=spec["num_base_anchors"])
     else:
@@ -131,6 +177,8 @@ def build_detector(model_cfg: Dict[str, Any], dtype: Any = None) -> SingleStageD
             stacked_convs=head.get("stacked_convs", 4),
             num_levels=num_outs,
             num_anchors=spec["num_base_anchors"],
+            quant=head.get("quant", None),
+            qat=bool(head.get("qat", False)),
         )
     return (RADet if det_type == "RADet" else SingleStageDetector)(
         trunk,

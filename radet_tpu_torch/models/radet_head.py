@@ -1,4 +1,4 @@
-"""RADet dense head (port of ``radet_tpu/models/radet_head.py``, float only).
+"""RADet dense head (port of ``radet_tpu/models/radet_head.py``).
 
 - ``stacked_convs`` blocks of 3x3 conv + GroupNorm(32) + ReLU on each of the
   cls and reg branches, shared across the pyramid levels;
@@ -6,6 +6,14 @@
   per-level learnable Scale, then ReLU) and an IoU-quality channel on the
   reg branch;
 - cls bias initialised to -log((1-p)/p), p = 0.01.
+
+With ``quant='int8'`` the towers' 3x3 convs run the int8 deploy arithmetic
+(``ops/quant.py``), in training mode too, as in the JAX package: the first
+conv of a tower quantizes its FPN level with the level tensor's dynamic
+absmax (over the whole batch, so one image's result depends on the others
+in its batch), and each block but the last hands the next its ReLU'd
+GroupNorm output as int8 with static per-channel scales
+``affine_act_scale(gamma, beta, 8)``.  The output convs stay float.
 
 mmdet names: ``cls_convs.{i}.conv/.gn``, ``atss_cls``, ``atss_reg``,
 ``atss_centerness``, ``scales.{i}.scale``.  Outputs are float32 and NHWC per
@@ -16,17 +24,22 @@ order (x fastest).
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.quant import QAT_TRAINING, affine_act_scale, int8_conv_forward, quantize_int8
 from .layers import Conv2d, normal_
+
+HEAD_QUANT = (None, "int8")
+_GN_BOUND_K = 8.0  # k of the static GroupNorm activation bound
 
 
 class ConvGNBlock(nn.Module):
-    """3x3 conv (compute dtype) + GroupNorm(32) in float32 + ReLU."""
+    """3x3 conv (compute dtype) + GroupNorm(32) in float32 + ReLU; its int8
+    form is :meth:`forward_int8`."""
 
     def __init__(self, in_channels: int, channels: int):
         super().__init__()
@@ -37,6 +50,31 @@ class ConvGNBlock(nn.Module):
         # GroupNorm in float32 on the upcast conv output, as the JAX package
         # does under bf16 compute
         return F.relu(self.gn(self.conv(x).float())).to(x.dtype)
+
+    def forward_int8(self, x, x_scale, emit_int8: bool, dtype):
+        """The int8 block: ``x`` float (``x_scale`` None: dynamic absmax) or
+        int8 with its scales.  Returns the output in ``dtype``, or with
+        ``emit_int8`` (the int8 output, its per-channel scales)."""
+        y = F.relu(self.gn(int8_conv_forward(self.conv, x, x_scale).float()))
+        if not emit_int8:
+            return y.to(dtype)
+        s = affine_act_scale(self.gn.weight.detach(), self.gn.bias.detach(), _GN_BOUND_K)
+        return quantize_int8(y, s), s
+
+
+def _run_tower(blocks, x, quant):
+    """A stacked ConvGNBlock tower; under int8 every block but the last hands
+    the next an int8 tensor and its static scales."""
+    if quant != "int8":
+        for blk in blocks:
+            x = blk(x)
+        return x
+    dtype, scale = x.dtype, None
+    for i, blk in enumerate(blocks):
+        if i == len(blocks) - 1:
+            return blk.forward_int8(x, scale, False, dtype)
+        x, scale = blk.forward_int8(x, scale, True, dtype)
+    return x
 
 
 class Scale(nn.Module):
@@ -62,8 +100,15 @@ class RADetHead(nn.Module):
         stacked_convs: int = 4,
         num_levels: int = 5,
         num_anchors: int = 1,
+        quant: Optional[str] = None,
+        qat: bool = False,
     ):
         super().__init__()
+        if quant not in HEAD_QUANT:
+            raise ValueError(f"{type(self).__name__}.quant: unsupported {quant!r} (None | 'int8')")
+        if qat and quant != "int8":
+            raise AssertionError(f"{type(self).__name__}.qat needs quant='int8'")
+        self.quant, self.qat = quant, qat
         chans = [in_channels] + [feat_channels] * (stacked_convs - 1)
         self.cls_convs = nn.ModuleList(ConvGNBlock(c, feat_channels) for c in chans)
         self.reg_convs = nn.ModuleList(ConvGNBlock(c, feat_channels) for c in chans)
@@ -93,13 +138,12 @@ class RADetHead(nn.Module):
     ) -> Tuple[List[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]:
         if len(feats) != len(self.scales):
             raise ValueError(f"expected {len(self.scales)} pyramid levels, got {len(feats)}")
+        if self.qat and self.training:
+            raise NotImplementedError(f"training with bbox_head.qat=True is not ported ({QAT_TRAINING})")
         cls_out, reg_out, iou_out = [], [], []
         for scale, x in zip(self.scales, feats):
-            cls_feat, reg_feat = x, x
-            for blk in self.cls_convs:
-                cls_feat = blk(cls_feat)
-            for blk in self.reg_convs:
-                reg_feat = blk(reg_feat)
+            cls_feat = _run_tower(self.cls_convs, x, self.quant)
+            reg_feat = _run_tower(self.reg_convs, x, self.quant)
             cls_score = self.atss_cls(cls_feat).float()
             bbox_pred = scale(self.atss_reg(reg_feat).float())
             if self.reg_relu:

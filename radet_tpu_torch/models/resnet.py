@@ -13,7 +13,9 @@ JAX package does.  ``with_cp`` checkpoints every residual block (flax's
 mmdet (``layer1.0.conv1.weight``, ``stem.3.weight``,
 ``layer2.0.convs.1.weight``, ``layer1.0.conv2.fc1.bias``,
 ``layer1.0.downsample.1.running_var``), so a released checkpoint loads
-with ``strict=True``.
+with ``strict=True``.  ``quant`` gives the plain and ResNeXt trunks the
+JAX package's int8 deploy arithmetic at eval (``QUANT_LEVELS``; the
+parameters stay the float convs').
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.quant import INV127, QAT_TRAINING, affine_act_scale, int8_conv_forward, quantize_int8
 from .layers import Conv2d, normal_, trunc_normal_
 
 # (block kind, blocks per stage) by depth
@@ -144,6 +147,58 @@ class BatchNorm(nn.Module):
         return y.to(x.dtype)
 
 
+# Deploy-time int8 (eval only; the JAX package's ``quant`` levels):
+# 'int8' runs every bottleneck's conv2 and conv3 (a BasicBlock's conv2) in
+# int8 with static per-channel activation scales from the preceding frozen
+# BatchNorm's affine; 'int8_conv2' only the 3x3; 'int8_stream' also carries
+# the residual stream between blocks as int8, its per-channel bound
+# accumulated across blocks (means add linearly, variances in quadrature),
+# so that conv1 and the downsample consume it directly.
+QUANT_LEVELS = ("int8", "int8_conv2", "int8_stream")
+_STREAM_K = 4.0  # k of every static k-sigma bound in the trunk
+
+
+def _bn_affine_stats(bn: BatchNorm):
+    """(|mean| bound, variance) per channel of a frozen BatchNorm's output:
+    (|beta|, gamma^2)."""
+    return bn.bias.detach().abs(), bn.weight.detach() ** 2
+
+
+def _stream_scale(stats):
+    """(mean bound, variance) -> per-channel int8 scale of the stream,
+    ``max(mean + 4 sqrt(var), 1e-6) / 127``."""
+    mean_b, var_b = stats
+    return (mean_b + _STREAM_K * torch.sqrt(var_b)).clamp(min=1e-6) * INV127
+
+
+def _max_pool_int8(x):
+    """``MaxPool2d(3, stride=2, padding=1)`` on int8 NCHW, padded with -128
+    as the JAX package's ``reduce_window``; max commutes with the monotone
+    quantization, so this equals quantizing the float pool."""
+    h, w = x.shape[2:]
+    ho, wo = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+    xp = F.pad(x, (1, 1, 1, 1), value=-128)
+    out = None
+    for r in range(3):
+        for c in range(3):
+            tap = xp[:, :, r:r + 2 * ho - 1:2, c:c + 2 * wo - 1:2]
+            out = tap if out is None else torch.maximum(out, tap)
+    return out
+
+
+def _bn_act_scale(bn: BatchNorm):
+    """Static per-channel int8 scales of a frozen BatchNorm + ReLU output
+    (the affine's k-sigma bound, k = 4)."""
+    return affine_act_scale(bn.weight.detach(), bn.bias.detach(), _STREAM_K)
+
+
+def _q8_conv(conv: nn.Module, x, x_scale, dtype):
+    """``conv`` run as the JAX package's ``Int8Conv`` (bfloat16 output),
+    handed on in the trunk's compute ``dtype`` (the JAX BatchNorm that
+    follows computes from the bfloat16 values in its own dtype)."""
+    return int8_conv_forward(conv, x, x_scale).to(dtype)
+
+
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1, groups: int = 1) -> Conv2d:
     """Bias-free conv with symmetric padding (kernel - 1) // 2."""
     return Conv2d(cin, cout, kernel, stride=stride, padding=(kernel - 1) // 2, groups=groups, bias=False)
@@ -180,29 +235,40 @@ def _residual(block: nn.Module, out, x):
 
 
 class BasicBlock(nn.Module):
-    """Two 3x3 convs (ResNet-18/34), stride on the first."""
+    """Two 3x3 convs (ResNet-18/34), stride on the first; ``quant`` 'int8'
+    or 'int8_conv2' runs conv2 in int8 at eval."""
 
-    def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: Optional[nn.Module] = None):
+    def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: Optional[nn.Module] = None,
+                 quant: Optional[str] = None):
         super().__init__()
         self.conv1 = _conv(inplanes, planes, 3, stride)
         self.bn1 = BatchNorm(planes)
         self.conv2 = _conv(planes, planes, 3)
         self.bn2 = BatchNorm(planes)
         self.downsample = downsample
+        self.quant = quant
 
     def forward(self, x):
         out = F.relu(self.bn1(self.conv1(x)))
-        return _residual(self, self.bn2(self.conv2(out)), x)
+        if self.quant is not None and not self.training:
+            s1 = _bn_act_scale(self.bn1)
+            out = _q8_conv(self.conv2, quantize_int8(out, s1), s1, x.dtype)
+        else:
+            out = self.conv2(out)
+        return _residual(self, self.bn2(out), x)
 
 
 class Bottleneck(nn.Module):
     """1x1 -> 3x3 (stride, ``groups``) -> 1x1 to ``planes * expansion``;
     ``width`` is the mid width (0: ``planes``).  ResNeXt passes its groups
-    and width, RegNet expansion 1 and its stage's groups and width."""
+    and width, RegNet expansion 1 and its stage's groups and width.  At
+    eval, ``quant`` (one of ``QUANT_LEVELS``) runs conv2 in int8, and conv3
+    too unless it is 'int8_conv2' (:meth:`forward_int8`)."""
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: Optional[nn.Module] = None,
-                 groups: int = 1, width: int = 0, expansion: int = 4):
+                 groups: int = 1, width: int = 0, expansion: int = 4, quant: Optional[str] = None):
         super().__init__()
+        self.quant = quant
         width = width or planes
         out = planes * expansion
         self.conv1 = _conv(inplanes, width, 1)
@@ -213,10 +279,50 @@ class Bottleneck(nn.Module):
         self.bn3 = BatchNorm(out)
         self.downsample = downsample
 
-    def forward(self, x):
+    def forward(self, x, stream=None, dtype=None):
+        """``stream`` and ``dtype``: see :meth:`forward_int8` ('int8_stream')."""
+        if self.quant is not None and not self.training:
+            return self.forward_int8(x, x.dtype if dtype is None else dtype, stream)
         out = F.relu(self.bn1(self.conv1(x)))
         out = F.relu(self.bn2(self.conv2(out)))
         return _residual(self, self.bn3(self.conv3(out)), x)
+
+    def forward_int8(self, x, dtype, stream=None):
+        """The int8 deploy arithmetic in the trunk's compute ``dtype``.  With
+        ``stream`` (the (mean bound, variance) of the int8 input ``x``, as
+        'int8_stream' carries it), conv1 and the downsample conv consume
+        ``x`` with the per-channel scales folded into their weights, and
+        the block returns (its int8 output, the stats of that output)."""
+        if stream is not None:
+            s_in = _stream_scale(stream)
+            out = _q8_conv(self.conv1, x, s_in, dtype)
+        else:
+            out = self.conv1(x)
+        out = F.relu(self.bn1(out))
+        s1 = _bn_act_scale(self.bn1)
+        out = F.relu(self.bn2(_q8_conv(self.conv2, quantize_int8(out, s1), s1, dtype)))
+        if self.quant == "int8_conv2":
+            out = self.conv3(out)
+        else:
+            s2 = _bn_act_scale(self.bn2)
+            out = _q8_conv(self.conv3, quantize_int8(out, s2), s2, dtype)
+        out = self.bn3(out)
+        if stream is None:
+            return _residual(self, out, x)
+        # XLA contracts a product that feeds an add into one fused
+        # multiply-add (``torch.addcmul``, rounded once): the dequantized
+        # stream's add, and bn3's gamma^2 into the variance bound
+        if self.downsample is not None:
+            ds_conv, ds_bn = self.downsample
+            y = F.relu(out + ds_bn(_q8_conv(ds_conv, x, s_in, dtype)))
+            id_stats = _bn_affine_stats(ds_bn)
+        else:
+            # the stream dequantized for the add, in float32 (the JAX add's promotion)
+            y = F.relu(torch.addcmul(out.float(), x.float(), s_in[:, None, None]))
+            id_stats = stream
+        gamma3 = self.bn3.weight.detach()
+        stats = (self.bn3.bias.detach().abs() + id_stats[0], torch.addcmul(id_stats[1], gamma3, gamma3))
+        return quantize_int8(y, _stream_scale(stats)), stats
 
 
 class Bottle2neck(nn.Module):
@@ -372,7 +478,17 @@ class ResNet(_Backbone):
     of 32, 32, 64 as ``stem``) and ``avg_down`` (ResNetV1d), ``groups`` and
     ``base_width`` (ResNeXt: mid width ``planes * base_width // 64 *
     groups``), ``scales`` > 1 (Res2Net's ``Bottle2neck``, avg-down
-    always), ``radix`` > 0 (ResNeSt's split attention, avg-down always)."""
+    always), ``radix`` > 0 (ResNeSt's split attention, avg-down always).
+
+    ``quant`` (one of ``QUANT_LEVELS``, plain and ResNeXt blocks only) is
+    the int8 deploy arithmetic at eval; in training mode the trunk is the
+    float one, as in the JAX package.  With 'int8_stream' (plain 7x7 stem
+    and strided 1x1 downsample only) the stem's BN + ReLU output is
+    quantized, max-pooled in int8, carried through every block as int8 and
+    dequantized at the taps.  ``qat`` and ``frozen_int8`` are accepted with
+    the JAX package's conditions; at eval a QAT trunk runs the deploy
+    arithmetic and a ``frozen_int8`` one the float path, and training
+    either raises (item 14b)."""
 
     def __init__(
         self,
@@ -389,6 +505,9 @@ class ResNet(_Backbone):
         reduction_factor: int = 4,
         avg_down_stride: bool = True,
         with_cp: bool = False,
+        quant: Optional[str] = None,
+        qat: bool = False,
+        frozen_int8: bool = False,
     ):
         super().__init__()
         if depth not in ARCH:
@@ -396,6 +515,8 @@ class ResNet(_Backbone):
         kind, stage_blocks = ARCH[depth]
         if kind == "basic" and (scales > 1 or radix > 0):
             raise ValueError(f"{'Res2Net' if scales > 1 else 'ResNeSt'} needs depth >= 50")
+        _check_quant(kind, quant, qat, frozen_int8, norm_eval, deep_stem, avg_down, scales, radix)
+        self.quant, self.qat, self.frozen_int8 = quant, qat, frozen_int8
         self.deep_stem = deep_stem
         if deep_stem:
             stem = []
@@ -415,9 +536,9 @@ class ResNet(_Backbone):
             if scales > 1:
                 return Bottle2neck(cin, planes, stride, downsample, scales, base_width)
             if kind == "basic":
-                return BasicBlock(cin, planes, stride, downsample)
+                return BasicBlock(cin, planes, stride, downsample, quant)
             width = planes * base_width // 64 * groups if groups > 1 else 0
-            return Bottleneck(cin, planes, stride, downsample, groups, width)
+            return Bottleneck(cin, planes, stride, downsample, groups, width, quant=quant)
 
         inplanes, widths = 64, []
         for i, n in enumerate(stage_blocks):
@@ -437,6 +558,52 @@ class ResNet(_Backbone):
     def forward_stem(self, x):
         x = self.stem(x) if self.deep_stem else F.relu(self.bn1(self.conv1(x)))
         return self.maxpool(x)
+
+    def forward(self, x):
+        if self.training and (self.qat or self.frozen_int8):
+            raise NotImplementedError(
+                f"training with backbone.{'qat' if self.qat else 'frozen_int8'}=True is not ported ({QAT_TRAINING})")
+        if self.quant != "int8_stream" or self.training:
+            return super().forward(x)
+        dtype = x.dtype
+        x = F.relu(self.bn1(self.conv1(x)))
+        stream = _bn_affine_stats(self.bn1)
+        x = _max_pool_int8(quantize_int8(x, _stream_scale(stream)))
+        outs = []
+        for i in range(self.num_stages):
+            for block in getattr(self, f"layer{i + 1}"):
+                x, stream = block(x, stream, dtype)
+            if i in self.out_indices:
+                outs.append((x.float() * _stream_scale(stream)[:, None, None]).to(dtype))
+        return tuple(outs)
+
+
+def _check_quant(kind, quant, qat, frozen_int8, norm_eval, deep_stem, avg_down, scales, radix) -> None:
+    """The JAX ResNet's conditions on ``quant``, ``qat`` and ``frozen_int8``,
+    as AssertionErrors (its asserts)."""
+    if qat and (quant is None or not norm_eval):
+        raise AssertionError("ResNet.qat needs a quant level and norm_eval=True (the static scales read frozen "
+                             "running stats)")
+    if quant is not None:
+        if quant not in QUANT_LEVELS:
+            raise AssertionError(f"ResNet.quant: {quant!r}")
+        if scales != 1 or radix != 0:
+            raise AssertionError("int8 trunk quantization is implemented for the plain/ResNeXt Bottleneck and "
+                                 "BasicBlock; Res2Net/ResNeSt blocks are not wired")
+        if quant == "int8_stream" and (kind != "bottleneck" or deep_stem or avg_down):
+            raise AssertionError("int8_stream carries the residual stream as int8 and is wired for the "
+                                 "plain/ResNeXt Bottleneck stem+trunk only (deep_stem/avg_down variants: use "
+                                 "quant='int8')")
+    if frozen_int8:
+        if quant is not None or qat:
+            raise AssertionError("ResNet.frozen_int8 is the float-training lever; quant/qat configs already "
+                                 "define their own quantized arithmetic")
+        if kind != "bottleneck" or deep_stem or avg_down or scales != 1 or radix != 0:
+            raise AssertionError("frozen_int8 reuses the int8_stream deploy path and is wired for the "
+                                 "plain/ResNeXt Bottleneck stem+trunk only")
+        if not norm_eval:
+            raise AssertionError("frozen_int8 derives static scales from frozen BN running stats "
+                                 "(norm_eval=True required)")
 
 
 class RegNet(_Backbone):

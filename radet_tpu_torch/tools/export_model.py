@@ -14,7 +14,10 @@ its outputs (boxes, scores, labels, valid), as the JAX tool's.  The NMS is
 the operator ``torch.ops.radet_tpu_torch.vote_nms`` (``batched_nms``): a
 process that loads the program imports ``radet_tpu_torch.ops.vote_nms``
 first, and on the card the loaded program launches the hand-written
-kernel.  Convolutions run in the config's ``compute_dtype`` on the card
+kernel.  An int8 config's convolutions are the operator
+``torch.ops.radet_tpu_torch.int8_conv`` (``radet_tpu_torch.ops.quant``),
+which the loaded program runs as the hand-written int8 kernel on the card.
+Convolutions run in the config's ``compute_dtype`` on the card
 and in float32 on the CPU.  ``--verify`` loads the file back in this
 process, runs it on (zero images, img_shapes = the input size, unit scale
 factors) and logs the output shapes, the valid count and the largest
@@ -82,6 +85,7 @@ def export(module, example):
 def load(path: str):
     """The saved program, ready to call: ``load(path)(images, img_shapes,
     scale_factors) -> (boxes, scores, labels, valid)``."""
+    import radet_tpu_torch.ops.quant  # noqa: F401  registers the int8 convolution operator
     import radet_tpu_torch.ops.vote_nms  # noqa: F401  registers the NMS operators
 
     return torch.export.load(path).module()

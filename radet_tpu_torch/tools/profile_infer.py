@@ -29,8 +29,12 @@ time goes to the range of the operator that launched it.  Prints:
 The peaks default to one H100 SXM's published dense bf16 rate (989.4
 TFLOP/s) and HBM3 bandwidth (3350 GB/s) at a 700 W power limit; the card's
 name and power limit (``nvidia-smi``) are printed beside them.  The last
-line is one JSON object with every number above.  ``--quant`` (the int8
-deploy family) raises.
+line is one JSON object with every number above.  ``--quant`` profiles an
+int8 deploy variant of the config, as the JAX tool's: ``int8`` the head's
+towers, ``int8_full`` those and the trunk's 3x3 and 1x1 convs
+(``backbone.quant='int8'``), ``int8_stream`` those and the int8 residual
+stream; the JSON then counts the int8 kernel's launches per step.  The
+int8 convolutions' operations count at the bf16 peak in the roofline.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
 from ..apis.common import build_infer_module, build_model_and_anchors
+from ..ops import int8_conv_cuda
 from ..utils.config import Config
 from ..utils.profiling import device_label, profiler_activities, resolve_device
 
@@ -57,7 +62,12 @@ DEFAULT_CONFIG = "configs/bop/r50_ycbv_pbr.py"
 H100_BF16_TFLOPS = 989.4  # H100 SXM, dense bf16 (NVIDIA's data sheet, 700 W)
 H100_HBM_GBS = 3350.0  # H100 SXM, HBM3
 PREPROCESS = "preprocess"
-_INT8 = "ROADMAP.md Queue 1 item 14, int8 deploy family"
+# --quant -> config overrides
+QUANT_OPTIONS = {
+    "int8": ["model.bbox_head.quant='int8'"],
+    "int8_full": ["model.bbox_head.quant='int8'", "model.backbone.quant='int8'"],
+    "int8_stream": ["model.bbox_head.quant='int8'", "model.backbone.quant='int8_stream'"],
+}
 
 
 def parse_args(argv=None):
@@ -73,7 +83,8 @@ def parse_args(argv=None):
     p.add_argument("--cfg-options", nargs="+", default=None)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--cpu", action="store_true", help="--device cpu")
-    p.add_argument("--quant", default=None, help=f"not ported ({_INT8})")
+    p.add_argument("--quant", default=None, choices=sorted(QUANT_OPTIONS),
+                   help="profile an int8 deploy variant: the head's towers, + the trunk, + the stream")
     return p.parse_args(argv)
 
 
@@ -218,12 +229,10 @@ def time_by_scope(events, names, cuda: bool):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    if args.quant:
-        raise NotImplementedError(f"--quant {args.quant} is not ported ({_INT8})")
     device = resolve_device(args.device, args.cpu)
     cuda = device.type == "cuda"
     label = device_label(device)
-    options = list(args.cfg_options or [])
+    options = list(args.cfg_options or []) + QUANT_OPTIONS.get(args.quant, [])
     if args.input_size:
         options.append(f"input_size={tuple(args.input_size)}")
     cfg = Config.fromfile(args.config, options)
@@ -249,6 +258,7 @@ def main(argv=None) -> dict:
                 step(*inputs)
             if cuda:
                 torch.cuda.synchronize(device)
+            launches0 = int8_conv_cuda.LAUNCHES
             with torch.profiler.profile(activities=profiler_activities()) as prof:
                 t0 = time.perf_counter()
                 for _ in range(args.iters):
@@ -256,6 +266,7 @@ def main(argv=None) -> dict:
                 if cuda:
                     torch.cuda.synchronize(device)
                 wall_us = (time.perf_counter() - t0) * 1e6 / args.iters
+            int8_launches = (int8_conv_cuda.LAUNCHES - launches0) / args.iters
     finally:
         scopes.remove()
     if args.trace_dir:
@@ -294,7 +305,8 @@ def main(argv=None) -> dict:
     for (name, scope), us in top:
         print(f"{us / n / 1e3:8.4f} {100 * us / n / max(total_us, 1e-9):5.1f}%  {scope:<14} {name[:100]}")
     summary = dict(
-        batch=b, input_size=[h, w], device=label, dtype=str(model.dtype), iters=n,
+        batch=b, input_size=[h, w], device=label, dtype=str(model.dtype), iters=n, quant=args.quant,
+        int8_conv_launches_per_step=int8_launches if cuda else None,
         ms_per_iter=wall_us / 1e3, measured_ms=total_us / 1e3, time_kind=what,
         bound_ms=bound_us / 1e3, busy_share=busy, device_union_ms=busy_us / n / 1e3 if cuda else None, peak_tflops=args.peak_tflops, peak_bw_gbs=args.peak_bw_gbs,
         by_module=modules,

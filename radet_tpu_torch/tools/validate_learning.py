@@ -10,24 +10,33 @@ produce a working detector.
 
 Prints ``RESULT mAP50=... mAP=...``, then ``PASS``, or ``FAIL`` and exits 1
 when mAP50 is below ``--min-map50`` (0.5).  ``--cpu`` is ``--device cpu``.
+``--int8-eval`` then evaluates the same trained weights through the int8
+deploy path three times (head tower only; with the trunk's 3x3 convs,
+``int8_conv2``; with its 3x3 and 1x1 convs, ``int8``) and prints each
+``RESULT int8-... mAP50=... mAP=...`` with its deltas.  ``--qat`` and
+``--frozen-int8`` train quantized and raise (item 14b).
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import os.path as osp
 import sys
 import tempfile
 
 import torch
 
+from ..apis.common import build_model_and_anchors
 from ..apis.test import test_from_config
 from ..apis.train import train_detector
 from ..data.synthetic import make_synthetic_bop
 from ..utils.config import Config
 from ..utils.logging import get_root_logger
 
-_INT8 = "ROADMAP.md Queue 1 item 14, int8 deploy family"
+_INT8_TRAINING = "ROADMAP.md Queue 1 item 14b, int8 training"
+# --int8-eval's variants: (tag, backbone.quant), each with the head's tower in int8
+INT8_EVALS = (("int8-head", None), ("int8-conv2", "int8_conv2"), ("int8-full", "int8"))
 
 
 def parse_args(argv=None):
@@ -46,11 +55,13 @@ def parse_args(argv=None):
     p.add_argument("--num-classes", type=int, default=3)
     p.add_argument("--dtype", default="float32")
     p.add_argument("--workers", type=int, default=4)
-    for flag in ("--qat", "--frozen-int8", "--int8-eval"):
-        p.add_argument(flag, action="store_true", help=f"not ported ({_INT8})")
-    p.add_argument("--qat-iters", type=int, default=200, help=f"not ported ({_INT8})")
-    p.add_argument("--qat-quant", default="auto", help=f"not ported ({_INT8})")
-    p.add_argument("--frozen-int8-iters", type=int, default=200, help=f"not ported ({_INT8})")
+    p.add_argument("--int8-eval", action="store_true",
+                   help="also evaluate the trained weights through the int8 deploy path (head; + conv2; full)")
+    for flag in ("--qat", "--frozen-int8"):
+        p.add_argument(flag, action="store_true", help=f"not ported ({_INT8_TRAINING})")
+    p.add_argument("--qat-iters", type=int, default=200, help=f"not ported ({_INT8_TRAINING})")
+    p.add_argument("--qat-quant", default="auto", help=f"not ported ({_INT8_TRAINING})")
+    p.add_argument("--frozen-int8-iters", type=int, default=200, help=f"not ported ({_INT8_TRAINING})")
     return p.parse_args(argv)
 
 
@@ -121,12 +132,32 @@ def learning_config(args, root: str) -> Config:
     ))
 
 
+def int8_eval(cfg, model, metrics, batch: int, device) -> dict:
+    """The trained ``model``'s weights evaluated through each variant of
+    ``INT8_EVALS``; prints each one's RESULT line, returns their metrics."""
+    out = {}
+    weights = model.state_dict()
+    for tag, trunk in INT8_EVALS:
+        cfg_q = copy.deepcopy(cfg)
+        cfg_q.model["bbox_head"]["quant"] = "int8"
+        if trunk:
+            cfg_q.model["backbone"]["quant"] = trunk
+        model_q = build_model_and_anchors(cfg_q, dtype=model.dtype)[0]
+        model_q.load_state_dict(weights)
+        _, _, m = test_from_config(cfg_q, model_q.to(device), split="test", batch_size=batch)
+        print(f"RESULT {tag} mAP50={m['bbox_mAP_50']:.3f} mAP={m['bbox_mAP']:.3f} "
+              f"(delta mAP50 {m['bbox_mAP_50'] - metrics['bbox_mAP_50']:+.3f}, "
+              f"mAP {m['bbox_mAP'] - metrics['bbox_mAP']:+.3f})", flush=True)
+        out[tag] = m
+    return out
+
+
 def main(argv=None) -> dict:
     """Run the check; returns the COCO metrics (exits 1 below ``--min-map50``)."""
     args = parse_args(argv)
-    for flag, given in (("--qat", args.qat), ("--frozen-int8", args.frozen_int8), ("--int8-eval", args.int8_eval)):
+    for flag, given in (("--qat", args.qat), ("--frozen-int8", args.frozen_int8)):
         if given:
-            raise NotImplementedError(f"{flag} is not ported ({_INT8})")
+            raise NotImplementedError(f"{flag} is not ported ({_INT8_TRAINING})")
     device = torch.device("cpu" if args.cpu else args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass --device cpu (or --cpu) to run on the CPU")
@@ -137,9 +168,11 @@ def main(argv=None) -> dict:
         cfg = learning_config(args, root)
         state = train_detector(cfg, work_dir=osp.join(root, "work"), eval_during_train=False, device=device)
         _, _, metrics = test_from_config(cfg, state.model, split="test", batch_size=args.batch)
-    logger.info("final metrics: " + " ".join(f"{k}={v:.3f}" for k, v in metrics.items()))
-    map50 = metrics["bbox_mAP_50"]
-    print(f"RESULT mAP50={map50:.3f} mAP={metrics['bbox_mAP']:.3f}", flush=True)
+        logger.info("final metrics: " + " ".join(f"{k}={v:.3f}" for k, v in metrics.items()))
+        map50 = metrics["bbox_mAP_50"]
+        print(f"RESULT mAP50={map50:.3f} mAP={metrics['bbox_mAP']:.3f}", flush=True)
+        if args.int8_eval:
+            metrics["int8_eval"] = int8_eval(cfg, state.model, metrics, args.batch, device)
     if map50 < args.min_map50:
         print(f"FAIL: mAP50 {map50:.3f} < {args.min_map50}", flush=True)
         sys.exit(1)

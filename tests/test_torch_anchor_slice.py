@@ -16,6 +16,7 @@ through ``state_dict_from_flax`` with ``strict=True``.
 """
 
 import json
+import os
 import os.path as osp
 import subprocess
 import sys
@@ -208,13 +209,19 @@ def test_train_cli_checkpoint_serves_and_tests(name, png_opts, tmp_path, capsys)
     the PNG set through the config's own pipeline (no distance maps), one
     eval at the last step; ``init_detector`` loads the checkpoint,
     ``BatchingDetector`` serves it and ``tools.test --eval bbox`` evaluates
-    it."""
+    it.  The training run is reproducible: the loader runs process workers,
+    which seed every sample's draws from (seed, epoch, index) (thread
+    workers draw RandomFlip from the process's unseeded global ``random``),
+    and the CLI's process computes on one thread (threaded CPU reductions
+    in the backward moved the weights by ~3e-5 between two runs)."""
     path, options = ANCHOR_CONFIGS[name]
-    opts = options + png_opts + ["log_config.interval=1", "evaluation.interval=2", "checkpoint_config.interval=2"]
+    opts = options + png_opts + ["log_config.interval=1", "evaluation.interval=2", "checkpoint_config.interval=2",
+                                 "data.worker_mode='process'"]
     work = tmp_path / "work"
     cmd = [sys.executable, "-m", "radet_tpu_torch.tools.train", path, "--work-dir", str(work), "--device", "cpu",
            "--max-iters", "2", "--cfg-options", *opts]
-    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert proc.returncode == 0, proc.stderr[-3000:]
     iters = [ln for ln in proc.stderr.splitlines() if " - iter " in ln]
     assert len(iters) == 2 and all("loss_cls" in ln and "num_pos" in ln for ln in iters)

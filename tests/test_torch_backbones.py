@@ -267,7 +267,7 @@ def test_builder_types_map_onto_jax_variables(backbone):
     assert widths == port.backbone.out_channels[1:]
 
 
-ITEM12, ITEM14 = "item 12", "item 14"
+ITEM12 = "item 12"
 
 
 @pytest.mark.parametrize("change,item", [
@@ -278,15 +278,26 @@ ITEM12, ITEM14 = "item 12", "item 14"
     (dict(backbone=dict(type="DetectoRS_ResNeXt", depth=50)), ITEM12),
     (dict(neck=dict(type="ChannelMapper", out_channels=32)), ITEM12),
     (dict(neck=dict(type="FPN", out_channels=32, add_extra_convs="on_lateral")), ITEM12),
-    (dict(backbone=dict(type="ResNet", depth=50, quant="int8")), ITEM14),
-    (dict(backbone=dict(type="ResNet", depth=50, quant="int8", qat=True)), ITEM14),
-    (dict(backbone=dict(type="ResNet", depth=50, frozen_int8=True)), ITEM14),
-    (dict(bbox_head=dict(type="RADetHead", num_classes=3, in_channels=32, quant="int8")), ITEM14),
 ])
 def test_unported_variants_raise_naming_their_item(change, item):
     model_cfg = {**_small_model(dict(type="ResNet", depth=50)), **change}
     with pytest.raises(NotImplementedError, match=item):
         build_detector(model_cfg)
+
+
+@pytest.mark.parametrize("part,options", [
+    ("backbone", dict(quant="int8")),
+    ("backbone", dict(quant="int8", qat=True)),
+    ("backbone", dict(frozen_int8=True)),
+    ("bbox_head", dict(quant="int8")),
+], ids=["quant", "qat", "frozen_int8", "head_quant"])
+def test_int8_variants_build_with_the_plain_parameter_names(part, options):
+    """The int8 deploy options (ported: item 14a) change no parameter, as
+    the JAX package's ``Int8Conv`` keeps the float conv's variables."""
+    base = _small_model(dict(type="ResNet", depth=50))
+    int8 = build_detector({**base, part: {**base[part], **options}})
+    assert [(k, v.shape) for k, v in int8.state_dict().items()] == [
+        (k, v.shape) for k, v in build_detector(base).state_dict().items()]
 
 
 @pytest.mark.parametrize("backbone", [dict(type="ResNet", depth=50), dict(type="ResNeXt", depth=50, groups=32)],
