@@ -411,6 +411,23 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int) -> float:
+    """Mean device ms per call of ``fn`` over ``iters`` back-to-back calls:
+    a spin kernel (~5 ms) keeps the card busy while the host queues them
+    all, so the host's time per call does not pace the reading (it is
+    measured apart, e.g. ``int8_host_us``)."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def alternate_ms(kernel_fn, plain_fn, kernel_iters: int, plain_iters: int):
     """Plain, kernel, kernel, plain, each warmed up and timed by CUDA events;
     returns (kernel ms, plain ms, kernel runs, plain runs)."""
@@ -2810,17 +2827,26 @@ INT8_FLIPS, INT8_LEVELS, INT8_MAP_RTOL = 0.3, 16, 0.5
 # a grouped conv with 4 channels a group (ResNeXt-50 32x4d's layer1 3x3),
 # batch 8 at 480x640: (N, C, H, W, Cout, k, stride, groups)
 INT8_GROUPED = (8, 128, 120, 160, 128, 3, 1, 32)
+INT8_BIG = 128  # the deploy batch of the by-shape timings
+SPIN_CYCLES = 10_000_000  # device_ms's lead: ~5 ms at the H100's clocks, above 20 calls of ~90 host us
 SERVE_INT8 = 16  # one full batch: the head's dynamic absmax spans the batch
 
 
-def int8_bound(x_shape, w_shape, out_shape):
-    """(ms, 'bytes' or 'operations'): int8 in, int8 weights and bf16 out over
-    3.35 TB/s against 2 N Ho Wo Cout Cin/g kh kw int8 operations at 1979 TOPS."""
+def int8_bound(x_shape, w_shape, out_shape, stride, padding):
+    """(ms, 'bytes' or 'operations'): the int8 input the conv reads (the rows
+    and columns some tap touches: a quarter of it for a 1x1 stride-2 conv),
+    int8 weights and bf16 out over 3.35 TB/s against 2 N Ho Wo Cout Cin/g
+    kh kw int8 operations at 1979 TOPS."""
     n, _, h, w = x_shape
     cout, cin_g, kh, kw = w_shape
     ho, wo = out_shape[2:]
+
+    def touched(size, out, k, s, p):
+        return len({o * s - p + t for o in range(out) for t in range(k)} & set(range(size)))
+
     ops = 2.0 * n * ho * wo * cout * cin_g * kh * kw
-    nbytes = n * x_shape[1] * h * w + cout * cin_g * kh * kw + 2.0 * n * cout * ho * wo
+    nbytes = (n * x_shape[1] * touched(h, ho, kh, stride[0], padding[0]) * touched(w, wo, kw, stride[1], padding[1])
+              + cout * cin_g * kh * kw + 2.0 * n * cout * ho * wo)
     t_ops, t_bytes = ops / INT8_TOPS, nbytes / HBM_RATE
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
@@ -2838,7 +2864,7 @@ def int_mm_ms(x, wt, stride, groups, iters: int):
     except RuntimeError as e:
         print(f"  _int_mm refused {tuple(a.shape)} x {tuple(b.shape)}: {str(e).splitlines()[0]}")
         return None
-    return cuda_ms(lambda: torch._int_mm(a, b), iters)
+    return device_ms(lambda: torch._int_mm(a, b), iters)
 
 
 @contextlib.contextmanager
@@ -2877,17 +2903,23 @@ def int8_calls(det, images) -> dict:
 
 
 def int8_kernel_by_shape(gpu: str, calls: dict) -> dict:
-    """The kernel against its plain version (float64 on the card, without
+    """Both kernels against the plain version (float64 on the card, without
     cuDNN: an exact sum) bit for bit, int32 sums and bf16 output, at every
-    recorded shape and the grouped one; timed at batch 8 (the recorded
-    inputs) and 128 (them repeated), beside the bound, ``torch._int_mm``
-    (1x1 stride-1 shapes) and the bf16 cuDNN conv (a different function).
-    Returns {shape label: numbers}."""
+    recorded shape and the grouped one, at batch 8 (the recorded inputs) and
+    128 (them and 120 seeded random images): the wgmma kernel where
+    ``plan`` takes the shape, the mma.sync kernel everywhere.  Each timed
+    at both batches beside the bound, the wgmma kernel also with one block
+    per tile, ``torch._int_mm`` (1x1 stride-1 shapes) and the bf16 cuDNN conv
+    (a different function), each by its device time (``device_ms``: at
+    batch 8 a call's host time exceeds most kernels'; ``int8_host_us``
+    reads it).  Returns {shape label: numbers}."""
     import radet_tpu_torch.ops.int8_conv_cuda as icc
     from radet_tpu_torch.ops.quant import int8_conv_plain
 
     dev = torch.device("cuda")
+    t0 = time.perf_counter()
     g = torch.Generator().manual_seed(SEED + 21)
+    g_dev = torch.Generator(device=dev).manual_seed(SEED + 23)
     n, c, h, w, cout, k, st, groups = INT8_GROUPED
     grouped = (torch.randint(-127, 128, (n, c, h, w), generator=g, dtype=torch.int8).to(dev).contiguous(
         memory_format=torch.channels_last),
@@ -2895,50 +2927,107 @@ def int8_kernel_by_shape(gpu: str, calls: dict) -> dict:
         (torch.rand(cout, generator=g) * 1e-3).to(dev), None, [st, st], [k // 2, k // 2], groups, torch.bfloat16)
     cases = [(c, True) for c in calls.values()] + [(grouped, False)]
     out = {}
-    print(f"int8: the kernel against its plain version at the {len(calls)} distinct int8 conv shapes of "
-          f"{', '.join(INT8_TIMED[1:])} at 480x640 (batch 8, the main path's inputs) and a grouped one "
-          f"(4 channels a group, random int8); times by CUDA events at batch 8 and 128 [{gpu}]:")
-    print("  N C H W -> Cout k/s g | batch 8: kernel ms, plain ms, bound ms (by), share | batch 128: kernel ms, "
-          "bound ms, share, _int_mm ms, cuDNN bf16 conv ms (not the same function)")
-    for (x, wt, mult, bias, stride, padding, groups, _), on_path in cases:
-        args = (mult, bias, stride, padding, groups)
+    print(f"int8: both kernels against the plain version at the {len(calls)} distinct int8 conv shapes of "
+          f"{', '.join(INT8_TIMED[1:])} at 480x640 (batch 8: the main path's inputs; batch 128: them and 120 random "
+          f"images) and a grouped one (4 channels a group, random int8); device times by CUDA events, the host kept "
+          f"ahead [{gpu}]:")
+    print("  N C H W -> Cout k/s g path | batch 8: kernel ms, mma ms, plain ms, bound ms (by), share | batch 128: "
+          "kernel ms, one block per tile ms, mma ms, bound ms, share, _int_mm ms, cuDNN bf16 conv ms (not the same "
+          "function)")
+
+    def check(x, wt, args, paths, batch):
         for dtype in (torch.int32, torch.bfloat16):
-            got = icc.int8_conv_cuda(x, wt, *args, dtype)
             with torch.backends.cudnn.flags(enabled=False):
                 want = int8_conv_plain(x, wt, *args, dtype)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                fail(f"int8_conv x {tuple(x.shape)} w {tuple(wt.shape)} {dtype}: the kernel differs from the plain "
-                     f"version in {int((got != want).sum())} elements")
+            for path in paths:
+                got = icc.int8_conv_cuda(x, wt, *args, dtype, path=path)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f"int8_conv {path} x {tuple(x.shape)} w {tuple(wt.shape)} {dtype} (batch {batch}): the "
+                         f"kernel differs from the plain version in {int((got != want).sum())} elements")
+            del want
+
+    for (x, wt, mult, bias, stride, padding, groups, _), on_path in cases:
+        args = (mult, bias, stride, padding, groups)
+        cfg = icc.plan(x.shape, wt.shape, tuple(stride), tuple(padding), groups, 256)
+        paths = ("wgmma", "mma") if cfg["path"] == "wgmma" else ("mma",)
+        if on_path and cfg["path"] != "wgmma":
+            fail(f"int8_conv x {tuple(x.shape)} w {tuple(wt.shape)}: a main-path shape outside the wgmma kernel")
+        check(x, wt, args, paths, 8)
         label = (f"{x.shape[0]} {x.shape[1]} {x.shape[2]} {x.shape[3]} -> {wt.shape[0]} {wt.shape[2]}/{stride[0]} "
                  f"{groups}")
-        row = dict(x=list(x.shape), w=list(wt.shape), stride=stride[0], groups=groups, on_main_path=on_path)
-        kern = lambda: icc.int8_conv_cuda(x, wt, *args, torch.bfloat16)  # noqa: E731
-        kern()
-        row["ms"] = cuda_ms(kern, 20)
+        row = dict(x=list(x.shape), w=list(wt.shape), stride=stride[0], groups=groups, on_main_path=on_path,
+                   path=cfg["path"], plan={k: cfg[k] for k in ("patch_w", "patch_h", "patch_n", "bk", "bn", "stages",
+                                                              "tiles", "grid")} if cfg["path"] == "wgmma" else None)
+
+        def kern(xx, **kw):
+            return lambda: icc.int8_conv_cuda(xx, wt, *args, torch.bfloat16, **kw)
+
+        row["ms"] = device_ms(kern(x), 20)
+        row["mma_ms"] = device_ms(kern(x, path="mma"), 20)
         with torch.backends.cudnn.flags(enabled=False):
             row["plain_ms"] = cuda_ms(lambda: int8_conv_plain(x, wt, *args, torch.bfloat16), 2)
-        row["bound_ms"], row["bound_by"] = int8_bound(x.shape, wt.shape, got.shape)
+        ho, wo = icc.conv_output_hw(x.shape[2], x.shape[3], wt.shape[2:], stride, padding)
+        row["bound_ms"], row["bound_by"] = int8_bound(x.shape, wt.shape, (x.shape[0], wt.shape[0], ho, wo), stride,
+                                                      padding)
         row["int_mm_ms"] = int_mm_ms(x, wt, stride, groups, 20)
-        big = x.repeat(16, 1, 1, 1).contiguous(memory_format=torch.channels_last)
-        kern = lambda: icc.int8_conv_cuda(big, wt, *args, torch.bfloat16)  # noqa: E731
-        out_big = kern()
-        row["ms_128"] = cuda_ms(kern, 10)
-        row["bound_ms_128"], row["bound_by_128"] = int8_bound(big.shape, wt.shape, out_big.shape)
+        rand = torch.randint(-127, 128, (INT8_BIG - x.shape[0],) + tuple(x.shape[1:]), generator=g_dev,
+                             dtype=torch.int8, device=dev)
+        big = torch.cat([x, rand]).contiguous(memory_format=torch.channels_last)
+        del rand
+        check(big, wt, args, paths, INT8_BIG)
+        for key, kw, iters in (("ms_128", {}, 10), ("ms_128_per_tile", dict(path="wgmma", persistent=False), 10),
+                               ("mma_ms_128", dict(path="mma"), 5)):
+            if kw.get("path", "mma") == "wgmma" and cfg["path"] != "wgmma":
+                row[key] = None
+                continue
+            row[key] = device_ms(kern(big, **kw), iters)
+        row["bound_ms_128"], row["bound_by_128"] = int8_bound(big.shape, wt.shape, (INT8_BIG, wt.shape[0], ho, wo),
+                                                              stride, padding)
         row["int_mm_ms_128"] = int_mm_ms(big, wt, stride, groups, 10)
         xb, wb = big.to(torch.bfloat16), wt.to(torch.bfloat16)
-        conv = lambda: F.conv2d(xb, wb, None, stride, padding, 1, groups)  # noqa: E731
-        conv()
-        row["cudnn_bf16_ms_128"] = cuda_ms(conv, 10)
-        del big, out_big, xb, wb
+        row["cudnn_bf16_ms_128"] = device_ms(lambda: F.conv2d(xb, wb, None, stride, padding, 1, groups), 10)
+        del big, xb, wb
         out[label] = row
-        print(f"  {label} | {row['ms']:.4f}, {row['plain_ms']:.3f}, {row['bound_ms']:.4f} ({row['bound_by']}), "
-              f"{row['bound_ms'] / row['ms']:.1%} | {row['ms_128']:.4f}, {row['bound_ms_128']:.4f} "
-              f"({row['bound_by_128']}), {row['bound_ms_128'] / row['ms_128']:.1%}, "
-              + ("-" if row["int_mm_ms_128"] is None else f"{row['int_mm_ms_128']:.4f}")
-              + f", {row['cudnn_bf16_ms_128']:.4f}")
+        opt = lambda v: "-" if v is None else f"{v:.4f}"  # noqa: E731
+        print(f"  {label} {cfg['path']} | {row['ms']:.4f}, {row['mma_ms']:.4f}, {row['plain_ms']:.3f}, "
+              f"{row['bound_ms']:.4f} ({row['bound_by']}), {row['bound_ms'] / row['ms']:.1%} | {row['ms_128']:.4f}, "
+              f"{opt(row['ms_128_per_tile'])}, {row['mma_ms_128']:.4f}, {row['bound_ms_128']:.4f} "
+              f"({row['bound_by_128']}), {row['bound_ms_128'] / row['ms_128']:.1%}, {opt(row['int_mm_ms_128'])}, "
+              f"{row['cudnn_bf16_ms_128']:.4f}")
     torch.cuda.empty_cache()
-    print(f"  every shape: int32 sums and bf16 outputs equal bit for bit [{gpu}]")
+    print(f"  every shape, both batches: int32 sums and bf16 outputs of {' and '.join(icc.PATHS)} equal the plain "
+          f"version bit for bit ({time.perf_counter() - t0:.1f} s) [{gpu}]")
+    main = [r for r in out.values() if r["on_main_path"]]
+    half = sum(r["bound_ms_128"] / r["ms_128"] >= 0.5 for r in main)
+    beats = [r for r in main if r["int_mm_ms_128"] is not None]
+    print(f"  batch 128, the {len(main)} main-path shapes: wgmma faster than mma at "
+          f"{sum(r['ms_128'] < r['mma_ms_128'] for r in main)}, at half its bound or more at {half}, no slower than "
+          f"_int_mm at {sum(r['ms_128'] <= r['int_mm_ms_128'] for r in beats)} of {len(beats)}; persistent faster "
+          f"than one block per tile at {sum(r['ms_128'] < r['ms_128_per_tile'] for r in main)}")
+    return out
+
+
+def int8_host_us(calls: dict) -> dict:
+    """Host microseconds per call of each path (the wrapper, the cached plan
+    and, for wgmma, the three tensor maps' encoding included; the launches
+    queue without a synchronisation) on the smallest recorded shape."""
+    import radet_tpu_torch.ops.int8_conv_cuda as icc
+
+    x, wt, mult, bias, stride, padding, groups, _ = min(calls.values(), key=lambda a: a[0].numel())
+    out = {}
+    for path in icc.PATHS:
+        fn = lambda: icc.int8_conv_cuda(x, wt, mult, bias, stride, padding, groups, torch.bfloat16,  # noqa: E731
+                                        path=path)
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        out[path] = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+    print(f"  host us per call at x {tuple(x.shape)} w {tuple(wt.shape)}: wgmma {out['wgmma']:.1f} (three "
+          f"cuTensorMapEncodeTiled included), mma {out['mma']:.1f}")
     return out
 
 
@@ -2965,14 +3054,16 @@ def int8_inference(name: str, gpu: str, repo: Path, imgs) -> tuple:
     det = int8_detector(name, repo)
     model = det.model
     icc.LAUNCHES = vnc.LAUNCHES = 0
+    icc.PATH_LAUNCHES.update(dict.fromkeys(icc.PATHS, 0))
     results = inference_detector(det, imgs)
     torch.cuda.synchronize()
-    launches, nms = icc.LAUNCHES, vnc.LAUNCHES
+    launches, nms, paths = icc.LAUNCHES, vnc.LAUNCHES, dict(icc.PATH_LAUNCHES)
     print(f"  {name}: backbone.quant {model.backbone.quant!r}, bbox_head.quant {model.bbox_head.quant!r}; "
           f"inference_detector on {len(imgs)} images: int8_conv kernel launches {launches} (expected "
-          f"{INT8_LAUNCHES[name]}), vote_nms {nms}, detections per image {[len(r['boxes']) for r in results]}")
-    if launches != INT8_LAUNCHES[name] or nms != 1:
-        fail(f"{name}: int8_conv launched {launches} times, vote_nms {nms}, in one forward")
+          f"{INT8_LAUNCHES[name]}; by path {paths}), vote_nms {nms}, detections per image "
+          f"{[len(r['boxes']) for r in results]}")
+    if launches != INT8_LAUNCHES[name] or nms != 1 or paths["wgmma"] != launches:
+        fail(f"{name}: int8_conv launched {launches} times (by path {paths}), vote_nms {nms}, in one forward")
     for r in results:
         if not len(r["boxes"]) or not (np.isfinite(r["boxes"]).all() and np.isfinite(r["scores"]).all()):
             fail(f"{name}: an image without detections, or non-finite ones")
@@ -3003,7 +3094,7 @@ def int8_inference(name: str, gpu: str, repo: Path, imgs) -> tuple:
     if not (shares[0] <= INT8_FIRST_FLIPS and first <= 1 and flips <= INT8_FLIPS and levels <= INT8_LEVELS
             and rel <= INT8_MAP_RTOL):
         fail(f"{name}: the card's float32 int8 forward disagrees with the CPU's")
-    return launches, det
+    return launches, paths, det
 
 
 def int8_timing(gpu: str, repo: Path) -> dict:
@@ -3053,14 +3144,15 @@ def int8_phase(gpu: str, repo: Path, work: str, test_opts, imgs) -> dict:
     for name in INT8_TIMED[1:]:
         calls.update(int8_calls(int8_detector(name, repo), images))
     by_shape = int8_kernel_by_shape(gpu, calls)
+    host_us = int8_host_us(calls)
     del calls
     torch.cuda.empty_cache()
 
     print(f"int8: init_detector and inference_detector at full width, 480x640, bf16 (seeded random weights, cls "
           f"bias 0) [{gpu}]:")
-    launches = {}
+    launches, paths = {}, {}
     for name in INT8_CONFIGS:
-        launches[name], det = int8_inference(name, gpu, repo, imgs)
+        launches[name], paths[name], det = int8_inference(name, gpu, repo, imgs)
         if name != INT8_MAIN:
             del det
             torch.cuda.empty_cache()
@@ -3105,10 +3197,10 @@ def int8_phase(gpu: str, repo: Path, work: str, test_opts, imgs) -> dict:
                                         "--batch", 128, "--iters", 3, "--top", 1000], "profile_infer --quant")
     s = last_json(out_text)
     top = sorted(s["by_module"].items(), key=lambda kv: -kv[1]["ms"])
-    int8_ms = sum(k["ms"] for k in s["top"] if "int8_conv_kernel" in k["name"])
+    int8_ms = sum(k["ms"] for k in s["top"] if any(name in k["name"] for name in icc.CUDA_KERNELS))
     print(f"tools: python -m radet_tpu_torch.tools.profile_infer --quant int8_stream --batch 128 ({wall:.1f} s): "
           f"{s['ms_per_iter']:.3f} ms per step wall, device {s['measured_ms']:.3f} ms, busy {s['busy_share']:.4f}, "
-          f"int8_conv launches per step {s['int8_conv_launches_per_step']}, int8_conv_kernel {int8_ms:.3f} ms per "
+          f"int8_conv launches per step {s['int8_conv_launches_per_step']}, int8 conv kernels {int8_ms:.3f} ms per "
           f"step; by module: " + ", ".join(f"{k} {v['ms']:.3f}" for k, v in top) + f" [{gpu}]")
     if s["int8_conv_launches_per_step"] != INT8_LAUNCHES[INT8_MAIN] or not int8_ms > 0:
         fail("profile_infer --quant int8_stream: the int8 kernel's launches per step or time are off")
@@ -3121,7 +3213,8 @@ def int8_phase(gpu: str, repo: Path, work: str, test_opts, imgs) -> dict:
     times = int8_timing(gpu, repo)
     # the kernels line: the slowest of the main path's shapes at batch 8
     main = max((r for r in by_shape.values() if r["on_main_path"]), key=lambda r: r["ms"])
-    return dict(launches=launches, by_shape=by_shape, main=main, times=times, export=run["int8_launches"])
+    return dict(launches=launches, paths=paths[INT8_MAIN], by_shape=by_shape, host_us=host_us, main=main,
+                times=times, export=run["int8_launches"])
 
 
 def main() -> None:
@@ -3367,8 +3460,12 @@ def main() -> None:
         "library_ms": int8["main"]["int_mm_ms"],
         "shape": {"x": int8["main"]["x"], "w": int8["main"]["w"], "stride": int8["main"]["stride"]},
         "launches_by_config": int8["launches"],
+        "launches_by_path": int8["paths"],  # int8_stream's inference_detector run: every launch the wgmma kernel
         "export_launches": int8["export"],
+        # every shape: the wgmma kernel ("ms", "ms_128"; "ms_128_per_tile" with one block per tile) beside
+        # the mma.sync kernel ("mma_ms", "mma_ms_128") on the same inputs
         "by_shape": int8["by_shape"],
+        "host_us": int8["host_us"],  # host microseconds per call of each path (tensor maps encoded per call)
         "ms_per_batch": int8["times"],
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,11 @@ branches of the head and the trunk) against the JAX package, on the CPU.
   fail-fast cases raise the same way; that a plain quant config refuses to
   train, and QAT and ``frozen_int8`` training raise naming item 14b;
 - ``profile_infer --quant int8 --cpu`` and ``validate_learning --int8-eval
-  --cpu`` at a tiny size.
+  --cpu`` at a tiny size;
+- ``int8_conv_cuda.plan``, the static rule that picks the wgmma kernel or
+  the mma.sync kernel, over the int8 configs' 26 conv shapes at 480x640 and
+  batches 8 and 128 and over the kernel cases: which path, and that every
+  TMA box, stride and the shared memory respect the H100's limits.
 
 The kernel-vs-plain cases need a CUDA card and skip without one; on the
 card: ``python -m pytest --noconftest -m cuda tests/test_torch_quant.py``
@@ -472,18 +476,35 @@ def cuda_device():
 
 # (N, Cin, H, W, Cout, k, stride, groups): a 3x3 of the head, the trunk's
 # 1x1 and strided 3x3, a ResNeXt layer1 3x3 (4 channels a group), ragged
-# sizes past every tile edge
+# sizes past every tile edge; then the wgmma kernel's edges: Ho and Wo not
+# multiples of the patch, Cout not a multiple of the tile's 64 / 128 / 256
+# channels, Cin 64 (64-byte swizzle), 48 and 16 (32-byte swizzle, a chunk
+# half past the channels), stride 2 on odd H and W, more tiles than SMs
+# (persistent blocks walk several), and a Cout the TMA store refuses (mma)
 KERNEL_CASES = [
     (2, 256, 15, 20, 256, 3, 1, 1), (2, 64, 30, 40, 256, 1, 1, 1), (2, 128, 30, 40, 128, 3, 2, 1),
     (2, 1024, 8, 10, 2048, 1, 2, 1), (2, 128, 30, 40, 128, 3, 1, 32), (3, 48, 7, 9, 72, 3, 2, 4),
     (1, 20, 5, 7, 6, 3, 1, 2),
+    (2, 128, 27, 37, 128, 3, 1, 1), (2, 256, 15, 20, 72, 3, 1, 1), (3, 128, 13, 17, 320, 1, 1, 1),
+    (2, 64, 30, 40, 64, 3, 1, 1), (2, 48, 9, 11, 64, 3, 1, 1), (1, 16, 7, 9, 24, 3, 1, 1),
+    (2, 256, 29, 39, 256, 3, 2, 1), (2, 512, 15, 21, 1024, 1, 2, 1), (16, 64, 120, 160, 64, 1, 1, 1),
+    (8, 128, 60, 80, 128, 3, 1, 1), (1, 32, 6, 6, 12, 3, 1, 1),
 ]
+
+
+def _wgmma_domain(case, out_bytes: int) -> bool:
+    """Whether a KERNEL_CASES entry lies in the wgmma kernel's domain."""
+    _, cin, _, _, cout, _, _, groups = case
+    return groups == 1 and cin % 16 == 0 and cout * out_bytes % 16 == 0
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", KERNEL_CASES, ids=lambda c: "x".join(map(str, c)))
 @pytest.mark.parametrize("out_dtype", [torch.int32, torch.bfloat16, torch.float32], ids=["int32", "bf16", "f32"])
 def test_kernel_matches_plain(cuda_device, case, out_dtype):
+    """Both kernels (the plan's choice through the operator, then each path
+    forced, the wgmma one also with one block per tile) equal the plain
+    version bit for bit."""
     n, cin, h, w, cout, k, stride, groups = case
     g = torch.Generator().manual_seed(sum(case))
     x = torch.randint(-127, 128, (n, cin, h, w), generator=g, dtype=torch.int8)
@@ -493,15 +514,81 @@ def test_kernel_matches_plain(cuda_device, case, out_dtype):
     args = (mult, bias, (stride, stride), ((k - 1) // 2,) * 2, groups, out_dtype)
     want = quant.int8_conv_plain(x, wt, *args)
     dev = [t if t is None else t.to(cuda_device) for t in (x, wt, mult, bias)]
-    before = cuda_mod.LAUNCHES
+    wgmma = _wgmma_domain(case, torch.empty((), dtype=out_dtype).element_size())
+    before, paths = cuda_mod.LAUNCHES, dict(cuda_mod.PATH_LAUNCHES)
     got = quant.int8_conv(dev[0].contiguous(memory_format=torch.channels_last), dev[1], dev[2], dev[3], *args[2:])
     torch.cuda.synchronize()
     assert cuda_mod.LAUNCHES == before + 1
+    chosen = "wgmma" if wgmma else "mma"
+    assert cuda_mod.PATH_LAUNCHES[chosen] == paths[chosen] + 1
     assert got.dtype == out_dtype and got.shape == want.shape
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
     # an NCHW-contiguous input is converted by the wrapper
     got = cuda_mod.int8_conv_cuda(dev[0], dev[1], dev[2], dev[3], *args[2:])
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+    forced = [dict(path="mma")] + ([dict(path="wgmma", persistent=True), dict(path="wgmma", persistent=False)]
+                                   if wgmma else [])
+    for kw in forced:
+        got = cuda_mod.int8_conv_cuda(*dev, *args[2:], **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0, msg=lambda m: f"{kw}: {m}")
+    if not wgmma:
+        with pytest.raises(ValueError, match="does not take"):
+            cuda_mod.int8_conv_cuda(*dev, *args[2:], path="wgmma")
+
+
+# the 26 distinct int8 conv shapes of configs/bop's int8 configs at 480x640
+# (int8_full's and int8_stream's; chip_smoke.py::int8_kernel_by_shape records
+# them from the forward): (Cin, H, W, Cout, k, stride), padding (k - 1) // 2
+INT8_CONFIG_SHAPES = [
+    (256, 60, 80, 256, 3, 1), (256, 30, 40, 256, 3, 1), (256, 15, 20, 256, 3, 1), (256, 8, 10, 256, 3, 1),
+    (256, 4, 5, 256, 3, 1), (64, 120, 160, 64, 3, 1), (128, 120, 160, 128, 3, 2), (128, 60, 80, 128, 3, 1),
+    (256, 60, 80, 256, 3, 2), (512, 30, 40, 512, 3, 2), (512, 15, 20, 512, 3, 1), (64, 120, 160, 256, 1, 1),
+    (128, 60, 80, 512, 1, 1), (256, 30, 40, 1024, 1, 1), (512, 15, 20, 2048, 1, 1), (64, 120, 160, 64, 1, 1),
+    (256, 120, 160, 64, 1, 1), (256, 120, 160, 128, 1, 1), (256, 120, 160, 512, 1, 2), (512, 60, 80, 128, 1, 1),
+    (512, 60, 80, 256, 1, 1), (512, 60, 80, 1024, 1, 2), (1024, 30, 40, 256, 1, 1), (1024, 30, 40, 512, 1, 1),
+    (1024, 30, 40, 2048, 1, 2), (2048, 15, 20, 512, 1, 1),
+]
+PLAN_CASES = ([(n, c, h, w, cout, k, s, 1) for n in (8, 128) for c, h, w, cout, k, s in INT8_CONFIG_SHAPES]
+              + KERNEL_CASES)
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=lambda c: "x".join(map(str, c)))
+def test_plan_paths_and_tma_limits(case):
+    """The wgmma path takes every int8-config shape, the mma.sync path
+    the grouped and ragged ones; each wgmma plan respects the TMA's and the
+    SM's limits and covers the output with its tiles."""
+    n, cin, h, w, cout, k, stride, groups = case
+    for out_bytes in (2, 4):
+        p = cuda_mod.plan((n, cin, h, w), (cout, cin // groups, k, k), (stride, stride), ((k - 1) // 2,) * 2,
+                          groups, alignment=256, out_bytes=out_bytes)
+        want = "wgmma" if _wgmma_domain(case, out_bytes) else "mma"
+        assert p["path"] == want, (out_bytes, p)
+        if case[:5] in [(n, *s[:4]) for s in INT8_CONFIG_SHAPES]:
+            assert p["path"] == "wgmma"
+        if want == "mma":
+            continue
+        # a misaligned tensor goes to the mma.sync kernel
+        assert cuda_mod.plan((n, cin, h, w), (cout, cin, k, k), (stride, stride), ((k - 1) // 2,) * 2, 1,
+                             alignment=8, out_bytes=out_bytes)["path"] == "mma"
+        swizzle = {128: 128, 64: 64, 32: 32}[p["bk"]]
+        for box, elem, span in ((p["a_box"], 1, swizzle), (p["b_box"], 1, swizzle), (p["o_box"], out_bytes, 128)):
+            assert all(1 <= d <= 256 for d in box), box
+            assert box[0] * elem % 16 == 0 and box[0] * elem <= span, (box, span)
+        for strides in (p["a_strides"], p["b_strides"], p["o_strides"]):
+            assert all(s % 16 == 0 and s < 2**40 for s in strides), strides
+        assert p["patch_w"] * p["patch_h"] * p["patch_n"] == cuda_mod.WGMMA_BM
+        assert np.prod(p["o_box"][1:]) == cuda_mod.WGMMA_BM // 2  # one consumer warpgroup's rows
+        assert p["stage_bytes"] == (cuda_mod.WGMMA_BM + p["bn"]) * p["bk"]
+        assert 2 <= p["stages"] <= cuda_mod.WGMMA_MAX_STAGES
+        assert p["smem"] == 1024 + cuda_mod.EPILOGUE_BYTES + cuda_mod.BARRIER_BYTES + p["stages"] * p["stage_bytes"]
+        assert p["smem"] <= cuda_mod.SMEM_LIMIT == 227 * 1024
+        assert p["bn"] in (64, 128, 256) and p["tiles_o"] * p["bn"] >= cout
+        assert (p["tiles_w"] * p["patch_w"] >= p["o_w"] and p["tiles_h"] * p["patch_h"] >= p["o_h"]
+                and p["tiles_n"] * p["patch_n"] >= p["a_n"])
+        ho, wo = cuda_mod.conv_output_hw(h, w, (k, k), (stride, stride), ((k - 1) // 2,) * 2)
+        assert p["o_w"] * p["o_h"] * p["a_n"] == n * ho * wo
+        assert p["grid"] == min(p["tiles"], cuda_mod.H100_SMS)
 
 
 def test_kernel_refuses_cpu_tensors():
