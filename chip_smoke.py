@@ -3,9 +3,9 @@
 
 Run from the repository root, with one card:  python3 chip_smoke.py
 
-1. prints the card and builds, in parallel, the vote-NMS kernel, the host
-   PNG unfilter, the host JPEG decoder and the host CosyPose ops from
-   ``radet_tpu_torch/csrc``; holds the decoder to cv2's recorded SHA-256 of
+1. prints the card and builds, in parallel, the vote-NMS and int8 conv
+   kernels, the host PNG unfilter, the host JPEG decoder and encoder and
+   the host CosyPose ops from ``radet_tpu_torch/csrc``; holds the decoder to cv2's recorded SHA-256 of
    the committed fixtures (``tests/data/jpeg``; this machine has no cv2)
    and times JPEG decode beside PNG decode of the same pixels; holds
    ``csrc/color_aug.cpp`` and its numpy twins (every CosyPose op at fixed
@@ -133,7 +133,7 @@ Run from the repository root, with one card:  python3 chip_smoke.py
    per call, outputs held to the eager step, both timed);
    ``tools.eval_metric`` on the phase-5 test CLI's ``--out`` pickle (its
    metrics equal to the CLI's); ``tools.profile_pipeline`` for the train
-   and test pipelines at 1 and 4 workers, threads and processes;
+   and test pipelines at 4 workers, threads and processes;
 13. runs the int8 deploy family (``configs/bop/r50_ycbv_pbr_int8*.py``):
    builds ``csrc/int8_conv.cu`` with the other sources and holds it to its
    plain version (float64 on the card without cuDNN, exact) bit for bit,
@@ -152,7 +152,17 @@ Run from the repository root, with one card:  python3 chip_smoke.py
    128; ``export_model`` of it, its program loaded in a fresh process
    (int8 and vote-NMS launches per call, bit for bit against the eager
    step); and times the flagship, int8, int8_full and int8_stream at batch
-   8 and 128.  Each phase prints its wall time.
+   8 and 128;
+14. draws, each tool through its CLI's ``main`` in this process:
+   ``radet_tpu_torch.tools.test --show-dir --show-score-thr 0`` (strict
+   eval, its vote-NMS launches counted) on 4 synthetic 480x640 PNG test
+   images, each PNG held bit for bit to ``imshow_det_bboxes`` of the run's
+   ``--out`` detections, with the host ms per image to draw and to encode
+   PNG and JPEG; ``tools.show_bop_detbbox`` on that run's BOP json; and
+   ``tools.browse_dataset --show-dist --show-assignment`` (the assignment
+   on the card) on the train_pbr split through the flagship's pipeline,
+   each JPEG held byte for byte to the script's rebuild from the same
+   seeds.  Each phase prints its wall time.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero before it.  Without a CUDA card, or outside the repository, the
@@ -168,6 +178,8 @@ import logging
 import math
 import os
 import os.path as osp
+import pickle
+import random
 import re
 import subprocess
 import sys
@@ -977,8 +989,7 @@ def contention_phase(train_config: str, gpu: str, device: str = "cuda") -> None:
     """The train step's ms at batch 16 (the batch already on the card, CUDA
     events, 10 steps) with the from-files loader idle and with it running
     flat out in the background (FILES_WORKERS thread or process workers,
-    batches drained as they come), in turns: idle, thread, process,
-    process, thread, idle."""
+    batches drained as they come), in turns: idle, thread, process, idle."""
     import threading
 
     from radet_tpu_torch.apis.common import (
@@ -1019,7 +1030,7 @@ def contention_phase(train_config: str, gpu: str, device: str = "cuda") -> None:
 
     runs = {"idle": [], "thread": [], "process": []}
     produced = {"thread": [], "process": []}
-    for mode in ("idle", "thread", "process", "process", "thread", "idle"):
+    for mode in ("idle", "thread", "process", "idle"):
         stop, count, loader = threading.Event(), [], None
         if mode != "idle":
             loader = threading.Thread(target=drain, args=(stop, count, mode))
@@ -2675,7 +2686,7 @@ def train_profile(gpu: str, repo: Path) -> dict:
 def pipeline_profile(gpu: str, repo: Path) -> None:
     for pipeline in ("train", "test"):
         out, _, wall = tool_run(repo, ["-m", "radet_tpu_torch.tools.profile_pipeline", "--pipeline", pipeline,
-                                       "--samples", 8, "--workers", 1, 4, "--mode", "thread", "process",
+                                       "--samples", 8, "--workers", 4, "--mode", "thread", "process",
                                        "--batch", PIPELINE_BATCH],
                                 f"profile_pipeline --pipeline {pipeline}")
         s = last_json(out)
@@ -2685,7 +2696,7 @@ def pipeline_profile(gpu: str, repo: Path) -> None:
               + ", ".join(f"{k} {v:.1f}" for k, v in s["loader_scaling"].items())
               + f"; {s['host_cores']} host cores [host of {gpu}]")
         print("  transforms, ms per sample: " + ", ".join(f"{k} {v:.2f}" for k, v in s["transforms"].items()))
-        if set(s["loader_scaling"]) != {"threadx1", "threadx4", "processx1", "processx4"}:
+        if set(s["loader_scaling"]) != {"threadx4", "processx4"}:
             fail(f"profile_pipeline --pipeline {pipeline}: loader runs missing")
 
 
@@ -3217,6 +3228,140 @@ def int8_phase(gpu: str, repo: Path, work: str, test_opts, imgs) -> dict:
                 times=times, export=run["int8_launches"])
 
 
+# 14. drawing: the test CLI's --show-dir, show_bop_detbbox and browse_dataset
+DRAW_GROUPS = ((4, (480, 640)),)  # the PNG test images drawn, (n, (h, w))
+BROWSE_SAMPLES = 2
+
+
+def draw_phase(config: str, gpu: str, work: str, train_config: str) -> int:
+    """Phase 14: drawing at full width, each tool through its CLI's
+    ``main``.  ``tools.test --show-dir --show-score-thr 0`` (strict eval,
+    the eval phase's weights with the cls bias at 0) on a synthetic PNG
+    test set, its vote-NMS launches counted: each PNG equal, decoded by
+    the port, to ``imshow_det_bboxes`` of its image and the run's ``--out``
+    detections and unlike the image itself, with the host ms to draw and
+    to encode PNG and JPEG per image; then ``tools.show_bop_detbbox`` on
+    that run's BOP json (every JPEG decodes to 480x640); then
+    ``tools.browse_dataset --show-dist --show-assignment`` on the train_pbr
+    split through the flagship's own pipeline, the assignment on the card,
+    against this script's rebuild of each JPEG (the same seeds: the
+    dataset sample, ``assign_labels`` on the card, ``draw_sample``, the
+    JPEG writer), byte for byte.  Returns the test CLI's vote-NMS
+    launches."""
+    import radet_tpu_torch.ops.vote_nms_cuda as vnc
+    from radet_tpu_torch.apis.common import anchor_cfg_from_model, build_dataset
+    from radet_tpu_torch.core.anchors import anchor_centers, generate_anchors
+    from radet_tpu_torch.data import image_io
+    from radet_tpu_torch.tools import browse_dataset, show_bop_detbbox
+    from radet_tpu_torch.tools import test as test_cli
+    from radet_tpu_torch.utils import Config
+    from radet_tpu_torch.utils.image_write import encode_jpeg, imwrite
+    from radet_tpu_torch.utils.visualization import imshow_det_bboxes
+    from synthetic_bop import write_bop_test_set
+
+    root = osp.join(work, "draw")
+    cfg = Config.fromfile(config)
+    ann = write_bop_test_set(root, np.random.RandomState(SEED + 14), DRAW_GROUPS, cfg.CLASS_NAMES)
+    prefix = osp.join(root, "test") + "/"
+    opts = [f"data.test.ann_file={ann!r}", f"data.test.img_prefix={prefix!r}"]
+    shown, out = osp.join(root, "shown"), osp.join(root, "draw")
+    vnc.LAUNCHES = 0
+    t0 = time.perf_counter()
+    test_cli.main([config, osp.join(work, "random_cls0.pth"), "--show-dir", shown, "--show-score-thr", "0",
+                   "--out", out + ".pkl", "--format-only", "--json-prefix", out, "--cfg-options", *opts])
+    torch.cuda.synchronize()
+    launches, wall = vnc.LAUNCHES, time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    if launches < 1:
+        fail("tools.test --show-dir launched no vote_nms kernel")
+    with open(out + ".pkl", "rb") as f:
+        results = pickle.load(f)
+    dataset = build_dataset(Config.fromfile(config, opts), "test")
+    infos = {i["id"]: i for i in dataset.data_infos}
+    names = sorted(i["filename"].replace("/", "_") for i in dataset.data_infos)
+    if sorted(os.listdir(shown)) != names or len(results) != len(names):
+        fail(f"--show-dir wrote {sorted(os.listdir(shown))}, expected {names}")
+    times = {"draw": [], "PNG encode": [], "JPEG encode": []}
+    n_boxes = []
+    for r in results:
+        name = infos[r["img_id"]]["filename"]
+        img = image_io.imread_rgb(osp.join(prefix, name))
+        t0 = time.perf_counter()
+        want = imshow_det_bboxes(img, r["boxes"], r["labels"], r["scores"], class_names=dataset.CLASSES,
+                                 score_thr=0.0)
+        times["draw"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        imwrite(osp.join(root, "redraw.png"), want)
+        times["PNG encode"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        encode_jpeg(want)
+        times["JPEG encode"].append(time.perf_counter() - t0)
+        got = image_io.imread(osp.join(shown, name.replace("/", "_")), image_io.IMREAD_UNCHANGED)
+        if not np.array_equal(got, want):
+            fail(f"--show-dir's {name} differs from imshow_det_bboxes in {int((got != want).any(-1).sum())} pixels")
+        if np.array_equal(got, img[..., ::-1]):
+            fail(f"--show-dir's {name} is the image undrawn")
+        n_boxes.append(len(r["boxes"]))
+    print(f"draw: tools.test --show-dir --show-score-thr 0 on {len(results)} PNG images "
+          f"{DRAW_GROUPS[0][1][0]}x{DRAW_GROUPS[0][1][1]} (boxes drawn per image {n_boxes}): vote_nms kernel "
+          f"launches {launches}, every PNG equal to imshow_det_bboxes of the --out detections bit for bit "
+          f"(the CLI's main {wall:.1f} s wall)")
+    print("timing: drawing on the host, ms per image (mean of "
+          f"{len(results)}, {np.mean(n_boxes):.0f} boxes with labels): "
+          + ", ".join(f"{k} {np.mean(v) * 1e3:.2f}" for k, v in times.items()) + f" [host of {gpu}]")
+
+    stdout = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        show_bop_detbbox.main([out + ".bop.json", "--images-dir", osp.join(root, "test"), "--score-thr", "0",
+                               "--output-dir", osp.join(root, "show_det")])
+    wall = time.perf_counter() - t0
+    written = stdout.getvalue().split()
+    if len(written) != len(results):
+        fail(f"show_bop_detbbox wrote {len(written)} images, expected {len(results)}")
+    for path in written:
+        shape = image_io.imread(path).shape
+        if shape != DRAW_GROUPS[0][1] + (3,):
+            fail(f"show_bop_detbbox's {path} decodes to {shape}")
+    print(f"draw: tools.show_bop_detbbox --score-thr 0 wrote {len(written)} JPEGs, each decoding to "
+          f"{DRAW_GROUPS[0][1]} (its main {wall:.1f} s wall)")
+
+    browse = osp.join(root, "browse")
+    random.seed(SEED)
+    np.random.seed(SEED)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        browse_dataset.main([train_config, "--num", str(BROWSE_SAMPLES), "--show-dist", "--show-assignment",
+                             "--output-dir", browse, "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    random.seed(SEED)
+    np.random.seed(SEED)
+    tcfg = Config.fromfile(train_config)
+    ds = build_dataset(tcfg, "train")
+    la = tcfg.label_assignment.to_dict()
+    anchors, ranges, _, _ = generate_anchors(tuple(tcfg.get("input_size", (480, 640))),
+                                             anchor_cfg_from_model(tcfg.model.to_dict(), la))
+    centers = anchor_centers(anchors)
+    kw = {k: la[k] for k in browse_dataset.ASSIGN_KEYS if k in la}
+    dev = torch.device("cuda")
+    positives = []
+    for i in range(BROWSE_SAMPLES):
+        s = ds[i]
+        gt_idx, weight = browse_dataset.assign_sample(s, torch.as_tensor(anchors, device=dev),
+                                                      torch.as_tensor(ranges, device=dev), kw, seed=i)
+        positives.append(int((gt_idx >= 0).sum()))
+        want = encode_jpeg(browse_dataset.draw_sample(s, centers, show_dist=True, assignment=(gt_idx, weight)))
+        with open(osp.join(browse, f"sample_{i:04d}.jpg"), "rb") as f:
+            if f.read() != want:
+                fail(f"browse_dataset's sample_{i:04d}.jpg differs from its rebuild")
+    if not all(positives):
+        fail(f"browse_dataset's assignment has no positive anchor: {positives}")
+    print(f"draw: tools.browse_dataset --show-dist --show-assignment --device cuda on the flagship's train "
+          f"pipeline: {BROWSE_SAMPLES} JPEGs, each equal byte for byte to the rebuild from the dataset sample, "
+          f"assign_labels on the card (positives {positives}) and draw_sample ({wall:.1f} s wall)")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -3235,7 +3380,7 @@ def main() -> None:
     import radet_tpu_torch.ops.vote_nms_cuda as vnc
     from radet_tpu_torch import inference_detector, init_detector
     from radet_tpu_torch.data import color_aug, image_io
-    from radet_tpu_torch.utils import native
+    from radet_tpu_torch.utils import image_write, native
     from radet_tpu_torch.ops.vote_nms import vote_nms_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3253,12 +3398,13 @@ def main() -> None:
         fn()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(6) as pool:
         builds = [(src, flags, pool.submit(timed, fn)) for src, flags, fn in (
             (vnc.SOURCE, f"nvcc {' '.join(vnc.NVCC_FLAGS)}", vnc.build),
             (icc.SOURCE, f"nvcc {' '.join(icc.NVCC_FLAGS)}", icc.build),
             (image_io.SOURCE, f"c++ {' '.join(image_io.CXX_FLAGS)}", image_io.build),
             (image_io.JPEG_SOURCE, f"c++ {' '.join(image_io.CXX_FLAGS)}", image_io.build_jpeg),
+            (image_write.JPEG_SOURCE, f"c++ {' '.join(image_write.CXX_FLAGS)}", image_write.build_jpeg_encoder),
             (color_aug.SOURCE, f"c++ {' '.join(color_aug.CXX_FLAGS)}", color_aug.build))]
         for src, flags, fut in builds:
             print(f"build: {src.relative_to(repo)} -> {native.BUILD_DIR.relative_to(repo)} "
@@ -3408,6 +3554,9 @@ def main() -> None:
 
         # 13. the int8 deploy family
         int8 = phase("int8", int8_phase, gpu, repo, work, test_opts, imgs)
+
+        # 14. drawing
+        show_dir_launches = phase("draw", draw_phase, config, gpu, work, train_config)
     nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by, _ = nms_times[ANCHOR_MAIN_SHAPE]
 
     print(f"card: {gpu}; smoke {time.perf_counter() - start:.1f} s wall")
@@ -3431,6 +3580,8 @@ def main() -> None:
         "export_launches": export_launches,
         # phase 12: ms per call through the operator and through the wrapper alone, by BxK
         "dispatch_ms": dispatch,
+        # phase 14: the strict eval of python -m radet_tpu_torch.tools.test --show-dir
+        "show_dir_launches": show_dir_launches,
     }, {
         "name": "batched_nms (vote_nms.cu, no-vote mode)",
         "route": "cuda",

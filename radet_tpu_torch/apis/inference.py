@@ -1,17 +1,20 @@
 """Programmatic inference (port of ``radet_tpu/apis/inference.py``'s
-``init_detector``, ``inference_detector`` and ``async_inference_detector``)."""
+``init_detector``, ``inference_detector``, ``async_inference_detector``,
+``show_result`` and ``show_result_pyplot``)."""
 
 from __future__ import annotations
 
 import asyncio
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..data.image_io import imread_rgb
 from ..data.pipeline import Compose, LoadImageFromFile, Pad, Resize
 from ..engine.checkpoint import load_checkpoint
 from ..utils.config import Config
+from ..utils.visualization import imshow_det_bboxes
 from .common import build_infer_for_cfg, build_model_and_anchors
 
 
@@ -26,6 +29,20 @@ class Detector:
         self.input_size = tuple(cfg.get("input_size", (480, 640)))
         self.classes = tuple(classes)
         self._infer = build_infer_for_cfg(cfg, model, anchors, level_counts)
+
+
+def show_result(img, result, class_names=None, score_thr=0.3, out_file=None):
+    """Draw a detection result dict on an RGB image; returns the drawn BGR
+    image (``utils/visualization.py::imshow_det_bboxes``)."""
+    return imshow_det_bboxes(
+        img,
+        result["boxes"],
+        result["labels"],
+        result.get("scores"),
+        class_names=class_names,
+        score_thr=score_thr,
+        out_file=out_file,
+    )
 
 
 def init_detector(
@@ -128,3 +145,47 @@ async def async_inference_detector(detector: Detector, imgs):
     det = await loop.run_in_executor(None, detector._infer, detector.model, *batch)
     out = await loop.run_in_executor(None, _gather_results, det, len(imgs))
     return out[0] if single else out
+
+
+def show_result_pyplot(
+    detector,
+    img,
+    result,
+    score_thr: float = 0.3,
+    fig_size: Tuple[int, int] = (15, 10),
+    title: str = "result",
+    out_file: Optional[str] = None,
+):
+    """Render a detection result with matplotlib, shown or saved to
+    ``out_file``; returns the drawn RGB image.  ``detector`` (or None)
+    gives the class names; ``img`` is a path or an RGB array.  matplotlib
+    is imported only here, after the drawing: where it is missing, the
+    ``ImportError`` stands."""
+    if isinstance(img, str):
+        img = imread_rgb(img)
+    class_names = tuple(getattr(detector, "classes", ()) or ()) or None
+    drawn_bgr = imshow_det_bboxes(
+        img,
+        result["boxes"],
+        result["labels"],
+        result.get("scores"),
+        class_names=class_names,
+        score_thr=score_thr,
+    )
+    drawn = drawn_bgr[..., ::-1]  # BGR -> RGB for pyplot
+    import matplotlib
+
+    if out_file is not None:
+        matplotlib.use("Agg", force=False)
+    import matplotlib.pyplot as plt
+
+    fig = plt.figure(figsize=fig_size)
+    plt.imshow(drawn)
+    plt.title(title)
+    plt.axis("off")
+    if out_file is not None:
+        fig.savefig(out_file, bbox_inches="tight")
+        plt.close(fig)
+    else:
+        plt.show()
+    return drawn

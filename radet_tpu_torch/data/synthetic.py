@@ -1,50 +1,19 @@
-"""Synthetic BOP scenes without cv2: an 8-bit PNG writer, and the scenes of
-filled rectangles that ``tools/validate_learning.py`` trains on (port of
+"""Synthetic BOP scenes without cv2: the scenes of filled rectangles that
+``tools/validate_learning.py`` trains on (port of
 ``tests/fixtures.py::make_synthetic_bop``, which the port's package cannot
-import and which writes with cv2)."""
+import and which writes with cv2), written with ``utils/image_write.py``'s
+PNG writer."""
 
 from __future__ import annotations
 
 import json
 import os
 import os.path as osp
-import struct
-import zlib
 from typing import Tuple
 
 import numpy as np
 
-
-def write_png(path: str, img: np.ndarray, level: int = 1) -> None:
-    """A uint8 (H, W) gray, (H, W, 3) RGB or (H, W, 4) RGBA image as an
-    8-bit PNG whose row y uses filter type y % 5 (None, Sub, Up, Average,
-    Paeth), so that a decoder of these files meets every filter."""
-    h, w = img.shape[:2]
-    ch = 1 if img.ndim == 2 else img.shape[2]
-    x = img.reshape(h, w * ch).astype(np.int16)
-    left = np.zeros_like(x)
-    left[:, ch:] = x[:, :-ch]
-    up = np.zeros_like(x)
-    up[1:] = x[:-1]
-    upleft = np.zeros_like(x)
-    upleft[1:, ch:] = x[:-1, :-ch]
-    p = left + up - upleft
-    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
-    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
-    predictions = (0, left, up, (left + up) >> 1, paeth)
-    kind = np.arange(h) % 5
-    rows = np.empty((h, w * ch + 1), np.uint8)
-    rows[:, 0] = kind
-    for f, pred in enumerate(predictions):
-        rows[kind == f, 1:] = ((x - pred) & 255)[kind == f]
-
-    def chunk(tag: bytes, body: bytes) -> bytes:
-        return struct.pack(">I", len(body)) + tag + body + struct.pack(">I", zlib.crc32(tag + body))
-
-    header = struct.pack(">IIBBBBB", w, h, 8, {1: 0, 3: 2, 4: 6}[ch], 0, 0, 0)
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
-                + chunk(b"IDAT", zlib.compress(rows.tobytes(), level)) + chunk(b"IEND", b""))
+from ..utils.image_write import write_png
 
 
 def make_synthetic_bop(

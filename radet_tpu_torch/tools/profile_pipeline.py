@@ -38,8 +38,9 @@ import numpy as np
 from ..apis.common import build_dataset
 from ..data.bop import BOPDataset
 from ..data.loader import DataLoader
-from ..data.synthetic import make_synthetic_bop, write_png
+from ..data.synthetic import make_synthetic_bop
 from ..utils.config import Config
+from ..utils.image_write import write_png
 
 TARGET_IMG_S = {"train": 222.6, "test": 918.8}  # PERF.md §6, the flagship on the H100 at 700 W
 

@@ -11,12 +11,17 @@ or ``best_weights.pth``; without one the weights are random.  Outputs:
 ``--json-prefix p`` writes ``p.bbox.json`` (COCO results) and, for a dataset
 with ``bop_submission=True``, ``p.bop.json`` (BOP submission format).
 ``--eval bbox`` prints the metrics as JSON on stdout; logs go to stderr.
+``--show-dir D`` draws each image's detections at or above
+``--show-score-thr`` (``utils/visualization.py::imshow_det_bboxes``) into
+``D/<file name with "/" as "_">``, in the format of its extension (PNG for
+the BOP test sets); ``--show`` draws into ``work_dir/shown`` (no display).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import os.path as osp
 import pickle
 
@@ -24,11 +29,12 @@ import torch
 
 from ..apis.common import build_model_and_anchors
 from ..apis.test import test_from_config
+from ..data.image_io import imread_rgb
 from ..engine.checkpoint import load_weights
 from ..utils.config import Config, parse_kv_options
 from ..utils.logging import get_root_logger
+from ..utils.visualization import imshow_det_bboxes
 
-_SHOW = "ROADMAP.md Queue 1 item 15c, drawing"
 _FUSE = "ROADMAP.md Queue 1 item 12, models/fuse.py"
 _MULTI_GPU = "ROADMAP.md Queue 1 item 13, multi-GPU"
 
@@ -51,8 +57,8 @@ def parse_args(argv=None):
                    help="evaluation kwargs as key=value, e.g. classwise=True")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     # --show before --show-dir, which it would otherwise abbreviate
-    p.add_argument("--show", action="store_true", help=f"not ported ({_SHOW})")
-    p.add_argument("--show-dir", default=None, help=f"not ported ({_SHOW})")
+    p.add_argument("--show", action="store_true", help="draw into work_dir/shown (no display)")
+    p.add_argument("--show-dir", default=None, help="draw the detections onto the images and save them here")
     p.add_argument("--show-score-thr", type=float, default=0.3)
     p.add_argument("--fuse-conv-bn", action="store_true", help=f"not ported ({_FUSE})")
     # the reference CLI's launcher flags: one process, results gathered in it
@@ -66,9 +72,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    for flag, given in (("--show", args.show), ("--show-dir", args.show_dir)):
-        if given:
-            raise NotImplementedError(f"{flag} is not ported ({_SHOW})")
     if args.launcher != "none":
         raise NotImplementedError(f"--launcher {args.launcher} is not ported ({_MULTI_GPU})")
     if args.fuse_conv_bn:
@@ -79,6 +82,9 @@ def main(argv=None):
     cfg = Config.fromfile(args.config, args.cfg_options)
     logger = get_root_logger()
     eval_options = parse_kv_options(args.eval_options)
+    if args.show and not args.show_dir:
+        args.show_dir = osp.join(cfg.get("work_dir", "work_dirs"), "shown")
+        logger.info(f"--show: rendering to {args.show_dir} (no display)")
     # convolutions in the config's compute dtype on a card, float32 on the CPU
     model = build_model_and_anchors(cfg, dtype=None if device.type == "cuda" else "float32")[0]
     if args.checkpoint:
@@ -106,6 +112,16 @@ def main(argv=None):
             with open(prefix + ".bop.json", "w") as f:
                 json.dump(dataset.bop_det2json(results), f)
             logger.info(f"BOP submission: {prefix}.bop.json")
+    if args.show_dir:
+        os.makedirs(args.show_dir, exist_ok=True)
+        id_to_info = {info["id"]: info for info in dataset.data_infos}
+        for r in results:
+            info = id_to_info[r["img_id"]]
+            img = imread_rgb(osp.join(dataset.img_prefix, info["filename"]))
+            imshow_det_bboxes(img, r["boxes"], r["labels"], r["scores"], class_names=dataset.CLASSES,
+                              score_thr=args.show_score_thr,
+                              out_file=osp.join(args.show_dir, info["filename"].replace("/", "_")))
+        logger.info(f"rendered {len(results)} images to {args.show_dir}")
     if args.eval:
         for k, v in metrics.items():
             logger.info(f"{k}: {v:.4f}")

@@ -12,7 +12,7 @@ import os.path as osp
 
 import numpy as np
 
-from radet_tpu_torch.data.synthetic import write_png  # noqa: F401  (the test data's PNG writer)
+from radet_tpu_torch.utils.image_write import write_png  # noqa: F401  (the test data's PNG writer)
 
 # tests/data/jpeg: JPEG files written by cv2 (make_fixtures.py) from the
 # first records of synthetic_bop_records(RandomState(JPEG_FIXTURE_SEED), ...)

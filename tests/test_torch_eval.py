@@ -8,6 +8,7 @@ cycle through all five PNG filters) at the narrow parity widths of
 (resized) and 2 portrait ones (the per-orientation views)."""
 
 import json
+import os
 import os.path as osp
 import pickle
 
@@ -26,10 +27,12 @@ from radet_tpu_torch.apis.common import _build_bop, build_dataset, build_model_a
 from radet_tpu_torch.apis.train import train_detector
 from radet_tpu_torch.data import InMemoryBOPDataset, train_transforms
 from radet_tpu_torch.data.coco_io import CocoIndex
+from radet_tpu_torch.data.image_io import IMREAD_UNCHANGED, imread, imread_rgb
 from radet_tpu_torch.engine.checkpoint import load_weights, save_weights
 from radet_tpu_torch.evaluation.coco_eval import COCOEvaluator
 from radet_tpu_torch.tools import test as test_cli
 from radet_tpu_torch.utils.config import Config
+from radet_tpu_torch.utils.visualization import imshow_det_bboxes
 from synthetic_bop import synthetic_bop_records, write_bop_test_set
 from torch_parity import FLAGSHIP, IMG_HW, NARROW, flax_and_port_models
 
@@ -240,8 +243,9 @@ def test_cli_writes_bbox_and_bop_json(png_set, tmp_path, capsys):
     ckpt = str(tmp_path / "w.pth")
     save_weights(ckpt, model.state_dict())
     prefix = str(tmp_path / "out")
+    show_dir = tmp_path / "shown"
     test_cli.main([FLAGSHIP, ckpt, "--device", "cpu", "--eval", "bbox", "--format-only",
-                   "--json-prefix", prefix, "--out", str(tmp_path / "r.pkl"),
+                   "--json-prefix", prefix, "--out", str(tmp_path / "r.pkl"), "--show-dir", str(show_dir),
                    "--eval-options", "classwise=True", "--cfg-options", *opts])
     metrics = json.loads(capsys.readouterr().out)
     assert "bbox_mAP" in metrics and "bbox_AP_a" in metrics
@@ -253,8 +257,15 @@ def test_cli_writes_bbox_and_bop_json(png_set, tmp_path, capsys):
         results = pickle.load(f)
     assert len(coco) == len(bop) == sum(len(r["boxes"]) for r in results) > 0
     assert {d["scene_id"] for d in bop} == {0, 1, 2} and all(d["time"] == -1.0 for d in bop)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        test_cli.main([FLAGSHIP, "--device", "cpu", "--show-dir", str(tmp_path)])
+    # --show-dir: one PNG per image, named after its file, of imshow_det_bboxes at --show-score-thr 0.3
+    dataset = build_dataset(cfg, "test")
+    infos = {info["id"]: info for info in dataset.data_infos}
+    assert len(os.listdir(show_dir)) == len(results) == len(infos)
+    for r in results:
+        name = infos[r["img_id"]]["filename"]
+        want = imshow_det_bboxes(imread_rgb(osp.join(dataset.img_prefix, name)), r["boxes"], r["labels"],
+                                 r["scores"], class_names=dataset.CLASSES, score_thr=0.3)
+        np.testing.assert_array_equal(imread(str(show_dir / name.replace("/", "_")), IMREAD_UNCHANGED), want)
     with pytest.raises(NotImplementedError, match="item 12"):
         test_cli.main([FLAGSHIP, "--device", "cpu", "--fuse-conv-bn"])
 

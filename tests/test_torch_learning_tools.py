@@ -2,8 +2,9 @@
 reference flags, against the JAX package on the CPU:
 
 - ``python -m radet_tpu_torch.tools.test`` parses every flag of
-  ``tools/test.py::parse_args`` to the same values; ``--show`` and a
-  launcher other than ``none`` raise naming their ROADMAP items;
+  ``tools/test.py::parse_args`` to the same values; ``--show`` draws into
+  ``work_dir/shown`` and a launcher other than ``none`` raises naming its
+  ROADMAP item;
 - ``data/synthetic.py::make_synthetic_bop`` (PNG, no cv2) writes the
   annotation json of ``tests/fixtures.py::make_synthetic_bop`` (cv2, JPEG)
   but for the file names, and the same masks;
@@ -22,6 +23,7 @@ reference flags, against the JAX package on the CPU:
 
 import importlib.util
 import json
+import os
 import os.path as osp
 import runpy
 import sys
@@ -43,7 +45,7 @@ from radet_tpu_torch.tools import run_bop_sweep, validate_learning
 from radet_tpu_torch.tools import test as test_cli
 from radet_tpu_torch.utils.config import Config
 from synthetic_bop import write_bop_test_set
-from torch_parity import NARROW
+from torch_parity import FLAGSHIP, NARROW
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 
@@ -70,9 +72,16 @@ def test_test_cli_parses_the_reference_flags(flags, monkeypatch):
     assert {k: got[k] for k in PARSED} == {k: ref[k] for k in PARSED}
 
 
-def test_test_cli_refuses_show_and_launchers():
-    with pytest.raises(NotImplementedError, match="--show is not ported.*item 15"):
-        test_cli.main(["c.py", "--device", "cpu", "--show"])
+def test_test_cli_refuses_show_and_launchers(tmp_path):
+    """``--show`` draws into ``work_dir/shown`` (a PNG per image); a
+    launcher other than ``none`` raises naming item 13."""
+    ann = write_bop_test_set(str(tmp_path), np.random.RandomState(0), [(2, (64, 96))], ["a", "b", "c", "d"])
+    work_dir = tmp_path / "work"
+    test_cli.main([FLAGSHIP, "--device", "cpu", "--show", "--show-score-thr", "0", "--cfg-options", *NARROW,
+                   f"work_dir={str(work_dir)!r}", f"data.test.ann_file={ann!r}",
+                   f"data.test.img_prefix={str(tmp_path / 'test') + '/'!r}", "data.test.classes=None",
+                   "data.test.pipeline.1.img_scale=(96, 64)"])
+    assert sorted(os.listdir(work_dir / "shown")) == ["000000_rgb_000000.png", "000000_rgb_000001.png"]
     with pytest.raises(NotImplementedError, match="--launcher pytorch is not ported.*item 13"):
         test_cli.main(["c.py", "--device", "cpu", "--launcher", "pytorch"])
 
