@@ -33,7 +33,7 @@ Run from the repository root, with one card:  python3 chip_smoke.py
    fixtures and a PNG against the in-process batcher, status codes, 16
    client threads, SIGTERM);
 5. evaluates: the kernel against the plain version at every (B, K) of
-   ``KERNEL_SHAPES`` (K from 512 to 4420), both modes, timing both on the
+   ``KERNEL_SHAPES`` (K 512, 2048 and 4420), both modes, timing both on the
    card in turns, each beside the call's bound and its share of it, and
    the call's device time split by its three CUDA kernels (from
    torch.profiler, or "not measured"); a synthetic BOP test set written as PNG by
@@ -42,7 +42,8 @@ Run from the repository root, with one card:  python3 chip_smoke.py
    of 21 classes, COCO json), decoded by the C++ unfilter and its numpy
    twin; the test CLI (``python -m radet_tpu_torch.tools.test --eval bbox
    --format-only``, strict, full width, bf16, random weights with the cls
-   bias at 0) in a subprocess, checking its jsons and kernel launches; then
+   bias at 0) in a process of its own (most other CLIs here run as their
+   ``main`` in this process), checking its jsons and kernel launches; then
    ``test_from_config`` in this process through the kernel (timed, files
    to metrics), whose vote-NMS inputs and outputs are recorded and held to
    the plain version, and through the plain version, whose labels, boxes
@@ -69,15 +70,16 @@ Run from the repository root, with one card:  python3 chip_smoke.py
    on one thread and the loader at 4 and 8 threads; times the train step
    with that loader idle and busy in the background (thread and process
    workers), in turns; runs ``python -m radet_tpu_torch.tools.train`` on
-   it in a subprocess (full width, bf16, batch 16, 4 loader workers, 30
-   steps, one eval on the PNG set's landscape images), with thread and
-   then with process workers, checks each run's checkpoint and its eval's
-   vote-NMS launches, and prints its img/s beside the in-memory trainer's
-   and the share of each step spent waiting on the loader;
+   it (full width, bf16, batch 16, 4 loader workers, ``FILES_STEPS``
+   steps, one eval on the PNG set's landscape images), with thread workers
+   in a process of its own and then with process workers, checks each
+   run's checkpoint and its eval's vote-NMS launches, and prints its img/s
+   beside the in-memory trainer's and the share of each step spent
+   waiting on the loader;
 8. fine-tunes from files as the paper's second stage: the train CLI on a
    config whose ``_base_`` is ``configs/bop/r50_ycbv_mixpbr.py``
    (``MixDataset`` of train_pbr x 2 and train_real x 1), full width, bf16,
-   batch 16, 10 steps, one eval, ``load_from`` the thread run's
+   batch 16, ``MIX_STEPS`` steps, one eval, ``load_from`` the thread run's
    checkpoints; checks the 2:1 layout and the draws from both splits, the
    load of every tensor, finite losses, the frozen stages kept and the
    head moved, and the eval's vote-NMS launches, and prints its img/s and
@@ -115,13 +117,14 @@ Run from the repository root, with one card:  python3 chip_smoke.py
    the float32 step at batch 1 against the CPU (same ReLU sides: losses,
    gradients, every running mean and variance); ``with_cp`` against the
    plain float32 step on the card; then ``python -m
-   radet_tpu_torch.tools.validate_learning`` at its defaults (mAP50 at
-   least 0.5, or the smoke fails) and ``python -m
+   radet_tpu_torch.tools.validate_learning --qat`` at its defaults (mAP50
+   at least 0.5, or the smoke fails; then its QAT loop: the PTQ eval, 200
+   QAT steps and the deploy eval, with both RESULT lines) and ``python -m
    radet_tpu_torch.tools.run_bop_sweep --mode test`` over the seven BOP
    datasets' synthetic PNG sets (each BOP submission's category ids that
    config's), both evals' vote-NMS calls held to the plain version;
-12. runs the measuring and deploy tools, each CLI in its own process at
-   full width: vote-NMS through its operator against the kernel's wrapper
+12. runs the measuring and deploy tools, each CLI's ``main`` at full
+   width: vote-NMS through its operator against the kernel's wrapper
    alone at ``DISPATCH_SHAPES`` (the operator's dispatch cost); ``python -m
    radet_tpu_torch.tools.get_flops`` (32,159,327 parameters, the FLOPs
    equal to the same tool's CPU count); ``tools.profile_infer`` at batch
@@ -140,7 +143,8 @@ Run from the repository root, with one card:  python3 chip_smoke.py
    int32 sums and bf16 outputs, at every distinct int8 conv shape of
    int8_full and int8_stream at 480x640 (the inputs recorded from their
    forward on the main path's 8 images) and at a grouped shape with 4
-   channels a group, each timed at batch 8 and 128 beside its bound,
+   channels a group, each timed at batch 8 (the kernel the plan picks) and
+   128 (both kernels) beside its bound,
    ``torch._int_mm`` (1x1 stride-1 shapes) and the bf16 cuDNN conv;
    ``init_detector`` and ``inference_detector`` on int8, int8_conv2,
    int8_full, int8_stream and the QAT config at full width (int8 launches
@@ -162,7 +166,22 @@ Run from the repository root, with one card:  python3 chip_smoke.py
    ``tools.browse_dataset --show-dist --show-assignment`` (the assignment
    on the card) on the train_pbr split through the flagship's pipeline,
    each JPEG held byte for byte to the script's rebuild from the same
-   seeds.  Each phase prints its wall time.
+   seeds;
+15. trains quantization-aware (``configs/bop/r50_ycbv_pbr_int8_qat.py``):
+   its float32 step at batch 1, full width, on the card against the CPU
+   (same weights, batch, noise, ReLU sides and fake-quantized levels, the
+   CPU's own level flips counted: losses, gradients with the BN and GN
+   affines', running statistics); its bf16 step at batch 16 timed with its
+   peak memory beside the flagship's before and after it, launching no
+   int8 kernel; ``tools.train`` on it in this process, with cuDNN's TF32
+   on as PyTorch starts and every QAT conv's forward and backward checked
+   to run with it off, from the JPEG ``train_pbr`` split
+   (``QAT_CLI_STEPS`` steps, ``load_from`` the flagship's from-files
+   checkpoint, one periodic eval on the deploy arithmetic) and
+   ``tools.test`` with ``r50_ycbv_pbr_int8_stream.py`` on its checkpoint:
+   92 int8 launches per forward, all on the wgmma kernel, and every
+   vote-NMS call held to the plain version.  Each phase prints its wall
+   time.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero before it.  Without a CUDA card, or outside the repository, the
@@ -226,12 +245,10 @@ F32_PEAK = 67e12  # FLOP/s, float32 outside the tensor cores
 HBM_RATE = 3.35e12  # bytes/s
 IOU_OPS = 15  # per same-label IoU test
 VOTE_OPS = 36  # per member: weight, 3 passes over 4 coordinates
-# kernel_by_k's (B, K): deploy and interactive inference (K = 512), a whole
-# and a partial last 32-box word (1024, 1025), the strict eval (K = 2048,
-# its batch 16), and the flagship's largest per-level set (4420); (16, 512) is
-# the serving batch
-KERNEL_SHAPES = ((8, 512), (16, 512), (128, 512), (8, 1024), (8, 1025), (8, 2048), (16, 2048), (128, 2048),
-                 (8, 4420))
+# kernel_by_k's (B, K): deploy and interactive inference (K = 512), the
+# strict eval (K = 2048, its batch 16), and the flagship's largest per-level
+# set (4420, a partial last 32-box word); (16, 512) is the serving batch
+KERNEL_SHAPES = ((8, 512), (16, 512), (128, 512), (8, 2048), (16, 2048), (8, 4420))
 # the anchor family (configs/atss): train CLI steps per config; the no-vote
 # kernel's (B, K): interactive and deploy inference at nms_topk 1024, the
 # train CLI's periodic eval (B = 16), and the strict eval (K = 2048)
@@ -488,6 +505,38 @@ def relu_decisions(masks, replay: bool):
         yield flips
     finally:
         F.relu = relu
+
+
+@contextlib.contextmanager
+def level_decisions(levels, replay: bool):
+    """Within the block, every fake quantization (``quant.quant_levels``)
+    records its int8 levels into ``levels`` (``replay=False``, kept on the
+    CPU as int8), or takes the recorded levels in the same call order
+    (``replay=True``), so that two runs of a QAT network put every element
+    on the same level.  Yields the replayed calls' own disagreements: the
+    count of elements this run would have put on another level, per call."""
+    from radet_tpu_torch.ops import quant
+
+    inner = quant.quant_levels
+    recorded = iter(levels)
+    flips = []
+
+    def record(x, scale):
+        out = inner(x, scale)
+        levels.append(out.to(torch.int8).cpu())
+        return out
+
+    def shared(x, scale):
+        own = inner(x, scale)
+        out = next(recorded).to(x.device, torch.float32)
+        flips.append(int((own != out).sum()))
+        return out
+
+    quant.quant_levels = shared if replay else record
+    try:
+        yield flips
+    finally:
+        quant.quant_levels = inner
 
 
 def parity_steps(cfg, one, anchors, ranges, model_args, runs):
@@ -1055,28 +1104,23 @@ def contention_phase(train_config: str, gpu: str, device: str = "cuda") -> None:
 
 
 def train_cli(config: str, work_dir: str, steps: int, mode: str, eval_opts, *opts, device: str = "cuda",
-              nms: str = "vote_nms"):
-    """``python -m radet_tpu_torch.tools.train`` on ``config`` in a
-    subprocess for ``steps`` steps with ``data.workers_per_gpu`` =
-    FILES_WORKERS workers of ``mode``, one eval at the last step and a
-    checkpoint there; checks its steps, eval, the launches of the NMS
-    kernel's ``nms`` mode ('vote_nms' or 'batched_nms') in it, losses and
-    checkpoint.  Returns (iter lines, the 'train dataset:' line, launches,
-    seconds, the log)."""
+              nms: str = "vote_nms", fresh: bool = False):
+    """``python -m radet_tpu_torch.tools.train`` on ``config`` (its ``main``,
+    or with ``fresh`` in a process of its own: ``tool_run``) for ``steps``
+    steps with ``data.workers_per_gpu`` = FILES_WORKERS workers of
+    ``mode``, one eval at the last step and a checkpoint there; checks its
+    steps, eval, the launches of the NMS kernel's ``nms`` mode ('vote_nms'
+    or 'batched_nms') in it, losses and checkpoint.  Returns (iter lines,
+    the 'train dataset:' line, launches, seconds, the log)."""
     from radet_tpu_torch.engine import load_weights
 
-    cmd = [sys.executable, "-m", "radet_tpu_torch.tools.train", config, "--work-dir", work_dir,
+    cmd = ["-m", "radet_tpu_torch.tools.train", config, "--work-dir", work_dir,
            "--device", device, "--max-iters", str(steps), "--cfg-options", "log_config.interval=1",
            f"checkpoint_config.interval={steps}", f"evaluation.interval={steps}",
            f"data.workers_per_gpu={FILES_WORKERS}", f"data.worker_mode={mode!r}", *eval_opts, *opts]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=str(Path(__file__).resolve().parent),
-                          timeout=900)
-    run_s = time.perf_counter() - t0
-    if proc.returncode != 0:
-        fail(f"the train CLI on {osp.basename(config)} ({mode} workers) exited {proc.returncode}:\n"
-             f"{proc.stderr[-3000:]}")
-    log = [ln.split(" - ")[-1] for ln in proc.stderr.splitlines()]
+    _, err, run_s = tool_run(Path(__file__).resolve().parent, cmd,
+                             f"the train CLI on {osp.basename(config)} ({mode} workers)", fresh)
+    log = err.splitlines()
     iters = [ln for ln in log if ln.startswith("iter ")]
     evals = [ln for ln in log if ln.startswith("eval: ")]
     launches = sum(int(n) for ln in log for n in re.findall(nms + r" kernel launches (\d+)", ln))
@@ -1111,14 +1155,15 @@ def files_phase(train_config: str, gpu: str, eval_opts, memory_ms: float, device
         work_dir = osp.join(osp.dirname(train_config), f"work_dir_{mode}")
         print(f"train from files: python -m radet_tpu_torch.tools.train {CONFIG} from train_pbr (full width, "
               f"bf16, batch 16, {FILES_WORKERS} loader {mode} workers):")
+        # the thread run in a process of its own, as a user starts it
         iters, dataset, _, run_s, _ = train_cli(train_config, work_dir, FILES_STEPS, mode, eval_opts,
-                                                device=device)
+                                                device=device, fresh=mode == "thread")
         ms, wait = median_iter(iters)
         print(f"timing: training from files, {mode} workers: {16 * 1000 / ms:.1f} img/s ({ms:.1f} ms/step, median "
               f"of steps 6-{FILES_STEPS}), loader wait {wait:.1f} ms/step ({wait / ms:.1%} of the step); in "
               f"memory (same call, same log) {16 * 1000 / memory_ms:.1f} img/s ({memory_ms:.1f} ms/step); "
-              f"{len(iters)} steps in {run_s:.1f} s in its own process (start-up, model build and eval "
-              f"included); {dataset}; checkpoint of step {FILES_STEPS} loads [{gpu}]")
+              f"{len(iters)} steps in {run_s:.1f} s ({'start-up, ' if mode == 'thread' else ''}model build and "
+              f"eval included); {dataset}; checkpoint of step {FILES_STEPS} loads [{gpu}]")
     return osp.join(osp.dirname(train_config), "work_dir_thread", "checkpoints")
 
 
@@ -1171,7 +1216,7 @@ def mix_phase(mix_config: str, pbr_checkpoints: str, gpu: str, eval_opts, memory
     ms, wait = median_iter(iters, skip=3)
     print(f"timing: mixpbr fine-tune from files, thread workers: {batch * 1000 / ms:.1f} img/s ({ms:.1f} ms/step, "
           f"median of steps 4-{MIX_STEPS}), loader wait {wait:.1f} ms/step ({wait / ms:.1%} of the step); in memory "
-          f"{batch * 1000 / memory_ms:.1f} img/s; {len(iters)} steps in {run_s:.1f} s in its own process; {line} "
+          f"{batch * 1000 / memory_ms:.1f} img/s; {len(iters)} steps in {run_s:.1f} s; {line} "
           f"[{gpu}]")
 
 
@@ -1593,20 +1638,15 @@ def eval_phases(config: str, gpu: str, work: str):
     ckpt = osp.join(work, "random_cls0.pth")
     save_weights(ckpt, model.state_dict(), meta=dict(CLASSES=list(cfg.CLASS_NAMES)))
 
-    # the test CLI, strict by default, in its own process
+    # the test CLI, strict by default, in a process of its own as a user starts it
     out = osp.join(work, "eval")
-    cmd = [sys.executable, "-m", "radet_tpu_torch.tools.test", config, ckpt, "--eval", "bbox",
-           "--format-only", "--json-prefix", out, "--out", out + ".pkl", "--cfg-options", *opts]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=str(Path(__file__).resolve().parent),
-                          timeout=900)
-    cli_s = time.perf_counter() - t0
-    if proc.returncode != 0:
-        fail(f"the test CLI exited {proc.returncode}:\n{proc.stderr[-3000:]}")
-    cli_metrics = json.loads(proc.stdout[proc.stdout.index("{"):])
+    stdout, stderr, cli_s = tool_run(Path(__file__).resolve().parent, [
+        "-m", "radet_tpu_torch.tools.test", config, ckpt, "--eval", "bbox", "--format-only", "--json-prefix", out,
+        "--out", out + ".pkl", "--cfg-options", *opts], "the test CLI", fresh=True)
+    cli_metrics = json.loads(stdout[stdout.index("{"):])
     with open(out + ".metrics.json", "w") as f:  # phase 12 holds eval_metric on eval.pkl to them
         json.dump(cli_metrics, f)
-    cli_launches = sum(int(n) for n in re.findall(r"vote_nms kernel launches (\d+)", proc.stderr))
+    cli_launches = sum(int(n) for n in re.findall(r"vote_nms kernel launches (\d+)", stderr))
     with open(out + ".bbox.json") as f:
         bbox_json = json.load(f)
     with open(out + ".bop.json") as f:
@@ -1616,9 +1656,9 @@ def eval_phases(config: str, gpu: str, work: str):
           f"vote_nms kernel launches {cli_launches}; {len(bbox_json)} COCO results in "
           f"{osp.basename(out)}.bbox.json, {len(bop_json)} in {osp.basename(out)}.bop.json "
           f"(scenes {sorted({d['scene_id'] for d in bop_json})})")
-    for ln in proc.stderr.splitlines():
+    for ln in stderr.splitlines():
         if "inference done" in ln:
-            print(f"  {ln.split(' - ')[-1]}")
+            print(f"  {ln}")
     if cli_launches < 1 or not bbox_json or len(bop_json) != len(bbox_json):
         fail("the CLI launched no kernel or wrote empty or mismatched jsons")
     if {d["scene_id"] for d in bop_json} != set(range(len(EVAL_GROUPS))):
@@ -2053,22 +2093,19 @@ def anchor_train_phase(files: str, gpu: str, eval_opts, test_opts, repo: Path) -
         moved = max(float((after[k] - init[k]).abs().max()) for k in head)
         ms, wait = median_iter(iters, skip=3)
         print(f"  {len(frozen)} frozen tensors equal the seeded init: {kept}; the head's largest move "
-              f"{moved:.3g}; {steps} steps in {run_s:.1f} s in its own process (start-up, model build and eval "
+              f"{moved:.3g}; {steps} steps in {run_s:.1f} s (model build and eval "
               f"included), {cfg.data.samples_per_gpu * 1000 / ms:.1f} img/s ({ms:.1f} ms/step, median of steps "
               f"4-{steps}), loader wait {wait:.1f} ms/step; {dataset_line} [{gpu}]")
         if not frozen or not kept or moved <= 0:
             fail(f"{name}: the frozen stages moved or the head did not train")
-        cmd = [sys.executable, "-m", "radet_tpu_torch.tools.test", train_config, osp.join(work_dir, "checkpoints"),
-               "--device", "cuda", "--eval", "bbox", "--cfg-options", *test_opts]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=str(repo), timeout=600)
-        if proc.returncode != 0:
-            fail(f"the test CLI on {name}'s checkpoint exited {proc.returncode}:\n{proc.stderr[-3000:]}")
-        metrics = json.loads(proc.stdout[proc.stdout.index("{"):])
-        launches = sum(int(n) for n in re.findall(r"batched_nms kernel launches (\d+)", proc.stderr))
-        print(f"  python -m radet_tpu_torch.tools.test (strict) on the checkpoint, {time.perf_counter() - t0:.1f} s "
-              f"in its own process: bbox_mAP {metrics['bbox_mAP']:.4f}, bbox_mAP_50 {metrics['bbox_mAP_50']:.4f}; "
-              f"batched_nms kernel launches {launches}")
+        stdout, stderr, test_s = tool_run(repo, [
+            "-m", "radet_tpu_torch.tools.test", train_config, osp.join(work_dir, "checkpoints"), "--device", "cuda",
+            "--eval", "bbox", "--cfg-options", *test_opts], f"the test CLI on {name}'s checkpoint")
+        metrics = json.loads(stdout[stdout.index("{"):])
+        launches = sum(int(n) for n in re.findall(r"batched_nms kernel launches (\d+)", stderr))
+        print(f"  python -m radet_tpu_torch.tools.test (strict) on the checkpoint, {test_s:.1f} s: bbox_mAP "
+              f"{metrics['bbox_mAP']:.4f}, bbox_mAP_50 {metrics['bbox_mAP_50']:.4f}; batched_nms kernel launches "
+              f"{launches}")
         if launches < 1 or not all(math.isfinite(v) for v in metrics.values()):
             fail(f"{name}: the test CLI launched no no-vote kernel or gave non-finite metrics")
         dataset = build_dataset(cfg, "train")
@@ -2124,12 +2161,13 @@ def running_stats(model) -> dict:
 
 
 def step_parity(cfg, dataset, name: str, gpu: str, flip_rtol: float = FLIP_RTOL,
-                scalar_rtol: float = GRAD_RTOL) -> None:
+                scalar_rtol: float = GRAD_RTOL, grad_rtol: float = GRAD_RTOL, loss_rtol: float = LOSS_RTOL) -> None:
     """One float32 step at batch 1 on the card against the CPU, with the same
-    weights, batch, assignment noise and side of every ReLU (a ReLU input
+    weights, batch, assignment noise, side of every ReLU (a ReLU input
     the two put on opposite sides may be at most ``flip_rtol`` of its
-    tensor's max |x|): assignment, losses, gradients (GRAD_RTOL, a
-    one-element tensor's ``scalar_rtol``) and every BatchNorm running
+    tensor's max |x|) and, for a QAT model, level of every fake-quantized
+    element: assignment, losses (``loss_rtol``), gradients (``grad_rtol``,
+    a one-element tensor's ``scalar_rtol``) and every BatchNorm running
     statistic after the step."""
     from radet_tpu_torch.apis.common import anchors_from_cfg, build_model_and_anchors
     from radet_tpu_torch.data import collate
@@ -2144,10 +2182,10 @@ def step_parity(cfg, dataset, name: str, gpu: str, flip_rtol: float = FLIP_RTOL,
     anchors, ranges, _ = anchors_from_cfg(cfg)
     one = collate([dataset[0]])
     gpu_model, cpu_model = init_model().to(dev), init_model()
-    masks = []
-    with relu_decisions(masks, replay=False):
+    masks, levels = [], []
+    with relu_decisions(masks, replay=False), level_decisions(levels, replay=False):
         out = parity_steps(cfg, one, anchors, ranges, step_args(cfg), (("card", gpu_model, dev),))
-    with relu_decisions(masks, replay=True) as flips:
+    with relu_decisions(masks, replay=True) as flips, level_decisions(levels, replay=True) as level_flips:
         out.update(parity_steps(cfg, one, anchors, ranges, step_args(cfg),
                                 (("cpu", cpu_model, torch.device("cpu")),)))
     (ac, mc, gc), (ag, mg, gg) = out["cpu"], out["card"]
@@ -2159,23 +2197,28 @@ def step_parity(cfg, dataset, name: str, gpu: str, flip_rtol: float = FLIP_RTOL,
                               {k: v for k, v in gc.items() if v.numel() == 1}) or [(0.0, "none")]
     stat_errs = grad_errors(running_stats(gpu_model), running_stats(cpu_model))
     flip_max = max((r for _, r in flips), default=0.0)
-    print(f"  {name} train parity, float32 batch 1, card vs CPU (TF32 off, same noise and ReLU sides): assignment "
+    print(f"  {name} train parity, float32 batch 1, card vs CPU (TF32 off, same noise, ReLU sides"
+          f"{' and levels' if levels else ''}): assignment "
           f"gt_idx equal: {same} ({int((ac.gt_idx >= 0).sum())} positives), weight max abs err {w_err:.3g}; losses "
           f"max rel err {loss_err:.3g} (loss {mg['loss']:.6f} vs {mc['loss']:.6f}); gradients max err "
           f"{errs[0][0]:.3g} of the tensor's max abs ({errs[0][1]}), of one-element tensors {scalar_errs[0][0]:.3g} "
           f"({scalar_errs[0][1]}); running statistics max err "
           f"{stat_errs[0][0]:.3g} ({stat_errs[0][1]}, {len(stat_errs)} tensors); ReLU inputs on opposite sides "
           f"of 0: {sum(c for c, _ in flips)} of {sum(m.numel() for m in masks)} in {len(masks)} calls, at most "
-          f"{flip_max:.3g} of their tensor's max |x| [{gpu}]")
+          f"{flip_max:.3g} of their tensor's max |x|" + (
+              f"; fake-quantized elements the CPU would have put on another level: {sum(level_flips)} of "
+              f"{sum(v.numel() for v in levels)} in {len(levels)} calls" if levels else "") + f" [{gpu}]")
     if not same:
         fail(f"{name}: the assignment differs between card and CPU")
     if flip_max > flip_rtol:
         fail(f"{name}: a ReLU input differs in sign by more than rounding ({flip_max:.3g} > {flip_rtol})")
-    if (w_err > WEIGHT_ATOL or loss_err > LOSS_RTOL or errs[0][0] > GRAD_RTOL or scalar_errs[0][0] > scalar_rtol
+    if len(level_flips) != len(levels):
+        fail(f"{name}: {len(levels)} fake quantizations on the card, {len(level_flips)} on the CPU")
+    if (w_err > WEIGHT_ATOL or loss_err > loss_rtol or errs[0][0] > grad_rtol or scalar_errs[0][0] > scalar_rtol
             or stat_errs[0][0] > STAT_RTOL):
-        fail(f"{name}: card vs CPU train step beyond tolerance (weights {WEIGHT_ATOL}, losses {LOSS_RTOL}, "
-             f"gradients {GRAD_RTOL}, one-element gradients {scalar_rtol}, running statistics {STAT_RTOL})")
-    del gpu_model, cpu_model, out, masks
+        fail(f"{name}: card vs CPU train step beyond tolerance (weights {WEIGHT_ATOL}, losses {loss_rtol}, "
+             f"gradients {grad_rtol}, one-element gradients {scalar_rtol}, running statistics {STAT_RTOL})")
+    del gpu_model, cpu_model, out, masks, levels
     torch.cuda.empty_cache()
 
 
@@ -2303,23 +2346,20 @@ def zoo_cli_phase(files: str, gpu: str, eval_opts, test_opts, repo: Path) -> Non
     moved = max(float((after[k] - init[k]).abs().max()) for k in init if k.startswith("bbox_head."))
     ms, wait = median_iter(iters, skip=3)
     print(f"  {len(frozen)} frozen tensors equal the seeded init: {kept}; the head's largest move {moved:.3g}; "
-          f"{ZOO_STEPS} steps in {run_s:.1f} s in its own process (start-up, model build and eval included), "
+          f"{ZOO_STEPS} steps in {run_s:.1f} s (model build and eval included), "
           f"{cfg.data.samples_per_gpu * 1000 / ms:.1f} img/s ({ms:.1f} ms/step, median of steps 4-{ZOO_STEPS}), "
           f"loader wait {wait:.1f} ms/step; {dataset_line} [{gpu}]")
     if not frozen or not kept or moved <= 0:
         fail(f"{name}: the frozen stages moved or the head did not train")
 
-    cmd = [sys.executable, "-m", "radet_tpu_torch.tools.test", train_config, osp.join(work_dir, "checkpoints"),
-           "--device", "cuda", "--eval", "bbox", "--cfg-options", *test_opts]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=str(repo), timeout=600)
-    if proc.returncode != 0:
-        fail(f"the test CLI on {name}'s checkpoint exited {proc.returncode}:\n{proc.stderr[-3000:]}")
-    metrics = json.loads(proc.stdout[proc.stdout.index("{"):])
-    launches = sum(int(n) for n in re.findall(r"vote_nms kernel launches (\d+)", proc.stderr))
+    stdout, stderr, test_s = tool_run(repo, [
+        "-m", "radet_tpu_torch.tools.test", train_config, osp.join(work_dir, "checkpoints"), "--device", "cuda",
+        "--eval", "bbox", "--cfg-options", *test_opts], f"the test CLI on {name}'s checkpoint")
+    metrics = json.loads(stdout[stdout.index("{"):])
+    launches = sum(int(n) for n in re.findall(r"vote_nms kernel launches (\d+)", stderr))
     print(f"  python -m radet_tpu_torch.tools.test (strict: vote-NMS at K = 2048) on the checkpoint, "
-          f"{time.perf_counter() - t0:.1f} s in its own process: bbox_mAP {metrics['bbox_mAP']:.4f}, "
-          f"bbox_mAP_50 {metrics['bbox_mAP_50']:.4f}; vote_nms kernel launches {launches}")
+          f"{test_s:.1f} s: bbox_mAP {metrics['bbox_mAP']:.4f}, bbox_mAP_50 {metrics['bbox_mAP_50']:.4f}; "
+          f"vote_nms kernel launches {launches}")
     if launches < 1 or not all(math.isfinite(v) for v in metrics.values()):
         fail(f"{name}: the test CLI launched no vote_nms kernel or gave non-finite metrics")
 
@@ -2446,12 +2486,16 @@ def hold_to_plain(calls, what: str) -> float:
 
 
 def learning_phase(gpu: str):
-    """Phase 11c: ``python -m radet_tpu_torch.tools.validate_learning`` at its
-    defaults (RADet-R18 from scratch, live BN, 400 steps at batch 4,
-    128x160, then the strict eval), in this process: mAP50 at least
-    LEARN_MIN_MAP50, its eval's first vote-NMS call held to the plain
-    version.  Returns (the kernel's launches, its max abs box error there)."""
+    """Phase 11c: ``python -m radet_tpu_torch.tools.validate_learning --qat``
+    at its defaults (RADet-R18 from scratch, live BN, 400 steps at batch 4,
+    128x160, then the strict eval; then the QAT loop: the PTQ eval through
+    the int8 deploy config, 200 QAT steps from the float weights, the
+    deploy eval, each printing its RESULT line), in this process: mAP50 at
+    least LEARN_MIN_MAP50, its eval's first vote-NMS call held to the plain
+    version.  Returns (the kernel's launches, its max abs box error there,
+    the int8 kernel's launches)."""
     import radet_tpu_torch.models.postprocess as postprocess
+    import radet_tpu_torch.ops.int8_conv_cuda as icc
     import radet_tpu_torch.ops.vote_nms_cuda as vnc
     from radet_tpu_torch.tools import validate_learning
     from radet_tpu_torch.utils import get_root_logger
@@ -2460,10 +2504,11 @@ def learning_phase(gpu: str):
     kernel_nms, postprocess.vote_nms = recorded_vote_nms(calls)
     logs = LogLines()
     get_root_logger().addHandler(logs)
-    vnc.LAUNCHES = 0
+    vnc.LAUNCHES = icc.LAUNCHES = 0
+    icc.PATH_LAUNCHES.update(dict.fromkeys(icc.PATHS, 0))
     t0 = time.perf_counter()
     try:
-        metrics = validate_learning.main([])
+        metrics = validate_learning.main(["--qat"])
     except SystemExit as e:
         fail(f"validate_learning exited {e.code}: its mAP50 is below {LEARN_MIN_MAP50}")
     finally:
@@ -2471,21 +2516,25 @@ def learning_phase(gpu: str):
         get_root_logger().removeHandler(logs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = vnc.LAUNCHES
+    launches, int8_launches, int8_paths = vnc.LAUNCHES, icc.LAUNCHES, dict(icc.PATH_LAUNCHES)
     iters = [ln for ln in logs.lines if ln.startswith("iter ")]
-    print(f"learning: python -m radet_tpu_torch.tools.validate_learning (defaults: 400 steps, batch 4, 128x160, "
-          f"RADet-R18 from scratch, norm_eval=False, float32): mAP50 {metrics['bbox_mAP_50']:.4f}, mAP "
-          f"{metrics['bbox_mAP']:.4f}, {wall:.1f} s wall (scenes, training and eval); vote_nms kernel launches "
-          f"{launches} [{gpu}]")
+    print(f"learning: python -m radet_tpu_torch.tools.validate_learning --qat (defaults: 400 steps, batch 4, "
+          f"128x160, RADet-R18 from scratch, norm_eval=False, float32; then PTQ eval, 200 QAT steps, deploy eval): "
+          f"mAP50 {metrics['bbox_mAP_50']:.4f}, mAP {metrics['bbox_mAP']:.4f}; "
+          + ", ".join(f"{k} mAP50 {m['bbox_mAP_50']:.4f} mAP {m['bbox_mAP']:.4f}" for k, m in metrics["qat"].items())
+          + f"; {wall:.1f} s wall (scenes, both trainings and three evals); vote_nms kernel launches {launches}, "
+          f"int8_conv {int8_launches} (by path {int8_paths}) [{gpu}]")
     for ln in iters[-2:]:
         print(f"  {ln}")
+    if int8_launches < 1:
+        fail("validate_learning --qat's deploy evals launched no int8 kernel")
     if launches < 1 or len(calls) != launches:
         fail(f"validate_learning's eval launched the vote_nms kernel {launches} times ({len(calls)} recorded)")
     err = hold_to_plain(calls[:1], "validate_learning's eval, its first batch")
     if metrics["bbox_mAP_50"] < LEARN_MIN_MAP50:
         fail(f"validate_learning reached mAP50 {metrics['bbox_mAP_50']:.4f} < {LEARN_MIN_MAP50}")
     del calls
-    return launches, err
+    return launches, err, int8_launches
 
 
 def sweep_phase(gpu: str, work: str):
@@ -2601,16 +2650,44 @@ print(json.dumps(dict(launches=launches, int8_launches=int8_launches, ms=start.e
 """
 
 
-def tool_run(repo: Path, args, what: str):
-    """``python`` with ``args`` in its own process from the repository root;
-    returns (stdout, stderr, wall s) or fails."""
+def tool_run(repo: Path, args, what: str, fresh: bool = False):
+    """``python`` with ``args`` from the repository root: ``-m MODULE ...``
+    as that entry point's ``main(argv)`` in this process (its stdout and the
+    package's log captured: a process of its own would add ~8 s of start-up
+    and CUDA set-up to each of the smoke's ~20 CLI runs), or with ``fresh``
+    as ``python -m`` in a process of its own (the log's messages read from
+    its stderr); anything else in its own process (stderr captured).
+    Returns (stdout, the log or stderr, wall s) or fails."""
+    args = [str(a) for a in args]
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, *map(str, args)], capture_output=True, text=True, cwd=str(repo),
-                          timeout=TOOL_TIMEOUT)
-    wall = time.perf_counter() - t0
-    if proc.returncode != 0:
-        fail(f"{what} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
-    return proc.stdout, proc.stderr, wall
+    if args[0] != "-m" or fresh:
+        proc = subprocess.run([sys.executable, *args], capture_output=True, text=True, cwd=str(repo),
+                              timeout=TOOL_TIMEOUT)
+        if proc.returncode != 0:
+            fail(f"{what} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+        err = proc.stderr
+        if args[0] == "-m":
+            err = "\n".join(ln.split(" - ")[-1] for ln in err.splitlines())
+        return proc.stdout, err, time.perf_counter() - t0
+    import gc
+    import importlib
+    import traceback
+
+    from radet_tpu_torch.utils import get_root_logger
+
+    out, logs = io.StringIO(), LogLines()
+    get_root_logger().addHandler(logs)
+    try:
+        with contextlib.redirect_stdout(out):
+            importlib.import_module(args[1]).main(args[2:])
+    except Exception:  # the phase fails with the traceback
+        fail(f"{what} raised:\n{traceback.format_exc()[-3000:]}")
+    finally:
+        get_root_logger().removeHandler(logs)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return out.getvalue(), "\n".join(logs.lines), time.perf_counter() - t0
 
 
 def last_json(text: str) -> dict:
@@ -2795,7 +2872,7 @@ def dispatch_timing(gpu: str) -> dict:
 
 
 def tools_phase(config: str, gpu: str, repo: Path, work: str, test_opts, images) -> tuple:
-    """Phase 12: each tool's CLI in its own process at full width on the
+    """Phase 12: each tool's CLI (its ``main``) at full width on the
     card (get_flops, profile_infer, profile_train, profile_pipeline,
     export_model and its program in a fresh process, eval_metric), and the
     operator's dispatch cost.  Returns (the exported program's launches per
@@ -2942,7 +3019,7 @@ def int8_kernel_by_shape(gpu: str, calls: dict) -> dict:
           f"{', '.join(INT8_TIMED[1:])} at 480x640 (batch 8: the main path's inputs; batch 128: them and 120 random "
           f"images) and a grouped one (4 channels a group, random int8); device times by CUDA events, the host kept "
           f"ahead [{gpu}]:")
-    print("  N C H W -> Cout k/s g path | batch 8: kernel ms, mma ms, plain ms, bound ms (by), share | batch 128: "
+    print("  N C H W -> Cout k/s g path | batch 8: kernel ms, plain ms, bound ms (by), share | batch 128: "
           "kernel ms, one block per tile ms, mma ms, bound ms, share, _int_mm ms, cuDNN bf16 conv ms (not the same "
           "function)")
 
@@ -2975,7 +3052,6 @@ def int8_kernel_by_shape(gpu: str, calls: dict) -> dict:
             return lambda: icc.int8_conv_cuda(xx, wt, *args, torch.bfloat16, **kw)
 
         row["ms"] = device_ms(kern(x), 20)
-        row["mma_ms"] = device_ms(kern(x, path="mma"), 20)
         with torch.backends.cudnn.flags(enabled=False):
             row["plain_ms"] = cuda_ms(lambda: int8_conv_plain(x, wt, *args, torch.bfloat16), 2)
         ho, wo = icc.conv_output_hw(x.shape[2], x.shape[3], wt.shape[2:], stride, padding)
@@ -3001,7 +3077,7 @@ def int8_kernel_by_shape(gpu: str, calls: dict) -> dict:
         del big, xb, wb
         out[label] = row
         opt = lambda v: "-" if v is None else f"{v:.4f}"  # noqa: E731
-        print(f"  {label} {cfg['path']} | {row['ms']:.4f}, {row['mma_ms']:.4f}, {row['plain_ms']:.3f}, "
+        print(f"  {label} {cfg['path']} | {row['ms']:.4f}, {row['plain_ms']:.3f}, "
               f"{row['bound_ms']:.4f} ({row['bound_by']}), {row['bound_ms'] / row['ms']:.1%} | {row['ms_128']:.4f}, "
               f"{opt(row['ms_128_per_tile'])}, {row['mma_ms_128']:.4f}, {row['bound_ms_128']:.4f} "
               f"({row['bound_by_128']}), {row['bound_ms_128'] / row['ms_128']:.1%}, {opt(row['int_mm_ms_128'])}, "
@@ -3362,6 +3438,207 @@ def draw_phase(config: str, gpu: str, work: str, train_config: str) -> int:
     return launches
 
 
+# 15. quantization-aware training: configs/bop/r50_ycbv_pbr_int8_qat.py
+QAT_CONFIG = "configs/bop/r50_ycbv_pbr_int8_qat.py"
+QAT_DEPLOY = "configs/bop/r50_ycbv_pbr_int8_stream.py"
+QAT_CLI_STEPS = 4
+QAT_LAUNCHES = 92  # int8 convs per forward of the deploy arithmetic (int8_stream)
+# The QAT float32 step, card vs CPU, is checked twice.  With the QAT convs' outputs kept in float32 (the only
+# change), at the flagship's tolerances: the QAT arithmetic itself.  As it runs, with those outputs stored in
+# bfloat16 (as the JAX package's): an element whose float32 sum lands on the other side of a bfloat16 rounding
+# moves by up to 2^-8 of itself, so a ReLU input on the other side of 0 may be that far from it, and the
+# losses and gradients move by what such steps add up to (measured on the card in four runs, at worst: ReLU
+# inputs 0.000387 of their tensor's max, losses 7.2e-4, gradients 0.0179 of a tensor's max).
+QAT_FLIP_RTOL = QAT_LOSS_RTOL = 2.0 ** -8
+QAT_GRAD_RTOL = 0.05
+
+
+def qat_step_checks(gpu: str, repo: Path) -> dict:
+    """Phase 15a-b: the QAT config's float32 step at batch 1, full width, on
+    the card against the CPU (``step_parity``: same weights, batch, noise,
+    ReLU sides and levels; TF32 off), with the QAT convs' outputs in float32
+    and then as they run (see QAT_GRAD_RTOL); its bf16 step at batch 16
+    timed with its peak memory beside the flagship's in this call,
+    launching no int8 kernel.  Returns the times."""
+    import radet_tpu_torch.ops.int8_conv_cuda as icc
+    from radet_tpu_torch.apis.common import assignment_cfg_from
+    from radet_tpu_torch.data import InMemoryBOPDataset, train_transforms
+    from radet_tpu_torch.utils import Config
+    from synthetic_bop import synthetic_bop_records
+
+    cfg = Config.fromfile(str(repo / QAT_CONFIG))
+    h, w = cfg.input_size
+    max_gt = int(assignment_cfg_from(cfg).get("max_gt", 32))
+    records = synthetic_bop_records(np.random.RandomState(SEED + 2), int(cfg.data.samples_per_gpu), (h, w))
+    dataset = InMemoryBOPDataset(records, train_transforms((h, w), max_gt=max_gt, seed=SEED), max_gt=max_gt,
+                                 classes=cfg.CLASS_NAMES)
+    print(f"QAT: {QAT_CONFIG} (backbone {cfg.model.backbone.quant!r}, bbox_head {cfg.model.bbox_head.quant!r}, "
+          f"qat), full width, {h}x{w}: straight-through fake quantization at the deploy scales, float32 convs "
+          f"with TF32 off, outputs in bfloat16")
+    from radet_tpu_torch.ops import quant
+
+    quant.QAT_OUT_DTYPE = torch.float32
+    try:
+        step_parity(cfg, dataset, "QAT (its convs' outputs kept in float32)", gpu)
+    finally:
+        quant.QAT_OUT_DTYPE = torch.bfloat16
+    step_parity(cfg, dataset, "QAT", gpu, QAT_FLIP_RTOL, grad_rtol=QAT_GRAD_RTOL, loss_rtol=QAT_LOSS_RTOL)
+    # the flagship's step before and after the QAT step: its host-paced time moves with the host
+    flagship = Config.fromfile(str(repo / CONFIG))
+    flagship_ms, flagship_peak = step_ms(flagship, dataset, "flagship", gpu)
+    before = icc.LAUNCHES
+    qat_ms, qat_peak = step_ms(cfg, dataset, "QAT", gpu)
+    step_launches = icc.LAUNCHES - before
+    flagship_after_ms, _ = step_ms(flagship, dataset, "flagship, again", gpu)
+    print(f"  QAT train step at batch 16, bf16: {qat_ms:.2f} ms ({qat_ms / flagship_ms:.3f}x and "
+          f"{qat_ms / flagship_after_ms:.3f}x the flagship's {flagship_ms:.2f} and {flagship_after_ms:.2f} ms before "
+          f"and after it), peak {qat_peak:.2f} GiB ({qat_peak / flagship_peak:.3f}x {flagship_peak:.2f}); "
+          f"int8_conv launches in its 13 steps: {step_launches} [{gpu}]")
+    if step_launches:
+        fail(f"the QAT train step launched the int8 kernel {step_launches} times")
+    return dict(qat_ms=qat_ms, qat_peak_gib=qat_peak, flagship_ms=[flagship_ms, flagship_after_ms],
+                flagship_peak_gib=flagship_peak, train_step_launches=step_launches)
+
+
+def counted_run(what: str, fn):
+    """``fn()`` with vote-NMS recorded and the trainer's log kept; the int8
+    launches by kernel and the vote-NMS launches counted.  Returns (the log,
+    the recorded vote-NMS calls, int8 launches, int8 launches by path,
+    vote-NMS launches, seconds)."""
+    import radet_tpu_torch.models.postprocess as postprocess
+    import radet_tpu_torch.ops.int8_conv_cuda as icc
+    import radet_tpu_torch.ops.vote_nms_cuda as vnc
+    from radet_tpu_torch.utils import get_root_logger
+
+    calls = []
+    kernel_nms, postprocess.vote_nms = recorded_vote_nms(calls)
+    logs = LogLines()
+    get_root_logger().addHandler(logs)
+    icc.LAUNCHES = vnc.LAUNCHES = 0
+    icc.PATH_LAUNCHES.update(dict.fromkeys(icc.PATHS, 0))
+    t0 = time.perf_counter()
+    try:
+        fn()
+    finally:
+        postprocess.vote_nms = kernel_nms
+        get_root_logger().removeHandler(logs)
+    torch.cuda.synchronize()
+    launches, paths, nms = icc.LAUNCHES, dict(icc.PATH_LAUNCHES), vnc.LAUNCHES
+    if nms < 1 or len(calls) != nms or launches != QAT_LAUNCHES * nms or paths["wgmma"] != launches:
+        fail(f"{what}: int8_conv launched {launches} times (by path {paths}) for {nms} vote_nms launches "
+             f"({len(calls)} recorded); expected {QAT_LAUNCHES} on the wgmma kernel for each")
+    return logs.lines, calls, launches, paths, nms, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def tf32_probe():
+    """Within the block cuDNN's TF32 is on, as PyTorch starts (this script
+    turns it off), and every QAT conv of the trunk and the head records
+    the setting at its forward and, through a hook on its output, at its
+    backward.  Yields the (forward, backward) lists."""
+    import radet_tpu_torch.models.radet_head as head
+    import radet_tpu_torch.models.resnet as resnet
+    from radet_tpu_torch.ops import quant
+
+    seen = ([], [])
+
+    def probed(conv, x, x_scale=None):
+        out = quant.qat_conv_forward(conv, x, x_scale)
+        seen[0].append(torch.backends.cudnn.allow_tf32)
+        if out.requires_grad:
+            out.register_hook(lambda g: seen[1].append(torch.backends.cudnn.allow_tf32))
+        return out
+
+    head.qat_conv_forward = resnet.qat_conv_forward = probed
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield seen
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        head.qat_conv_forward = resnet.qat_conv_forward = quant.qat_conv_forward
+
+
+def qat_cli_phase(files: str, gpu: str, eval_opts, test_opts, repo: Path, pbr_checkpoints: str) -> dict:
+    """Phase 15c: ``tools.train`` (its ``main``, in this process, with
+    cuDNN's TF32 on as PyTorch starts: ``tf32_probe``, which checks that
+    the trainer turns it off for every QAT conv's forward and backward) on
+    the QAT config from the JPEG ``train_pbr`` split through its own
+    pipeline, full width, bf16, batch 16, QAT_CLI_STEPS steps, ``load_from``
+    the flagship's from-files checkpoints (every tensor loaded), one
+    periodic eval at ``score_thr`` 0 on the deploy arithmetic; then
+    ``tools.test`` with QAT_DEPLOY on its checkpoint (strict).  Each run's
+    int8 launches: QAT_LAUNCHES per forward, all on the wgmma kernel; its
+    vote-NMS calls held to the plain version.  Returns the launches."""
+    from radet_tpu_torch.engine import load_weights
+    from radet_tpu_torch.tools import test as test_tool
+    from radet_tpu_torch.tools import train as train_tool
+    from synthetic_bop import write_train_config
+
+    config = write_train_config(osp.join(files, "qat_config.py"), str(repo / QAT_CONFIG),
+                                osp.join(files, "train_pbr.json"), osp.join(files, "train_pbr") + "/",
+                                osp.join(files, "backgrounds"))
+    work_dir = osp.join(files, "work_dir_qat")
+    print(f"QAT train CLI: radet_tpu_torch.tools.train.main on {QAT_CONFIG} from train_pbr (full width, bf16, batch "
+          f"16, {FILES_WORKERS} loader threads), {QAT_CLI_STEPS} steps, load_from {pbr_checkpoints}, one eval:")
+    with tf32_probe() as (tf32_fwd, tf32_bwd):
+        log, calls, launches, paths, nms, run_s = counted_run("the QAT train CLI's eval", lambda: train_tool.main([
+            config, "--work-dir", work_dir, "--max-iters", str(QAT_CLI_STEPS), "--cfg-options",
+            "log_config.interval=1", f"checkpoint_config.interval={QAT_CLI_STEPS}",
+            f"evaluation.interval={QAT_CLI_STEPS}", f"data.workers_per_gpu={FILES_WORKERS}", "test_cfg.score_thr=0.0",
+            *eval_opts, f"load_from={pbr_checkpoints!r}"]))
+        tf32_after = torch.backends.cudnn.allow_tf32
+    print(f"  cuDNN TF32 on before the run; in its QAT convs: on at {sum(tf32_fwd)} of {len(tf32_fwd)} forwards and "
+          f"{sum(tf32_bwd)} of {len(tf32_bwd)} backwards; on again after it: {tf32_after}")
+    if not tf32_fwd or not tf32_bwd or any(tf32_fwd) or any(tf32_bwd) or not tf32_after:
+        fail("the QAT trainer did not run every QAT conv's forward and backward with cuDNN's TF32 off")
+    iters = [ln for ln in log if ln.startswith("iter ")]
+    evals = [ln for ln in log if ln.startswith("eval: ")]
+    for ln in iters[:1] + iters[-1:] + evals:
+        print(f"  {ln}")
+    loaded = load_weights(pbr_checkpoints)
+    after = load_weights(osp.join(work_dir, "checkpoints"))
+    note = f"loaded {len(loaded)}/{len(loaded)} tensors from pretrained weights"
+    history = [float(v) for ln in iters for v in re.findall(r" loss (\S+)", ln)]
+    frozen = [k for k in loaded if k.startswith(("backbone.conv1.", "backbone.bn1.", "backbone.layer1."))]
+    moved = max(float((after[k].float() - loaded[k].float()).abs().max()) for k in loaded
+                if k.startswith(("backbone.layer4.", "bbox_head.")) and loaded[k].is_floating_point())
+    if (note not in log or len(iters) != QAT_CLI_STEPS or len(history) != QAT_CLI_STEPS
+            or not all(math.isfinite(v) for v in history) or len(evals) != 1
+            or not all(torch.equal(after[k], loaded[k]) for k in frozen) or not moved > 0):
+        fail(f"the QAT train CLI: {len(iters)} steps, losses {history}, {len(evals)} evals, every tensor loaded: "
+             f"{note in log}, frozen kept, trained ones moved {moved:.3g}")
+    ms = float(np.median([float(m) for ln in iters[1:] for m in re.findall(r"\| (\S+) ms/iter", ln)]))
+    print(f"  {note}; frozen stem and layer1 kept, layer4 and head moved by up to {moved:.3g}; {ms:.1f} ms/step "
+          f"(median of steps 2-{QAT_CLI_STEPS}), {run_s:.1f} s in all; eval: int8_conv launches {launches} (by path "
+          f"{paths}), vote_nms {nms} [{gpu}]")
+    train_err = hold_to_plain(calls, "the QAT train CLI's eval")
+
+    print(f"QAT deploy: radet_tpu_torch.tools.test.main {QAT_DEPLOY} on the QAT checkpoint (strict, score_thr 0), "
+          f"the eval phase's PNG set:")
+    out = osp.join(files, "qat_deploy")
+    _, calls, test_launches, test_paths, test_nms, test_s = counted_run("the deploy test of the QAT checkpoint",
+                                                                       lambda: test_tool.main([
+        str(repo / QAT_DEPLOY), osp.join(work_dir, "checkpoints"), "--eval", "bbox", "--format-only",
+        "--json-prefix", out, "--cfg-options", "test_cfg.score_thr=0.0", *test_opts]))
+    with open(out + ".bbox.json") as f:
+        results = json.load(f)
+    print(f"  {test_s:.1f} s, {len(results)} COCO results; int8_conv launches {test_launches} (by path "
+          f"{test_paths}: {QAT_LAUNCHES} per forward), vote_nms {test_nms} [{gpu}]")
+    if not results:
+        fail("the deploy test of the QAT checkpoint wrote no results")
+    test_err = hold_to_plain(calls, "the deploy test of the QAT checkpoint")
+    return dict(int8=dict(train_cli_eval=launches, deploy_test=test_launches),
+                nms=dict(train_cli_eval=nms, deploy_test=test_nms), max_abs_err=max(train_err, test_err), ms=ms)
+
+
+def qat_phase(gpu: str, repo: Path, files: str, eval_opts, test_opts, pbr_checkpoints: str) -> dict:
+    """Phase 15: quantization-aware training (``qat_step_checks``,
+    ``qat_cli_phase``).  Returns the kernels line's numbers."""
+    out = qat_step_checks(gpu, repo)
+    out.update(qat_cli_phase(files, gpu, eval_opts, test_opts, repo, pbr_checkpoints))
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -3545,7 +3822,7 @@ def main() -> None:
 
         # 11. live BatchNorm and checkpointing, the learning check, the BOP sweep
         phase("live BN and with_cp", live_bn_phase, config, gpu)
-        learn_launches, learn_err = phase("validate_learning", learning_phase, gpu)
+        learn_launches, learn_err, learn_int8 = phase("validate_learning", learning_phase, gpu)
         sweep_launches, sweep_err = phase("BOP sweep", sweep_phase, gpu, work)
 
         # 12. the measuring and deploy tools
@@ -3557,6 +3834,9 @@ def main() -> None:
 
         # 14. drawing
         show_dir_launches = phase("draw", draw_phase, config, gpu, work, train_config)
+
+        # 15. quantization-aware training
+        qat = phase("QAT", qat_phase, gpu, repo, files, eval_opts, test_opts, pbr_checkpoints)
     nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by, _ = nms_times[ANCHOR_MAIN_SHAPE]
 
     print(f"card: {gpu}; smoke {time.perf_counter() - start:.1f} s wall")
@@ -3582,6 +3862,9 @@ def main() -> None:
         "dispatch_ms": dispatch,
         # phase 14: the strict eval of python -m radet_tpu_torch.tools.test --show-dir
         "show_dir_launches": show_dir_launches,
+        # phase 15: the QAT train CLI's periodic eval, the int8_stream test of its checkpoint; phase 11:
+        # validate_learning --qat's three evals
+        "qat_launches": dict(qat["nms"], validate_learning=learn_launches),
     }, {
         "name": "batched_nms (vote_nms.cu, no-vote mode)",
         "route": "cuda",
@@ -3613,8 +3896,12 @@ def main() -> None:
         "launches_by_config": int8["launches"],
         "launches_by_path": int8["paths"],  # int8_stream's inference_detector run: every launch the wgmma kernel
         "export_launches": int8["export"],
+        # phase 15: the QAT train CLI's periodic eval, the int8_stream test of its checkpoint (92 per forward,
+        # all wgmma), the timed bf16 train step's 13 steps (must be 0); phase 11: validate_learning --qat's PTQ
+        # and deploy evals
+        "qat_launches": dict(qat["int8"], train_step=qat["train_step_launches"], validate_learning=learn_int8),
         # every shape: the wgmma kernel ("ms", "ms_128"; "ms_128_per_tile" with one block per tile) beside
-        # the mma.sync kernel ("mma_ms", "mma_ms_128") on the same inputs
+        # the mma.sync kernel ("mma_ms_128") on the same inputs
         "by_shape": int8["by_shape"],
         "host_us": int8["host_us"],  # host microseconds per call of each path (tensor maps encoded per call)
         "ms_per_batch": int8["times"],

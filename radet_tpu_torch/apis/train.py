@@ -31,7 +31,7 @@ from ..engine.checkpoint import (
     write_meta,
 )
 from ..engine.optim import build_optimizer
-from ..ops.quant import QAT_TRAINING
+from ..ops.quant import FROZEN_INT8_TRAINING
 from ..engine.train_step import TrainState, batch_to_device, build_train_step, build_train_step_anchor
 from ..utils.logging import get_root_logger
 from .common import (
@@ -61,13 +61,12 @@ def check_trainable_quant(model_cfg) -> None:
 
 
 def check_int8_training(model_cfg) -> None:
-    """Quantization-aware training (``qat=True``) and frozen-stage int8
-    training (``backbone.frozen_int8=True``) are item 14b: raise before any
-    step.  (Such configs infer and evaluate: QAT at eval is the int8 deploy
-    arithmetic, ``frozen_int8`` at eval the float path.)"""
-    for part, key in (("backbone", "qat"), ("bbox_head", "qat"), ("backbone", "frozen_int8")):
-        if model_cfg.get(part, {}).get(key):
-            raise NotImplementedError(f"training with model.{part}.{key}=True is not ported ({QAT_TRAINING})")
+    """Frozen-stage int8 training (``backbone.frozen_int8=True``) is item
+    14c: raise before any step.  (Such a config infers and evaluates on the
+    float path.)  Quantization-aware training (``qat=True``) trains."""
+    if model_cfg.get("backbone", {}).get("frozen_int8"):
+        raise NotImplementedError(f"training with model.backbone.frozen_int8=True is not ported "
+                                  f"({FROZEN_INT8_TRAINING})")
 
 
 def _merge_pretrained(model, state_dict, logger) -> None:

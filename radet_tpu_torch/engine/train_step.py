@@ -9,6 +9,10 @@ under ``no_grad`` (RADet's sampled draw from the distance maps, or the
 anchor heads' ATSS / MaxIoU on IoU), the loss, backward, global-norm clip,
 the optimizer update and the schedule's step.
 
+A model with quantization-aware training (``qat``) runs its forward and
+backward with cuDNN's TF32 off (``ops.quant.qat_precision``): its fake-quantized
+convolutions are float32 on the deploy grid.
+
 The assignment noise comes from a device generator seeded by (seed, step),
 the counterpart of ``fold_in(rng_key, step)``: a run resumed from a
 checkpoint draws the same noise as one that was never interrupted.  Nothing
@@ -18,6 +22,7 @@ sync) only when the caller converts them.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -29,7 +34,7 @@ from ..models.anchor_heads import flatten_anchor_outputs
 from ..models.anchor_loss import anchor_head_loss, atss_loss
 from ..models.detector import flatten_head_outputs, preprocess_images
 from ..models.radet_loss import radet_loss
-from ..ops.quant import QAT_TRAINING
+from ..ops.quant import FROZEN_INT8_TRAINING, qat_precision
 from .optim import ClippedOptimizer
 
 BATCH_KEYS = ("image", "gt_boxes", "gt_labels", "gt_valid", "dist_vals")
@@ -67,13 +72,12 @@ def batch_to_device(batch: Dict[str, Any], device, keys=BATCH_KEYS) -> Dict[str,
 
 
 def refuse_int8_training(model) -> None:
-    """Raise for a model with quantization-aware training (``qat``) or
-    frozen-stage int8 training (``frozen_int8``) switched on: item 14b."""
+    """Raise for a model with frozen-stage int8 training (``frozen_int8``)
+    switched on: item 14c."""
     for name, m in model.named_modules():
-        for key in ("qat", "frozen_int8"):
-            if getattr(m, key, False):
-                raise NotImplementedError(f"training {name or 'the model'} with {key}=True is not ported "
-                                          f"({QAT_TRAINING})")
+        if getattr(m, "frozen_int8", False):
+            raise NotImplementedError(f"training {name or 'the model'} with frozen_int8=True is not ported "
+                                      f"({FROZEN_INT8_TRAINING})")
 
 
 def build_train_step(
@@ -93,7 +97,7 @@ def build_train_step(
     ``batch``: device tensors under :data:`BATCH_KEYS` (see
     :func:`batch_to_device`).  ``noise``: optional (gumbel_pool,
     gumbel_draw) for the assignment (``core.assignment.assign_labels``).
-    A model with ``qat`` or ``frozen_int8`` raises (item 14b)."""
+    A model with ``frozen_int8`` raises (item 14c)."""
     refuse_int8_training(model)
     return TrainStep(model, anchors, regress_ranges, img_norm=img_norm, num_classes=num_classes,
                      assignment_cfg=assignment_cfg, normalizer=normalizer, loss_cfg=loss_cfg)
@@ -129,6 +133,7 @@ class TrainStep:
         self.ranges = torch.as_tensor(regress_ranges, dtype=torch.float32, device=device)
         self.mean = torch.tensor(img_norm["mean"], dtype=torch.float32, device=device)
         self.std = torch.tensor(img_norm["std"], dtype=torch.float32, device=device)
+        self.precision = step_precision(model)
 
     @torch.no_grad()
     def assign(self, batch, noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -152,7 +157,15 @@ class TrainStep:
         generator = None if noise is not None else state.step_generator()
         assign = self.assign(batch, noise, generator)
         state.tx.zero_grad()
-        return _update(state, self.loss(state.model, batch, assign))
+        with self.precision():
+            return _update(state, self.loss(state.model, batch, assign))
+
+
+def step_precision(model):
+    """The scope a step of ``model`` runs its forward and backward in:
+    :func:`ops.quant.qat_precision` (cuDNN's TF32 off) for a model with
+    quantization-aware training, else none."""
+    return qat_precision if any(getattr(m, "qat", False) for m in model.modules()) else contextlib.nullcontext
 
 
 def _update(state: TrainState, losses: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -181,7 +194,7 @@ def build_train_step_anchor(
     AnchorHead models.  ``spec``: ``apis.common.anchor_head_spec`` of the
     config.  ``batch``: device tensors under :data:`ANCHOR_BATCH_KEYS`.
     The assignment is deterministic (IoU-based): the step draws no random
-    numbers.  A model with ``qat`` raises (item 14b)."""
+    numbers.  A model with ``frozen_int8`` raises (item 14c)."""
     refuse_int8_training(model)
     return AnchorTrainStep(model, anchors, num_level_anchors, img_norm=img_norm, num_classes=num_classes,
                            spec=spec)
@@ -201,6 +214,7 @@ class AnchorTrainStep:
         self.valid_mask = None if mask is None else torch.as_tensor(mask, device=device)
         self.mean = torch.tensor(img_norm["mean"], dtype=torch.float32, device=device)
         self.std = torch.tensor(img_norm["std"], dtype=torch.float32, device=device)
+        self.precision = step_precision(model)
 
     @torch.no_grad()
     def assign(self, batch) -> torch.Tensor:
@@ -231,4 +245,5 @@ class AnchorTrainStep:
 
     def __call__(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
         state.tx.zero_grad()
-        return _update(state, self.loss(state.model, batch))
+        with self.precision():
+            return _update(state, self.loss(state.model, batch))

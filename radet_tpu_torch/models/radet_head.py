@@ -13,7 +13,11 @@ conv of a tower quantizes its FPN level with the level tensor's dynamic
 absmax (over the whole batch, so one image's result depends on the others
 in its batch), and each block but the last hands the next its ReLU'd
 GroupNorm output as int8 with static per-channel scales
-``affine_act_scale(gamma, beta, 8)``.  The output convs stay float.
+``affine_act_scale(gamma, beta, 8)``.  With ``qat`` as well, training runs
+the same arithmetic as straight-through fake quantization on float tensors
+(``ops/quant.py::qat_conv_forward``), the scales taking the GroupNorm
+affines' gradient; at eval a QAT head is the deploy head.  The output
+convs stay float.
 
 mmdet names: ``cls_convs.{i}.conv/.gn``, ``atss_cls``, ``atss_reg``,
 ``atss_centerness``, ``scales.{i}.scale``.  Outputs are float32 and NHWC per
@@ -30,7 +34,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.quant import QAT_TRAINING, affine_act_scale, int8_conv_forward, quantize_int8
+from ..ops.quant import affine_act_scale, fake_quant_ste, int8_conv_forward, qat_conv_forward, quantize_int8
 from .layers import Conv2d, normal_
 
 HEAD_QUANT = (None, "int8")
@@ -51,20 +55,27 @@ class ConvGNBlock(nn.Module):
         # does under bf16 compute
         return F.relu(self.gn(self.conv(x).float())).to(x.dtype)
 
-    def forward_int8(self, x, x_scale, emit_int8: bool, dtype):
+    def forward_int8(self, x, x_scale, emit_int8: bool, dtype, qat: bool = False):
         """The int8 block: ``x`` float (``x_scale`` None: dynamic absmax) or
         int8 with its scales.  Returns the output in ``dtype``, or with
-        ``emit_int8`` (the int8 output, its per-channel scales)."""
-        y = F.relu(self.gn(int8_conv_forward(self.conv, x, x_scale).float()))
+        ``emit_int8`` (the int8 output, its per-channel scales).  With
+        ``qat`` the same grid in float, with gradients: ``x`` is float and
+        the emitted output the fake-quantized float32 one."""
+        conv = qat_conv_forward if qat else int8_conv_forward
+        y = F.relu(self.gn(conv(self.conv, x, x_scale).float()))
         if not emit_int8:
             return y.to(dtype)
+        if qat:
+            s = affine_act_scale(self.gn.weight, self.gn.bias, _GN_BOUND_K)
+            return fake_quant_ste(y, s[:, None, None]), s
         s = affine_act_scale(self.gn.weight.detach(), self.gn.bias.detach(), _GN_BOUND_K)
         return quantize_int8(y, s), s
 
 
-def _run_tower(blocks, x, quant):
+def _run_tower(blocks, x, quant, qat: bool = False):
     """A stacked ConvGNBlock tower; under int8 every block but the last hands
-    the next an int8 tensor and its static scales."""
+    the next an int8 tensor (under ``qat``, its fake-quantized float) and
+    its static scales."""
     if quant != "int8":
         for blk in blocks:
             x = blk(x)
@@ -72,8 +83,8 @@ def _run_tower(blocks, x, quant):
     dtype, scale = x.dtype, None
     for i, blk in enumerate(blocks):
         if i == len(blocks) - 1:
-            return blk.forward_int8(x, scale, False, dtype)
-        x, scale = blk.forward_int8(x, scale, True, dtype)
+            return blk.forward_int8(x, scale, False, dtype, qat)
+        x, scale = blk.forward_int8(x, scale, True, dtype, qat)
     return x
 
 
@@ -138,12 +149,11 @@ class RADetHead(nn.Module):
     ) -> Tuple[List[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]:
         if len(feats) != len(self.scales):
             raise ValueError(f"expected {len(self.scales)} pyramid levels, got {len(feats)}")
-        if self.qat and self.training:
-            raise NotImplementedError(f"training with bbox_head.qat=True is not ported ({QAT_TRAINING})")
+        qat = self.qat and self.training
         cls_out, reg_out, iou_out = [], [], []
         for scale, x in zip(self.scales, feats):
-            cls_feat = _run_tower(self.cls_convs, x, self.quant)
-            reg_feat = _run_tower(self.reg_convs, x, self.quant)
+            cls_feat = _run_tower(self.cls_convs, x, self.quant, qat)
+            reg_feat = _run_tower(self.reg_convs, x, self.quant, qat)
             cls_score = self.atss_cls(cls_feat).float()
             bbox_pred = scale(self.atss_reg(reg_feat).float())
             if self.reg_relu:

@@ -15,7 +15,8 @@ mmdet (``layer1.0.conv1.weight``, ``stem.3.weight``,
 ``layer1.0.downsample.1.running_var``), so a released checkpoint loads
 with ``strict=True``.  ``quant`` gives the plain and ResNeXt trunks the
 JAX package's int8 deploy arithmetic at eval (``QUANT_LEVELS``; the
-parameters stay the float convs').
+parameters stay the float convs'), and with ``qat`` its quantization-aware
+training: the same arithmetic, fake-quantized, in training mode.
 """
 
 from __future__ import annotations
@@ -31,7 +32,15 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.quant import INV127, QAT_TRAINING, affine_act_scale, int8_conv_forward, quantize_int8
+from ..ops.quant import (
+    FROZEN_INT8_TRAINING,
+    INV127,
+    affine_act_scale,
+    fake_quant_ste,
+    int8_conv_forward,
+    qat_conv_forward,
+    quantize_int8,
+)
 from .layers import Conv2d, normal_, trunc_normal_
 
 # (block kind, blocks per stage) by depth
@@ -153,7 +162,9 @@ class BatchNorm(nn.Module):
 # BatchNorm's affine; 'int8_conv2' only the 3x3; 'int8_stream' also carries
 # the residual stream between blocks as int8, its per-channel bound
 # accumulated across blocks (means add linearly, variances in quadrature),
-# so that conv1 and the downsample consume it directly.
+# so that conv1 and the downsample consume it directly.  With ``qat``,
+# training runs the same grid as fake quantization: the scales are taken
+# with their gradient (they reach the BatchNorm affines through the folds).
 QUANT_LEVELS = ("int8", "int8_conv2", "int8_stream")
 _STREAM_K = 4.0  # k of every static k-sigma bound in the trunk
 
@@ -161,7 +172,7 @@ _STREAM_K = 4.0  # k of every static k-sigma bound in the trunk
 def _bn_affine_stats(bn: BatchNorm):
     """(|mean| bound, variance) per channel of a frozen BatchNorm's output:
     (|beta|, gamma^2)."""
-    return bn.bias.detach().abs(), bn.weight.detach() ** 2
+    return bn.bias.abs(), bn.weight ** 2
 
 
 def _stream_scale(stats):
@@ -189,13 +200,19 @@ def _max_pool_int8(x):
 def _bn_act_scale(bn: BatchNorm):
     """Static per-channel int8 scales of a frozen BatchNorm + ReLU output
     (the affine's k-sigma bound, k = 4)."""
-    return affine_act_scale(bn.weight.detach(), bn.bias.detach(), _STREAM_K)
+    return affine_act_scale(bn.weight, bn.bias, _STREAM_K)
 
 
-def _q8_conv(conv: nn.Module, x, x_scale, dtype):
+def _q8_conv(conv: nn.Module, x, x_scale, dtype, qat: bool = False):
     """``conv`` run as the JAX package's ``Int8Conv`` (bfloat16 output),
     handed on in the trunk's compute ``dtype`` (the JAX BatchNorm that
-    follows computes from the bfloat16 values in its own dtype)."""
+    follows computes from the bfloat16 values in its own dtype): the deploy
+    arithmetic on an int8 ``x`` (a float one is quantized here at
+    ``x_scale``), or with ``qat`` its fake-quantized float form."""
+    if qat:
+        return qat_conv_forward(conv, x, x_scale).to(dtype)
+    if x.dtype != torch.int8:
+        x = quantize_int8(x, x_scale)
     return int8_conv_forward(conv, x, x_scale).to(dtype)
 
 
@@ -234,25 +251,31 @@ def _residual(block: nn.Module, out, x):
     return F.relu(out + identity)
 
 
+def _quant_live(block: nn.Module) -> bool:
+    """Whether ``block``'s quantized arithmetic runs: at eval with a
+    ``quant`` level, and in training with ``qat`` as well."""
+    return block.quant is not None and (block.qat or not block.training)
+
+
 class BasicBlock(nn.Module):
     """Two 3x3 convs (ResNet-18/34), stride on the first; ``quant`` 'int8'
-    or 'int8_conv2' runs conv2 in int8 at eval."""
+    or 'int8_conv2' runs conv2 in int8 at eval (``qat``: fake-quantized in
+    training)."""
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: Optional[nn.Module] = None,
-                 quant: Optional[str] = None):
+                 quant: Optional[str] = None, qat: bool = False):
         super().__init__()
         self.conv1 = _conv(inplanes, planes, 3, stride)
         self.bn1 = BatchNorm(planes)
         self.conv2 = _conv(planes, planes, 3)
         self.bn2 = BatchNorm(planes)
         self.downsample = downsample
-        self.quant = quant
+        self.quant, self.qat = quant, qat
 
     def forward(self, x):
         out = F.relu(self.bn1(self.conv1(x)))
-        if self.quant is not None and not self.training:
-            s1 = _bn_act_scale(self.bn1)
-            out = _q8_conv(self.conv2, quantize_int8(out, s1), s1, x.dtype)
+        if _quant_live(self):
+            out = _q8_conv(self.conv2, out, _bn_act_scale(self.bn1), x.dtype, self.training)
         else:
             out = self.conv2(out)
         return _residual(self, self.bn2(out), x)
@@ -263,12 +286,14 @@ class Bottleneck(nn.Module):
     ``width`` is the mid width (0: ``planes``).  ResNeXt passes its groups
     and width, RegNet expansion 1 and its stage's groups and width.  At
     eval, ``quant`` (one of ``QUANT_LEVELS``) runs conv2 in int8, and conv3
-    too unless it is 'int8_conv2' (:meth:`forward_int8`)."""
+    too unless it is 'int8_conv2' (:meth:`forward_int8`); with ``qat``,
+    training runs them fake-quantized."""
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: Optional[nn.Module] = None,
-                 groups: int = 1, width: int = 0, expansion: int = 4, quant: Optional[str] = None):
+                 groups: int = 1, width: int = 0, expansion: int = 4, quant: Optional[str] = None,
+                 qat: bool = False):
         super().__init__()
-        self.quant = quant
+        self.quant, self.qat = quant, qat
         width = width or planes
         out = planes * expansion
         self.conv1 = _conv(inplanes, width, 1)
@@ -281,31 +306,31 @@ class Bottleneck(nn.Module):
 
     def forward(self, x, stream=None, dtype=None):
         """``stream`` and ``dtype``: see :meth:`forward_int8` ('int8_stream')."""
-        if self.quant is not None and not self.training:
-            return self.forward_int8(x, x.dtype if dtype is None else dtype, stream)
+        if _quant_live(self):
+            return self.forward_int8(x, x.dtype if dtype is None else dtype, stream, self.training)
         out = F.relu(self.bn1(self.conv1(x)))
         out = F.relu(self.bn2(self.conv2(out)))
         return _residual(self, self.bn3(self.conv3(out)), x)
 
-    def forward_int8(self, x, dtype, stream=None):
-        """The int8 deploy arithmetic in the trunk's compute ``dtype``.  With
-        ``stream`` (the (mean bound, variance) of the int8 input ``x``, as
-        'int8_stream' carries it), conv1 and the downsample conv consume
-        ``x`` with the per-channel scales folded into their weights, and
-        the block returns (its int8 output, the stats of that output)."""
+    def forward_int8(self, x, dtype, stream=None, qat: bool = False):
+        """The int8 deploy arithmetic in the trunk's compute ``dtype`` (with
+        ``qat``, its fake-quantized float form).  With ``stream`` (the (mean
+        bound, variance) of the int8 input ``x``, as 'int8_stream' carries
+        it; under ``qat`` ``x`` is the fake-quantized stream), conv1 and the
+        downsample conv consume ``x`` with the per-channel scales folded
+        into their weights, and the block returns (its int8 output, the
+        stats of that output)."""
         if stream is not None:
             s_in = _stream_scale(stream)
-            out = _q8_conv(self.conv1, x, s_in, dtype)
+            out = _q8_conv(self.conv1, x, s_in, dtype, qat)
         else:
             out = self.conv1(x)
         out = F.relu(self.bn1(out))
-        s1 = _bn_act_scale(self.bn1)
-        out = F.relu(self.bn2(_q8_conv(self.conv2, quantize_int8(out, s1), s1, dtype)))
+        out = F.relu(self.bn2(_q8_conv(self.conv2, out, _bn_act_scale(self.bn1), dtype, qat)))
         if self.quant == "int8_conv2":
             out = self.conv3(out)
         else:
-            s2 = _bn_act_scale(self.bn2)
-            out = _q8_conv(self.conv3, quantize_int8(out, s2), s2, dtype)
+            out = _q8_conv(self.conv3, out, _bn_act_scale(self.bn2), dtype, qat)
         out = self.bn3(out)
         if stream is None:
             return _residual(self, out, x)
@@ -314,15 +339,21 @@ class Bottleneck(nn.Module):
         # stream's add, and bn3's gamma^2 into the variance bound
         if self.downsample is not None:
             ds_conv, ds_bn = self.downsample
-            y = F.relu(out + ds_bn(_q8_conv(ds_conv, x, s_in, dtype)))
+            y = F.relu(out + ds_bn(_q8_conv(ds_conv, x, s_in, dtype, qat)))
             id_stats = _bn_affine_stats(ds_bn)
+        elif qat:
+            y = F.relu(out + x)  # the fake-quantized stream is its own dequantization
+            id_stats = stream
         else:
             # the stream dequantized for the add, in float32 (the JAX add's promotion)
             y = F.relu(torch.addcmul(out.float(), x.float(), s_in[:, None, None]))
             id_stats = stream
-        gamma3 = self.bn3.weight.detach()
-        stats = (self.bn3.bias.detach().abs() + id_stats[0], torch.addcmul(id_stats[1], gamma3, gamma3))
-        return quantize_int8(y, _stream_scale(stats)), stats
+        gamma3 = self.bn3.weight
+        stats = (self.bn3.bias.abs() + id_stats[0], torch.addcmul(id_stats[1], gamma3, gamma3))
+        s_out = _stream_scale(stats)
+        if qat:
+            return fake_quant_ste(y, s_out[:, None, None]), stats
+        return quantize_int8(y, s_out), stats
 
 
 class Bottle2neck(nn.Module):
@@ -487,8 +518,11 @@ class ResNet(_Backbone):
     quantized, max-pooled in int8, carried through every block as int8 and
     dequantized at the taps.  ``qat`` and ``frozen_int8`` are accepted with
     the JAX package's conditions; at eval a QAT trunk runs the deploy
-    arithmetic and a ``frozen_int8`` one the float path, and training
-    either raises (item 14b)."""
+    arithmetic, in training its fake-quantized form (the stem's output
+    fake-quantized before a float max-pool under 'int8_stream', the float
+    stream handed out at the taps; ``with_cp`` checkpoints the
+    stream-carrying blocks too); a ``frozen_int8`` trunk runs the float
+    path at eval and raises in training (item 14c)."""
 
     def __init__(
         self,
@@ -536,9 +570,9 @@ class ResNet(_Backbone):
             if scales > 1:
                 return Bottle2neck(cin, planes, stride, downsample, scales, base_width)
             if kind == "basic":
-                return BasicBlock(cin, planes, stride, downsample, quant)
+                return BasicBlock(cin, planes, stride, downsample, quant, qat)
             width = planes * base_width // 64 * groups if groups > 1 else 0
-            return Bottleneck(cin, planes, stride, downsample, groups, width, quant=quant)
+            return Bottleneck(cin, planes, stride, downsample, groups, width, quant=quant, qat=qat)
 
         inplanes, widths = 64, []
         for i, n in enumerate(stage_blocks):
@@ -560,21 +594,30 @@ class ResNet(_Backbone):
         return self.maxpool(x)
 
     def forward(self, x):
-        if self.training and (self.qat or self.frozen_int8):
-            raise NotImplementedError(
-                f"training with backbone.{'qat' if self.qat else 'frozen_int8'}=True is not ported ({QAT_TRAINING})")
-        if self.quant != "int8_stream" or self.training:
+        if self.training and self.frozen_int8:
+            raise NotImplementedError(f"training with backbone.frozen_int8=True is not ported "
+                                      f"({FROZEN_INT8_TRAINING})")
+        qat = self.qat and self.training
+        if self.quant != "int8_stream" or (self.training and not qat):
             return super().forward(x)
         dtype = x.dtype
         x = F.relu(self.bn1(self.conv1(x)))
         stream = _bn_affine_stats(self.bn1)
-        x = _max_pool_int8(quantize_int8(x, _stream_scale(stream)))
+        if qat:  # max commutes with the fake quantization as with the int8 one
+            x = self.maxpool(fake_quant_ste(x, _stream_scale(stream)[:, None, None]))
+        else:
+            x = _max_pool_int8(quantize_int8(x, _stream_scale(stream)))
+        cp = self.with_cp and qat and torch.is_grad_enabled()
         outs = []
         for i in range(self.num_stages):
             for block in getattr(self, f"layer{i + 1}"):
-                x, stream = block(x, stream, dtype)
+                if cp:
+                    x, stream = checkpoint(block, x, stream, dtype, use_reentrant=False,
+                                           context_fn=_checkpoint_contexts)
+                else:
+                    x, stream = block(x, stream, dtype)
             if i in self.out_indices:
-                outs.append((x.float() * _stream_scale(stream)[:, None, None]).to(dtype))
+                outs.append(x.to(dtype) if qat else (x.float() * _stream_scale(stream)[:, None, None]).to(dtype))
         return tuple(outs)
 
 

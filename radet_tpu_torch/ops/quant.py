@@ -1,5 +1,5 @@
-"""Deploy-time int8 quantization (port of ``radet_tpu/ops/quant.py``, the
-deploy branch; quantization-aware training is ROADMAP item 14b).
+"""Int8 quantization (port of ``radet_tpu/ops/quant.py``): the deploy
+arithmetic, and quantization-aware training (QAT) on the same grid.
 
 Weights are quantized per output channel, symmetrically, from the live
 float32 kernel at every call; activations symmetrically with a static
@@ -27,9 +27,19 @@ float32 reciprocal (XLA rewrites ``a / 127.0`` so: :data:`INV127`); the
 product ``s_x * s_w`` first, then the int32 sum (converted to float32) times
 it, then the cast; with a bias, ``float(acc) * (s_x * s_w) + bias`` is one
 fused multiply-add, rounded once (XLA contracts the multiply and the add).
+
+QAT (:func:`qat_conv_forward`, :func:`fake_quant_ste`) trains a float
+model whose forward sees the deploy grid: straight-through fake
+quantization of the conv input and of its per-output-channel weights at
+the scales the deploy path uses, a float32 convolution (cuDNN's TF32 off:
+:func:`qat_precision`), its output stored in bfloat16 as the deploy
+conv's.  Every level is decided by :func:`quant_levels`, the one function
+that two runs replace to share their decisions.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -40,7 +50,17 @@ from .int8_conv_cuda import conv_output_hw, int8_conv_cuda
 
 # float32(1 / 127): XLA compiles ``a / 127.0`` to ``a * INV127``
 INV127 = float(np.float32(1.0) / np.float32(127.0))
-QAT_TRAINING = "ROADMAP.md Queue 1 item 14b, int8 training"
+FROZEN_INT8_TRAINING = "ROADMAP.md Queue 1 item 14c, frozen-stage int8 training"
+# the dtype a QAT conv stores its float32 output in, as the deploy conv's
+QAT_OUT_DTYPE = torch.bfloat16
+
+
+def quant_levels(x: torch.Tensor, scale) -> torch.Tensor:
+    """The int8 levels ``clamp(round(x / scale), -127, 127)`` of float32
+    ``x``, as float32 (``x / scale`` a true division).  Every quantization,
+    deployed or fake, decides its levels here: a test or the smoke replaces
+    this function to record them in one run and hand them to another."""
+    return torch.round(x / scale).clamp_(-127.0, 127.0)
 
 
 def quantize_int8(x: torch.Tensor, scale) -> torch.Tensor:
@@ -48,7 +68,7 @@ def quantize_int8(x: torch.Tensor, scale) -> torch.Tensor:
     (per tensor) or a (C,) vector (per channel)."""
     if torch.is_tensor(scale) and scale.dim() == 1:
         scale = scale[:, None, None]
-    return torch.round(x.float() / scale).clamp_(-127, 127).to(torch.int8)
+    return quant_levels(x.float(), scale).to(torch.int8)
 
 
 def affine_act_scale(gamma: torch.Tensor, beta: torch.Tensor, k: float = 8.0) -> torch.Tensor:
@@ -66,11 +86,17 @@ def _scale_fold(x_scale: torch.Tensor, cin: int, groups: int, features: int) -> 
     return x_scale.reshape(groups, cin).repeat_interleave(features // groups, dim=0)[:, :, None, None]
 
 
+def weight_scale(kernel: torch.Tensor) -> torch.Tensor:
+    """Per-output-channel symmetric scales of an OIHW float32 kernel,
+    ``max(max |kernel| / 127, 1e-12)`` (Cout,)."""
+    return (kernel.abs().amax(dim=(1, 2, 3)) * INV127).clamp(min=1e-12)
+
+
 def quantize_weight(kernel: torch.Tensor):
     """Per-output-channel symmetric weights of an OIHW float32 kernel:
-    (int8 weights, s_w (Cout,)) with ``s_w = max(max |kernel| / 127, 1e-12)``."""
-    s_w = (kernel.abs().amax(dim=(1, 2, 3)) * INV127).clamp(min=1e-12)
-    return torch.round(kernel / s_w[:, None, None, None]).clamp_(-127, 127).to(torch.int8), s_w
+    (int8 weights, s_w (Cout,)), ``s_w`` the :func:`weight_scale`."""
+    s_w = weight_scale(kernel)
+    return quant_levels(kernel, s_w[:, None, None, None]).to(torch.int8), s_w
 
 
 def int8_conv(x, weight, mult, bias=None, stride=(1, 1), padding=(0, 0), groups: int = 1,
@@ -158,3 +184,74 @@ def int8_conv_forward(conv, x, x_scale=None):
     mult = s_w if s_x is None else s_x * s_w
     bias = None if conv.bias is None else conv.bias.detach()
     return int8_conv(x_q, w_q, mult, bias, conv.stride, conv.padding, conv.groups)
+
+
+def fake_quant_ste(x: torch.Tensor, scale) -> torch.Tensor:
+    """Quantize and dequantize in float with a straight-through gradient:
+    the value is ``x + (levels * scale - x)`` in ``x``'s dtype, the
+    correction a constant of autograd, so the gradient reaches ``x`` as the
+    identity and ``scale`` none.  ``scale`` broadcasts against ``x`` (a
+    scalar, or per channel ``s[:, None, None]``).  As the JAX package's
+    compiled ``xf + stop_gradient(q - xf)``: the product and the
+    subtraction are one fused multiply-add (``torch.addcmul``), then the
+    sum."""
+    xf = x.float()
+    with torch.no_grad():
+        scale = torch.as_tensor(scale, dtype=torch.float32, device=xf.device)
+        step = torch.addcmul(-xf, quant_levels(xf, scale), scale)
+    return (xf + step).to(x.dtype)
+
+
+def fake_quant_weight_ste(kernel: torch.Tensor) -> torch.Tensor:
+    """:func:`fake_quant_ste` of an OIHW kernel at its per-output-channel
+    :func:`weight_scale`, taken without a gradient."""
+    with torch.no_grad():
+        s_w = weight_scale(kernel)
+    return fake_quant_ste(kernel, s_w[:, None, None, None])
+
+
+@contextlib.contextmanager
+def qat_precision():
+    """cuDNN's TF32 off within the block (its float32 convolutions round
+    their inputs to 10 mantissa bits by default), so that a QAT conv, and
+    its backward, sum the on-grid products in float32.  The train step
+    (``engine/train_step.py``) holds a QAT model's forward and backward in
+    it; cuDNN reads the setting when each conv and its backward run."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+def qat_conv_forward(conv, x, x_scale=None):
+    """The JAX package's ``Int8Conv`` QAT branch over ``conv``'s float32
+    ``weight`` (and ``bias``, stride, padding, groups): the float ``x``
+    fake-quantized at ``x_scale`` (per tensor, or (C,) per channel) or,
+    when it is None, at its dynamic absmax / 127 taken without a gradient;
+    the kernel fake-quantized per output channel, after a per-channel
+    ``x_scale`` is folded into it as the deploy path folds it
+    (``fake_quant_weight_ste(kernel * fold) / fold``: the fold keeps its
+    gradient, so the norm affines the scales come from learn through it);
+    the convolution in float32 (under :func:`qat_precision` when the train
+    step runs it), then ``+ bias``, stored in :data:`QAT_OUT_DTYPE`."""
+    if x.dtype == torch.int8:
+        raise AssertionError("QAT fake-quant consumes float inputs")
+    xf = x.float()
+    if x_scale is None:
+        s_x = xf.detach().abs().amax() * INV127
+    else:
+        s_x = torch.as_tensor(x_scale, dtype=torch.float32, device=x.device)
+    per_channel = s_x.dim() == 1
+    s_q = s_x.detach().clamp(min=1e-12)
+    x_fq = fake_quant_ste(xf, s_q[:, None, None] if per_channel else s_q)
+    if per_channel:
+        fold = _scale_fold(s_x, x.shape[1] // conv.groups, conv.groups, conv.out_channels)
+        k_fq = fake_quant_weight_ste(conv.weight * fold) / fold
+    else:
+        k_fq = fake_quant_weight_ste(conv.weight)
+    out = F.conv2d(x_fq, k_fq, None, conv.stride, conv.padding, 1, conv.groups)
+    if conv.bias is not None:
+        out = out + conv.bias[:, None, None]
+    return out.to(QAT_OUT_DTYPE)

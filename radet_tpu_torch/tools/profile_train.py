@@ -46,7 +46,7 @@ from ..utils.profiling import device_label, resolve_device, trace
 
 H100_BF16_TFLOPS = 989.4  # H100 SXM, dense bf16 (NVIDIA's data sheet, 700 W)
 IMG_NORM = dict(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375])
-_INT8 = "ROADMAP.md Queue 1 item 14b, int8 training"
+_INT8 = "ROADMAP.md Queue 1 item 14c, frozen-stage int8 training"
 
 
 def parse_args(argv=None):

@@ -13,14 +13,21 @@ when mAP50 is below ``--min-map50`` (0.5).  ``--cpu`` is ``--device cpu``.
 ``--int8-eval`` then evaluates the same trained weights through the int8
 deploy path three times (head tower only; with the trunk's 3x3 convs,
 ``int8_conv2``; with its 3x3 and 1x1 convs, ``int8``) and prints each
-``RESULT int8-... mAP50=... mAP=...`` with its deltas.  ``--qat`` and
-``--frozen-int8`` train quantized and raise (item 14b).
+``RESULT int8-... mAP50=... mAP=...`` with its deltas.  ``--qat`` then
+runs the quantization-aware loop from the same float weights: their PTQ
+eval through the int8 deploy config (``--qat-quant``: ``auto`` is
+int8_stream at bottleneck depths, int8 for ResNet-18/34), a QAT fine-tune
+(``--qat-iters`` steps, ``norm_eval=True``, a tenth of the learning rate,
+OneCycle), and the deploy eval of the fine-tuned weights; it prints
+``RESULT ptq[...]`` and ``RESULT qat[...]``.  ``--frozen-int8`` raises
+(item 14c).
 """
 
 from __future__ import annotations
 
 import argparse
 import copy
+import math
 import os.path as osp
 import sys
 import tempfile
@@ -31,10 +38,11 @@ from ..apis.common import build_model_and_anchors
 from ..apis.test import test_from_config
 from ..apis.train import train_detector
 from ..data.synthetic import make_synthetic_bop
+from ..engine.checkpoint import save_weights
 from ..utils.config import Config
 from ..utils.logging import get_root_logger
 
-_INT8_TRAINING = "ROADMAP.md Queue 1 item 14b, int8 training"
+_FROZEN_INT8 = "ROADMAP.md Queue 1 item 14c, frozen-stage int8 training"
 # --int8-eval's variants: (tag, backbone.quant), each with the head's tower in int8
 INT8_EVALS = (("int8-head", None), ("int8-conv2", "int8_conv2"), ("int8-full", "int8"))
 
@@ -57,11 +65,15 @@ def parse_args(argv=None):
     p.add_argument("--workers", type=int, default=4)
     p.add_argument("--int8-eval", action="store_true",
                    help="also evaluate the trained weights through the int8 deploy path (head; + conv2; full)")
-    for flag in ("--qat", "--frozen-int8"):
-        p.add_argument(flag, action="store_true", help=f"not ported ({_INT8_TRAINING})")
-    p.add_argument("--qat-iters", type=int, default=200, help=f"not ported ({_INT8_TRAINING})")
-    p.add_argument("--qat-quant", default="auto", help=f"not ported ({_INT8_TRAINING})")
-    p.add_argument("--frozen-int8-iters", type=int, default=200, help=f"not ported ({_INT8_TRAINING})")
+    p.add_argument("--qat", action="store_true",
+                   help="then PTQ-eval the float weights through the int8 deploy path, fine-tune them with QAT "
+                        "and deploy-eval the result")
+    p.add_argument("--qat-iters", type=int, default=200, help="QAT fine-tune steps")
+    p.add_argument("--qat-quant", default="auto",
+                   help="backbone quant level of the QAT loop: int8_stream | int8 | int8_conv2 | auto "
+                        "(int8_stream at bottleneck depths, int8 for ResNet-18/34)")
+    p.add_argument("--frozen-int8", action="store_true", help=f"not ported ({_FROZEN_INT8})")
+    p.add_argument("--frozen-int8-iters", type=int, default=200, help=f"not ported ({_FROZEN_INT8})")
     return p.parse_args(argv)
 
 
@@ -152,12 +164,58 @@ def int8_eval(cfg, model, metrics, batch: int, device) -> dict:
     return out
 
 
+def qat_loop(args, cfg, model, metrics, root: str, device) -> dict:
+    """The QAT recovery loop on the trained float ``model``: (a) its weights
+    through the int8 deploy config, (b) a QAT fine-tune from them, (c) the
+    fine-tuned weights through the same deploy config.  Prints the
+    ``RESULT ptq[...]`` and ``RESULT qat[...]`` lines; returns both evals'
+    metrics."""
+    trunk = args.qat_quant
+    if trunk == "auto":
+        trunk = "int8_stream" if args.depth >= 50 else "int8"
+
+    def deploy(weights):
+        cfg_q = copy.deepcopy(cfg)
+        cfg_q.model["backbone"]["quant"] = trunk
+        cfg_q.model["bbox_head"]["quant"] = "int8"
+        model_q = build_model_and_anchors(cfg_q, dtype=model.dtype)[0]
+        model_q.load_state_dict(weights)
+        return test_from_config(cfg_q, model_q.to(device), split="test", batch_size=args.batch)[2]
+
+    m_ptq = deploy(model.state_dict())
+    print(f"RESULT ptq[{trunk}] mAP50={m_ptq['bbox_mAP_50']:.3f} mAP={m_ptq['bbox_mAP']:.3f} "
+          f"(delta vs float: mAP50 {m_ptq['bbox_mAP_50'] - metrics['bbox_mAP_50']:+.3f}, "
+          f"mAP {m_ptq['bbox_mAP'] - metrics['bbox_mAP']:+.3f})", flush=True)
+
+    float_weights = osp.join(root, "float_weights.pth")
+    save_weights(float_weights, model.state_dict())
+    cfg_t = copy.deepcopy(cfg)
+    for part, opts in (("backbone", dict(quant=trunk, qat=True, norm_eval=True)),
+                       ("bbox_head", dict(quant="int8", qat=True))):
+        for key, value in opts.items():
+            cfg_t.model[part][key] = value
+    cfg_t["load_from"] = float_weights
+    cfg_t.optimizer["lr"] = args.lr / 10
+    cfg_t["lr_config"] = dict(policy="onecycle", max_lr=args.lr / 10, total_steps=args.qat_iters + 10,
+                              pct_start=0.1)
+    cfg_t["runner"] = dict(max_iters=args.qat_iters)
+    state = train_detector(cfg_t, work_dir=osp.join(root, "work_qat"), eval_during_train=False, device=device)
+
+    m_qat = deploy(state.model.state_dict())
+    d_ptq = m_qat["bbox_mAP"] - m_ptq["bbox_mAP"]
+    gap = metrics["bbox_mAP"] - m_ptq["bbox_mAP"]
+    rec = d_ptq / gap if abs(gap) > 1e-9 else math.nan
+    print(f"RESULT qat[{trunk}] mAP50={m_qat['bbox_mAP_50']:.3f} mAP={m_qat['bbox_mAP']:.3f} "
+          f"(vs ptq: mAP {d_ptq:+.3f}; recovered {rec:.0%} of the {-gap:+.3f} PTQ gap after {args.qat_iters} "
+          f"steps)", flush=True)
+    return {f"ptq[{trunk}]": m_ptq, f"qat[{trunk}]": m_qat}
+
+
 def main(argv=None) -> dict:
     """Run the check; returns the COCO metrics (exits 1 below ``--min-map50``)."""
     args = parse_args(argv)
-    for flag, given in (("--qat", args.qat), ("--frozen-int8", args.frozen_int8)):
-        if given:
-            raise NotImplementedError(f"{flag} is not ported ({_INT8_TRAINING})")
+    if args.frozen_int8:
+        raise NotImplementedError(f"--frozen-int8 is not ported ({_FROZEN_INT8})")
     device = torch.device("cpu" if args.cpu else args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass --device cpu (or --cpu) to run on the CPU")
@@ -173,6 +231,8 @@ def main(argv=None) -> dict:
         print(f"RESULT mAP50={map50:.3f} mAP={metrics['bbox_mAP']:.3f}", flush=True)
         if args.int8_eval:
             metrics["int8_eval"] = int8_eval(cfg, state.model, metrics, args.batch, device)
+        if args.qat:
+            metrics["qat"] = qat_loop(args, cfg, state.model, metrics, root, device)
     if map50 < args.min_map50:
         print(f"FAIL: mAP50 {map50:.3f} < {args.min_map50}", flush=True)
         sys.exit(1)

@@ -10,7 +10,7 @@ reference flags, against the JAX package on the CPU:
   but for the file names, and the same masks;
 - ``python -m radet_tpu_torch.tools.validate_learning --cpu`` for 3
   iterations: the RESULT line, then PASS (exit 0) or FAIL (exit 1); its
-  its int8 training flags raise naming item 14b;
+  ``--frozen-int8`` raises naming item 14c;
 - every BOP config the sweep runs (the seven ``_pbr`` ones and the three
   ``_mixpbr``): the test dataset in both packages over an annotation file
   of its class names, with the same ``num_classes``, ``cat2label``,
@@ -139,9 +139,8 @@ def test_validate_learning_gates_on_map50(min_map50, code, capsys):
 
 
 def test_validate_learning_refuses_int8_and_a_missing_card():
-    for flag in ("--qat", "--frozen-int8"):
-        with pytest.raises(NotImplementedError, match="item 14b"):
-            validate_learning.main(["--cpu", flag])
+    with pytest.raises(NotImplementedError, match="item 14c"):
+        validate_learning.main(["--cpu", "--frozen-int8"])
     args = validate_learning.parse_args(["--cpu"])
     assert (args.iters, args.depth, args.images, args.batch, args.lr, args.min_map50, args.img_size,
             args.feat, args.stacked_convs, args.num_classes, args.dtype, args.workers) == (

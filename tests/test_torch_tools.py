@@ -340,7 +340,7 @@ def test_profilers_on_the_cpu(capsys):
         assert key in train
     assert train["mfu"] == pytest.approx(train["step_tflops"] / (train["step_ms"] / 1e3) / train["peak_tflops"],
                                          rel=1e-12)
-    with pytest.raises(NotImplementedError, match="item 14b"):
+    with pytest.raises(NotImplementedError, match="item 14c"):
         profile_train.main(["--device", "cpu", "--frozen-int8"])
 
     for pipeline, modes in (("train", ["thread", "process"]), ("test", ["thread"])):
