@@ -180,8 +180,27 @@ Run from the repository root, with one card:  python3 chip_smoke.py
    checkpoint, one periodic eval on the deploy arithmetic) and
    ``tools.test`` with ``r50_ycbv_pbr_int8_stream.py`` on its checkpoint:
    92 int8 launches per forward, all on the wgmma kernel, and every
-   vote-NMS call held to the plain version.  Each phase prints its wall
-   time.
+   vote-NMS call held to the plain version;
+16. trains with the frozen prefix on int8 (``configs/bop/
+   r50_ycbv_pbr_frozen_int8.py``): its float32 step at batch 1, full width,
+   on the card against the CPU (same weights, batch, noise, ReLU sides and
+   int8 levels); its bf16 step at batch 16 timed with its peak memory
+   beside the flagship's before and after it, 10 int8 launches a step, all
+   on the wgmma kernel; one step's 10 int8 convolutions each held bit for
+   bit to the plain version, and their distinct shapes (layer1's, batch 16)
+   timed beside the bound, ``torch._int_mm`` and cuDNN's bf16 conv; the
+   trunk with every stage frozen in training mode against the
+   ``int8_stream`` trunk at eval, bit for bit; ``tools.train`` on it in
+   this process (``FI8_CLI_STEPS`` steps from the JPEG ``train_pbr`` split,
+   ``load_from`` the flagship's from-files checkpoint: every tensor loaded,
+   the frozen ones kept, the others moved; one periodic eval on the float
+   path, without an int8 launch, its vote-NMS calls held to the plain
+   version); ``tools.profile_train --frozen-int8``; ``python -m
+   radet_tpu_torch.tools.validate_learning --depth 50 --frozen-int8``
+   (ResNet-50 from scratch, mAP50 at least 0.5; then two 100-step frozen
+   fine-tunes of its weights, one with ``frozen_int8`` at 10 int8 launches
+   a step, each evaluated on the float path, with their RESULT lines).
+   Each phase prints its wall time.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
 non-zero before it.  Without a CUDA card, or outside the repository, the
@@ -2485,15 +2504,12 @@ def hold_to_plain(calls, what: str) -> float:
     return err
 
 
-def learning_phase(gpu: str):
-    """Phase 11c: ``python -m radet_tpu_torch.tools.validate_learning --qat``
-    at its defaults (RADet-R18 from scratch, live BN, 400 steps at batch 4,
-    128x160, then the strict eval; then the QAT loop: the PTQ eval through
-    the int8 deploy config, 200 QAT steps from the float weights, the
-    deploy eval, each printing its RESULT line), in this process: mAP50 at
-    least LEARN_MIN_MAP50, its eval's first vote-NMS call held to the plain
-    version.  Returns (the kernel's launches, its max abs box error there,
-    the int8 kernel's launches)."""
+def validate_learning_run(argv):
+    """``validate_learning.main(argv)`` in this process, with its vote-NMS
+    calls recorded and its log kept, and both kernels' launches counted.
+    Returns (the metrics, the log's iteration lines, the recorded calls,
+    vote-NMS launches, int8 launches, int8 launches by path, the int8
+    launches its evals logged, seconds)."""
     import radet_tpu_torch.models.postprocess as postprocess
     import radet_tpu_torch.ops.int8_conv_cuda as icc
     import radet_tpu_torch.ops.vote_nms_cuda as vnc
@@ -2508,16 +2524,33 @@ def learning_phase(gpu: str):
     icc.PATH_LAUNCHES.update(dict.fromkeys(icc.PATHS, 0))
     t0 = time.perf_counter()
     try:
-        metrics = validate_learning.main(["--qat"])
+        metrics = validate_learning.main(argv)
     except SystemExit as e:
-        fail(f"validate_learning exited {e.code}: its mAP50 is below {LEARN_MIN_MAP50}")
+        fail(f"validate_learning {' '.join(argv)} exited {e.code}: its mAP50 is below {LEARN_MIN_MAP50}")
     finally:
         postprocess.vote_nms = kernel_nms
         get_root_logger().removeHandler(logs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, int8_launches, int8_paths = vnc.LAUNCHES, icc.LAUNCHES, dict(icc.PATH_LAUNCHES)
     iters = [ln for ln in logs.lines if ln.startswith("iter ")]
+    eval_int8 = sum(int(v) for ln in logs.lines for v in re.findall(r"int8_conv kernel launches (\d+)", ln))
+    if vnc.LAUNCHES < 1 or len(calls) != vnc.LAUNCHES:
+        fail(f"validate_learning's eval launched the vote_nms kernel {vnc.LAUNCHES} times ({len(calls)} recorded)")
+    if metrics["bbox_mAP_50"] < LEARN_MIN_MAP50:
+        fail(f"validate_learning reached mAP50 {metrics['bbox_mAP_50']:.4f} < {LEARN_MIN_MAP50}")
+    return metrics, iters, calls, vnc.LAUNCHES, icc.LAUNCHES, dict(icc.PATH_LAUNCHES), eval_int8, wall
+
+
+def learning_phase(gpu: str):
+    """Phase 11c: ``python -m radet_tpu_torch.tools.validate_learning --qat``
+    at its defaults (RADet-R18 from scratch, live BN, 400 steps at batch 4,
+    128x160, then the strict eval; then the QAT loop: the PTQ eval through
+    the int8 deploy config, 200 QAT steps from the float weights, the
+    deploy eval, each printing its RESULT line), in this process: mAP50 at
+    least LEARN_MIN_MAP50, its eval's first vote-NMS call held to the plain
+    version.  Returns (the kernel's launches, its max abs box error there,
+    the int8 kernel's launches)."""
+    metrics, iters, calls, launches, int8_launches, int8_paths, _, wall = validate_learning_run(["--qat"])
     print(f"learning: python -m radet_tpu_torch.tools.validate_learning --qat (defaults: 400 steps, batch 4, "
           f"128x160, RADet-R18 from scratch, norm_eval=False, float32; then PTQ eval, 200 QAT steps, deploy eval): "
           f"mAP50 {metrics['bbox_mAP_50']:.4f}, mAP {metrics['bbox_mAP']:.4f}; "
@@ -2528,11 +2561,7 @@ def learning_phase(gpu: str):
         print(f"  {ln}")
     if int8_launches < 1:
         fail("validate_learning --qat's deploy evals launched no int8 kernel")
-    if launches < 1 or len(calls) != launches:
-        fail(f"validate_learning's eval launched the vote_nms kernel {launches} times ({len(calls)} recorded)")
     err = hold_to_plain(calls[:1], "validate_learning's eval, its first batch")
-    if metrics["bbox_mAP_50"] < LEARN_MIN_MAP50:
-        fail(f"validate_learning reached mAP50 {metrics['bbox_mAP_50']:.4f} < {LEARN_MIN_MAP50}")
     del calls
     return launches, err, int8_launches
 
@@ -2956,17 +2985,20 @@ def int_mm_ms(x, wt, stride, groups, iters: int):
 
 
 @contextlib.contextmanager
-def int8_conv_calls():
+def int8_conv_calls(keep_out: bool = False):
     """Within the block, the arguments (copies) of every int8 convolution,
-    in call order (the list yielded)."""
+    in call order (the list yielded); with ``keep_out``, (the arguments, a
+    copy of the output) pairs."""
     from radet_tpu_torch.ops import quant
 
     seen = []
     op = quant._int8_conv_op
 
     def record(*args):
-        seen.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
-        return op(*args)
+        copies = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+        out = op(*args)
+        seen.append((copies, out.clone()) if keep_out else copies)
+        return out
 
     quant._int8_conv_op = record
     try:
@@ -3500,11 +3532,12 @@ def qat_step_checks(gpu: str, repo: Path) -> dict:
                 flagship_peak_gib=flagship_peak, train_step_launches=step_launches)
 
 
-def counted_run(what: str, fn):
+def counted_run(what: str, fn, per_forward: int = QAT_LAUNCHES, extra: int = 0):
     """``fn()`` with vote-NMS recorded and the trainer's log kept; the int8
-    launches by kernel and the vote-NMS launches counted.  Returns (the log,
-    the recorded vote-NMS calls, int8 launches, int8 launches by path,
-    vote-NMS launches, seconds)."""
+    launches by kernel and the vote-NMS launches counted: ``per_forward``
+    int8 launches for each vote-NMS launch and ``extra`` more, all on the
+    wgmma kernel.  Returns (the log, the recorded vote-NMS calls, int8
+    launches, int8 launches by path, vote-NMS launches, seconds)."""
     import radet_tpu_torch.models.postprocess as postprocess
     import radet_tpu_torch.ops.int8_conv_cuda as icc
     import radet_tpu_torch.ops.vote_nms_cuda as vnc
@@ -3524,9 +3557,9 @@ def counted_run(what: str, fn):
         get_root_logger().removeHandler(logs)
     torch.cuda.synchronize()
     launches, paths, nms = icc.LAUNCHES, dict(icc.PATH_LAUNCHES), vnc.LAUNCHES
-    if nms < 1 or len(calls) != nms or launches != QAT_LAUNCHES * nms or paths["wgmma"] != launches:
+    if nms < 1 or len(calls) != nms or launches != per_forward * nms + extra or paths["wgmma"] != launches:
         fail(f"{what}: int8_conv launched {launches} times (by path {paths}) for {nms} vote_nms launches "
-             f"({len(calls)} recorded); expected {QAT_LAUNCHES} on the wgmma kernel for each")
+             f"({len(calls)} recorded); expected {per_forward} on the wgmma kernel for each and {extra} more")
     return logs.lines, calls, launches, paths, nms, time.perf_counter() - t0
 
 
@@ -3636,6 +3669,280 @@ def qat_phase(gpu: str, repo: Path, files: str, eval_opts, test_opts, pbr_checkp
     ``qat_cli_phase``).  Returns the kernels line's numbers."""
     out = qat_step_checks(gpu, repo)
     out.update(qat_cli_phase(files, gpu, eval_opts, test_opts, repo, pbr_checkpoints))
+    return out
+
+
+# 16. frozen-stage int8 training: configs/bop/r50_ycbv_pbr_frozen_int8.py
+FI8_CONFIG = "configs/bop/r50_ycbv_pbr_frozen_int8.py"
+FI8_CLI_STEPS = 4
+# int8 convs per train step at frozen_stages 1: conv1, conv2 and conv3 of layer1's three blocks, and its downsample
+FI8_LAUNCHES = 10
+FI8_TIMED_STEPS = 13  # step_ms: 3 warm-up steps, 10 timed
+FI8_FROZEN = ("backbone.conv1.", "backbone.bn1.", "backbone.layer1.")
+# --frozen-int8 needs a Bottleneck trunk; 100 steps a side keep the A/B near half a minute
+FI8_LEARN_ARGS = ["--depth", "50", "--frozen-int8", "--frozen-int8-iters", "100"]
+
+
+def fi8_launch_checks(cfg, dataset, gpu: str) -> dict:
+    """Phase 16c: one bf16 train step of the ``frozen_int8`` config at batch
+    16 with its int8 convolutions recorded: exactly FI8_LAUNCHES, all on the
+    wgmma kernel, each output equal bit for bit to the plain version on the
+    same inputs (float64 on the card, without cuDNN); then each distinct
+    shape among them timed at that batch (the step's own inputs) beside its
+    bound, ``torch._int_mm`` (1x1 shapes) and the bf16 cuDNN conv.  Returns
+    {"launches", "paths", "by_shape"}."""
+    import radet_tpu_torch.ops.int8_conv_cuda as icc
+    from radet_tpu_torch.apis.common import build_model_and_anchors
+    from radet_tpu_torch.data import collate
+    from radet_tpu_torch.engine import build_optimizer, build_train_step
+    from radet_tpu_torch.engine.train_step import TrainState, batch_to_device
+    from radet_tpu_torch.ops.quant import int8_conv_plain
+
+    dev = torch.device("cuda")
+    model, anchors, ranges, _ = build_model_and_anchors(cfg)
+    model.init_weights(torch.Generator().manual_seed(SEED))
+    model.to(dev).train()
+    tx, _ = build_optimizer(cfg.optimizer.to_dict(), cfg.lr_config.to_dict(), cfg.grad_clip.to_dict(), model)
+    step = build_train_step(model, anchors, ranges, **step_args(cfg))
+    batch = batch_to_device(collate([dataset[i] for i in range(int(cfg.data.samples_per_gpu))]), dev)
+    icc.LAUNCHES = 0
+    icc.PATH_LAUNCHES.update(dict.fromkeys(icc.PATHS, 0))
+    with int8_conv_calls(keep_out=True) as seen:
+        metrics = step(TrainState(model, tx, seed=SEED), batch)
+    torch.cuda.synchronize()
+    launches, paths = icc.LAUNCHES, dict(icc.PATH_LAUNCHES)
+    print(f"  one bf16 train step at batch {batch['image'].shape[0]}: int8_conv launches {launches} (by path {paths}),"
+          f" loss {float(metrics['loss']):.4f} [{gpu}]")
+    if launches != FI8_LAUNCHES or paths["wgmma"] != launches or len(seen) != launches:
+        fail(f"the frozen-int8 train step launched int8_conv {launches} times (by path {paths}, {len(seen)} "
+             f"recorded); expected {FI8_LAUNCHES}, all on the wgmma kernel")
+    for i, (args, out) in enumerate(seen):
+        with torch.backends.cudnn.flags(enabled=False):
+            want = int8_conv_plain(*args)
+        if not torch.equal(out, want):
+            fail(f"the frozen-int8 step's int8 conv {i} (x {tuple(args[0].shape)} w {tuple(args[1].shape)}): the "
+                 f"kernel differs from the plain version in {int((out != want).sum())} elements")
+    print(f"  each of the step's {launches} int8_conv outputs equals the plain version's bit for bit [{gpu}]")
+    del model, tx, step, batch, metrics
+    shapes = {}
+    for args, _ in seen:
+        shapes.setdefault((tuple(args[0].shape), tuple(args[1].shape), tuple(args[4])), args)
+    del seen
+    print("  N C H W -> Cout k/s | kernel ms, plain ms, bound ms (by), share, _int_mm ms, cuDNN bf16 conv ms (not "
+          "the same function)")
+    by_shape = {}
+    for (x, wt, mult, bias, stride, padding, groups, dtype) in shapes.values():
+        rest = (mult, bias, stride, padding, groups, dtype)
+        label = f"{x.shape[0]} {x.shape[1]} {x.shape[2]} {x.shape[3]} -> {wt.shape[0]} {wt.shape[2]}/{stride[0]}"
+        row = dict(x=list(x.shape), w=list(wt.shape), stride=stride[0],
+                   path=icc.plan(x.shape, wt.shape, tuple(stride), tuple(padding), groups, 256)["path"])
+        row["ms"] = device_ms(lambda: icc.int8_conv_cuda(x, wt, *rest), 20)
+        with torch.backends.cudnn.flags(enabled=False):
+            row["plain_ms"] = cuda_ms(lambda: int8_conv_plain(x, wt, *rest), 2)
+        ho, wo = icc.conv_output_hw(x.shape[2], x.shape[3], wt.shape[2:], stride, padding)
+        row["bound_ms"], row["bound_by"] = int8_bound(x.shape, wt.shape, (x.shape[0], wt.shape[0], ho, wo), stride,
+                                                      padding)
+        row["int_mm_ms"] = int_mm_ms(x, wt, stride, groups, 20)
+        xb, wb = x.to(torch.bfloat16), wt.to(torch.bfloat16)
+        row["cudnn_bf16_ms"] = device_ms(lambda: F.conv2d(xb, wb, None, stride, padding, 1, groups), 20)
+        del xb, wb
+        by_shape[label] = row
+        print(f"  {label} {row['path']} | {row['ms']:.4f}, {row['plain_ms']:.3f}, {row['bound_ms']:.4f} "
+              f"({row['bound_by']}), {row['bound_ms'] / row['ms']:.1%}, "
+              f"{'-' if row['int_mm_ms'] is None else format(row['int_mm_ms'], '.4f')}, "
+              f"{row['cudnn_bf16_ms']:.4f} [{gpu}]")
+    torch.cuda.empty_cache()
+    return dict(launches=launches, paths=paths, by_shape=by_shape)
+
+
+def fi8_trunk_equality(cfg, gpu: str) -> None:
+    """Phase 16d: the ``frozen_int8`` trunk with every stage frozen, in
+    training mode, against the ``int8_stream`` trunk at eval on the same
+    weights, bf16 at batch 2, 480x640, on the card: every tap bit for bit."""
+    from radet_tpu_torch.models import build_backbone
+
+    dev = torch.device("cuda")
+    bb = {k: v for k, v in cfg.model.backbone.to_dict().items() if k not in ("frozen_int8", "frozen_stages")}
+    train = build_backbone(dict(bb, frozen_int8=True, frozen_stages=4))
+    train.init_weights(torch.Generator().manual_seed(SEED))
+    deploy = build_backbone(dict(bb, quant="int8_stream", frozen_stages=4))
+    deploy.load_state_dict(train.state_dict(), strict=True)
+    h, w = cfg.input_size
+    x = torch.randn((2, 3, h, w), generator=torch.Generator().manual_seed(SEED + 31)).to(dev, torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        got = train.to(dev).train()(x)
+        want = deploy.to(dev).eval()(x)
+    same = [torch.equal(g, v) for g, v in zip(got, want)]
+    print(f"  the frozen_int8 trunk, every stage frozen, training mode, against the int8_stream trunk at eval "
+          f"(bf16, batch 2, {h}x{w}): taps C2..C5 equal bit for bit: {same} [{gpu}]")
+    if len(got) != 4 or not all(same):
+        fail("the frozen_int8 training trunk differs from the int8_stream eval trunk on the card")
+    del train, deploy, got, want
+    torch.cuda.empty_cache()
+
+
+def fi8_step_checks(gpu: str, repo: Path) -> dict:
+    """Phase 16a-d: the ``frozen_int8`` config's float32 step at batch 1,
+    full width, on the card against the CPU (``step_parity``: same weights,
+    batch, noise, ReLU sides and int8 levels); its bf16 step at batch 16
+    timed with its peak memory beside the flagship's before and after it,
+    FI8_LAUNCHES int8 launches a step; ``fi8_launch_checks``;
+    ``fi8_trunk_equality``.  Returns the numbers."""
+    import radet_tpu_torch.ops.int8_conv_cuda as icc
+    from radet_tpu_torch.apis.common import assignment_cfg_from
+    from radet_tpu_torch.data import InMemoryBOPDataset, train_transforms
+    from radet_tpu_torch.utils import Config
+    from synthetic_bop import synthetic_bop_records
+
+    cfg = Config.fromfile(str(repo / FI8_CONFIG))
+    h, w = cfg.input_size
+    max_gt = int(assignment_cfg_from(cfg).get("max_gt", 32))
+    records = synthetic_bop_records(np.random.RandomState(SEED + 2), int(cfg.data.samples_per_gpu), (h, w))
+    dataset = InMemoryBOPDataset(records, train_transforms((h, w), max_gt=max_gt, seed=SEED), max_gt=max_gt,
+                                 classes=cfg.CLASS_NAMES)
+    print(f"frozen-int8: {FI8_CONFIG} (frozen_stages {cfg.model.backbone.frozen_stages}), full width, {h}x{w}: the "
+          f"frozen stem and layer1 on the int8_stream arithmetic in training, layer2 onwards in "
+          f"{cfg.compute_dtype}")
+    step_parity(cfg, dataset, "frozen-int8", gpu)
+    flagship = Config.fromfile(str(repo / CONFIG))
+    flagship_ms, flagship_peak = step_ms(flagship, dataset, "flagship", gpu)
+    icc.LAUNCHES = 0
+    icc.PATH_LAUNCHES.update(dict.fromkeys(icc.PATHS, 0))
+    fi8_ms, fi8_peak = step_ms(cfg, dataset, "frozen-int8", gpu)
+    torch.cuda.synchronize()
+    timed_launches, timed_paths = icc.LAUNCHES, dict(icc.PATH_LAUNCHES)
+    flagship_after_ms, _ = step_ms(flagship, dataset, "flagship, again", gpu)
+    print(f"  frozen-int8 train step at batch {cfg.data.samples_per_gpu}, {cfg.compute_dtype}: {fi8_ms:.2f} ms "
+          f"({fi8_ms / flagship_ms:.3f}x and "
+          f"{fi8_ms / flagship_after_ms:.3f}x the flagship's {flagship_ms:.2f} and {flagship_after_ms:.2f} ms before "
+          f"and after it), peak {fi8_peak:.2f} GiB ({fi8_peak / flagship_peak:.3f}x {flagship_peak:.2f}); "
+          f"int8_conv launches in its {FI8_TIMED_STEPS} steps: {timed_launches} (by path {timed_paths}) [{gpu}]")
+    if timed_launches != FI8_LAUNCHES * FI8_TIMED_STEPS or timed_paths["wgmma"] != timed_launches:
+        fail(f"the timed frozen-int8 steps launched int8_conv {timed_launches} times (by path {timed_paths}); "
+             f"expected {FI8_LAUNCHES} a step on the wgmma kernel")
+    out = dict(fi8_ms=fi8_ms, fi8_peak_gib=fi8_peak, flagship_ms=[flagship_ms, flagship_after_ms],
+               flagship_peak_gib=flagship_peak, timed_launches=timed_launches)
+    out.update(fi8_launch_checks(cfg, dataset, gpu))
+    fi8_trunk_equality(cfg, gpu)
+    return out
+
+
+def fi8_cli_phase(files: str, gpu: str, eval_opts, repo: Path, pbr_checkpoints: str) -> dict:
+    """Phase 16e: ``tools.train`` (its ``main``, in this process) on the
+    ``frozen_int8`` config from the JPEG ``train_pbr`` split through its own
+    pipeline, full width, bf16, batch 16, FI8_CLI_STEPS steps, ``load_from``
+    the flagship's from-files checkpoints (every tensor loaded), one
+    periodic eval at ``score_thr`` 0: FI8_LAUNCHES int8 launches a step, all
+    wgmma, none in the eval (its log line); the frozen tensors kept, the
+    trained ones moved; the eval's vote-NMS calls held to the plain
+    version.  Returns the launches."""
+    from radet_tpu_torch.engine import load_weights
+    from radet_tpu_torch.tools import train as train_tool
+    from synthetic_bop import write_train_config
+
+    config = write_train_config(osp.join(files, "fi8_config.py"), str(repo / FI8_CONFIG),
+                                osp.join(files, "train_pbr.json"), osp.join(files, "train_pbr") + "/",
+                                osp.join(files, "backgrounds"))
+    work_dir = osp.join(files, "work_dir_fi8")
+    print(f"frozen-int8 train CLI: radet_tpu_torch.tools.train.main on {FI8_CONFIG} from train_pbr (full width, bf16, "
+          f"batch 16, {FILES_WORKERS} loader threads), {FI8_CLI_STEPS} steps, load_from {pbr_checkpoints}, one eval:")
+    log, calls, launches, paths, nms, run_s = counted_run("the frozen-int8 train CLI", lambda: train_tool.main([
+        config, "--work-dir", work_dir, "--max-iters", str(FI8_CLI_STEPS), "--cfg-options", "log_config.interval=1",
+        f"checkpoint_config.interval={FI8_CLI_STEPS}", f"evaluation.interval={FI8_CLI_STEPS}",
+        f"data.workers_per_gpu={FILES_WORKERS}", "test_cfg.score_thr=0.0", *eval_opts,
+        f"load_from={pbr_checkpoints!r}"]), per_forward=0, extra=FI8_LAUNCHES * FI8_CLI_STEPS)
+    iters = [ln for ln in log if ln.startswith("iter ")]
+    evals = [ln for ln in log if ln.startswith("eval: ")]
+    eval_int8 = [int(v) for ln in log for v in re.findall(r"int8_conv kernel launches (\d+)", ln)]
+    for ln in iters[:1] + iters[-1:] + evals:
+        print(f"  {ln}")
+    loaded = load_weights(pbr_checkpoints)
+    after = load_weights(osp.join(work_dir, "checkpoints"))
+    note = f"loaded {len(loaded)}/{len(loaded)} tensors from pretrained weights"
+    history = [float(v) for ln in iters for v in re.findall(r" loss (\S+)", ln)]
+    frozen = [k for k in loaded if k.startswith(FI8_FROZEN)]
+    moved = {part: max(float((after[k].float() - loaded[k].float()).abs().max()) for k in loaded
+                       if k.startswith(part) and loaded[k].is_floating_point())
+             for part in ("backbone.layer2.", "backbone.layer4.", "bbox_head.")}
+    if (note not in log or len(iters) != FI8_CLI_STEPS or len(history) != FI8_CLI_STEPS
+            or not all(math.isfinite(v) for v in history) or len(evals) != 1 or eval_int8 != [0]
+            or after.keys() != loaded.keys() or not all(torch.equal(after[k], loaded[k]) for k in frozen)
+            or not all(v > 0 for v in moved.values())):
+        fail(f"the frozen-int8 train CLI: {len(iters)} steps, losses {history}, {len(evals)} evals with int8 "
+             f"launches {eval_int8}, every tensor loaded: {note in log}, frozen kept, trained ones moved {moved}")
+    ms = float(np.median([float(m) for ln in iters[1:] for m in re.findall(r"\| (\S+) ms/iter", ln)]))
+    print(f"  {note}; frozen stem and layer1 kept ({len(frozen)} tensors), moved by up to "
+          + ", ".join(f"{k[:-1]} {v:.3g}" for k, v in moved.items())
+          + f"; {ms:.1f} ms/step (median of steps 2-{FI8_CLI_STEPS}), {run_s:.1f} s in all; int8_conv launches "
+          f"{launches} (by path {paths}: {FI8_LAUNCHES} per step, {eval_int8[0]} in the eval), vote_nms {nms} [{gpu}]")
+    err = hold_to_plain(calls, "the frozen-int8 train CLI's eval")
+    return dict(int8=dict(train_cli=launches, train_cli_eval=eval_int8[0]), nms=dict(train_cli_eval=nms),
+                max_abs_err=err, cli_ms=ms)
+
+
+def fi8_profile(gpu: str, repo: Path) -> dict:
+    """Phase 16f: ``tools.profile_train --frozen-int8 --step-only`` at batch
+    16: FI8_LAUNCHES int8 launches in a step, all on the wgmma kernel."""
+    out, _, wall = tool_run(repo, ["-m", "radet_tpu_torch.tools.profile_train", "--frozen-int8", "--step-only",
+                                   "--batch", 16, "--iters", 10], "profile_train --frozen-int8")
+    s = json.loads(out[out.index("{"):])
+    print(f"  python -m radet_tpu_torch.tools.profile_train --frozen-int8 --step-only --batch 16 --iters 10 "
+          f"({wall:.1f} s): step {s['step_ms']:.3f} ms ({s['img_per_s']:.1f} img/s), {s['step_tflops']:.4f} TFLOP "
+          f"per step, MFU {s['mfu']:.4f}; int8_conv launches per step {s['int8_launches_per_step']} (by path "
+          f"{s['int8_launches_by_path']}) [{s['device']}]")
+    if (not s["frozen_int8"] or s["int8_launches_per_step"] != FI8_LAUNCHES
+            or s["int8_launches_by_path"]["wgmma"] != FI8_LAUNCHES):
+        fail(f"profile_train --frozen-int8: {s['int8_launches_per_step']} int8 launches a step (by path "
+             f"{s['int8_launches_by_path']}); expected {FI8_LAUNCHES} on the wgmma kernel")
+    return s
+
+
+def fi8_learning(gpu: str) -> dict:
+    """Phase 16g: ``python -m radet_tpu_torch.tools.validate_learning`` with
+    FI8_LEARN_ARGS, in this process: RADet-R50 from scratch (400 steps at
+    batch 4, 128x160, live BN) and its strict eval, mAP50 at least
+    LEARN_MIN_MAP50; then the A/B, two fine-tunes of the float weights with
+    the stem and layer1 frozen, one with ``frozen_int8``, each evaluated on
+    the float path: FI8_LAUNCHES int8 launches in each ``frozen_int8`` step,
+    all on the wgmma kernel, none in the evals; the first vote-NMS call held
+    to the plain version.  Returns the launches and the A/B."""
+    from radet_tpu_torch.tools import validate_learning
+
+    args = validate_learning.parse_args(FI8_LEARN_ARGS)
+    metrics, iters, calls, launches, int8_launches, int8_paths, eval_int8, wall = validate_learning_run(
+        FI8_LEARN_ARGS)
+    ab = metrics["frozen_int8"]
+    delta = {k: ab["frozen-int8"][f"bbox_{k}"] - ab["frozen-float"][f"bbox_{k}"] for k in ("mAP_50", "mAP")}
+    print(f"  python -m radet_tpu_torch.tools.validate_learning {' '.join(FI8_LEARN_ARGS)} ({args.iters} steps, "
+          f"batch {args.batch}, {args.img_size[0]}x{args.img_size[1]}, RADet-R{args.depth} from scratch, "
+          f"norm_eval=False, {args.dtype}; then two {args.frozen_int8_iters}-step frozen fine-tunes, float and "
+          f"frozen_int8): mAP50 {metrics['bbox_mAP_50']:.4f}, mAP {metrics['bbox_mAP']:.4f}; "
+          + ", ".join(f"{k} mAP50 {m['bbox_mAP_50']:.4f} mAP {m['bbox_mAP']:.4f}" for k, m in ab.items())
+          + f" (frozen-int8 - frozen-float: mAP50 {delta['mAP_50']:+.4f}, mAP {delta['mAP']:+.4f}); {wall:.1f} s "
+          f"wall (scenes, three trainings and three evals); vote_nms kernel launches {launches}, int8_conv "
+          f"{int8_launches} (by path {int8_paths}, {eval_int8} in the evals) [{gpu}]")
+    for ln in iters[-1:]:
+        print(f"    {ln}")
+    if (eval_int8 or int8_launches != FI8_LAUNCHES * args.frozen_int8_iters
+            or int8_paths["wgmma"] != int8_launches):
+        fail(f"validate_learning --frozen-int8 launched int8_conv {int8_launches} times (by path {int8_paths}, "
+             f"{eval_int8} in the evals); expected {FI8_LAUNCHES} a frozen_int8 step on the wgmma kernel, none in "
+             f"the evals")
+    err = hold_to_plain(calls[:1], "validate_learning --frozen-int8's eval, its first batch")
+    del calls
+    return dict(nms=launches, int8=int8_launches, max_abs_err=err, delta=delta,
+                arms={k: {m: v[f"bbox_{m}"] for m in ("mAP_50", "mAP")} for k, v in ab.items()}, wall_s=wall)
+
+
+def fi8_phase(gpu: str, repo: Path, files: str, eval_opts, pbr_checkpoints: str) -> dict:
+    """Phase 16: frozen-stage int8 training (``fi8_step_checks``,
+    ``fi8_cli_phase``, ``fi8_profile``, ``fi8_learning``).  Returns the
+    kernels line's numbers."""
+    out = fi8_step_checks(gpu, repo)
+    out.update(fi8_cli_phase(files, gpu, eval_opts, repo, pbr_checkpoints))
+    out["profile_train"] = fi8_profile(gpu, repo)
+    out["learning"] = fi8_learning(gpu)
     return out
 
 
@@ -3837,6 +4144,9 @@ def main() -> None:
 
         # 15. quantization-aware training
         qat = phase("QAT", qat_phase, gpu, repo, files, eval_opts, test_opts, pbr_checkpoints)
+
+        # 16. frozen-stage int8 training
+        fi8 = phase("frozen-int8 training", fi8_phase, gpu, repo, files, eval_opts, pbr_checkpoints)
     nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by, _ = nms_times[ANCHOR_MAIN_SHAPE]
 
     print(f"card: {gpu}; smoke {time.perf_counter() - start:.1f} s wall")
@@ -3865,6 +4175,10 @@ def main() -> None:
         # phase 15: the QAT train CLI's periodic eval, the int8_stream test of its checkpoint; phase 11:
         # validate_learning --qat's three evals
         "qat_launches": dict(qat["nms"], validate_learning=learn_launches),
+        # phase 16: the frozen-int8 train CLI's periodic eval, validate_learning --frozen-int8's three evals
+        "frozen_int8_launches": dict(fi8["nms"], validate_learning=fi8["learning"]["nms"]),
+        "frozen_int8_max_abs_err": dict(train_cli_eval=fi8["max_abs_err"],
+                                        validate_learning=fi8["learning"]["max_abs_err"]),
     }, {
         "name": "batched_nms (vote_nms.cu, no-vote mode)",
         "route": "cuda",
@@ -3900,6 +4214,17 @@ def main() -> None:
         # all wgmma), the timed bf16 train step's 13 steps (must be 0); phase 11: validate_learning --qat's PTQ
         # and deploy evals
         "qat_launches": dict(qat["int8"], train_step=qat["train_step_launches"], validate_learning=learn_int8),
+        # phase 16: one bf16 train step at batch 16 (10, all wgmma, each held to the plain version), the 13
+        # timed steps, the train CLI's 4 steps and its periodic eval (must be 0), profile_train's step,
+        # validate_learning --frozen-int8's fine-tune with frozen_int8 (10 per step, none in its evals)
+        "frozen_int8_launches": dict(fi8["int8"], train_step=fi8["launches"], train_step_paths=fi8["paths"],
+                                     timed_steps=fi8["timed_launches"],
+                                     profile_train=fi8["profile_train"]["int8_launches_per_step"],
+                                     validate_learning=fi8["learning"]["int8"]),
+        # phase 16: validate_learning --frozen-int8's A/B on the float path (mAP50 and mAP of each arm)
+        "frozen_int8_learning": dict(fi8["learning"]["arms"], delta=fi8["learning"]["delta"]),
+        # phase 16: the layer1 shapes at batch 16 (the frozen-int8 train step's inputs)
+        "frozen_int8_by_shape": fi8["by_shape"],
         # every shape: the wgmma kernel ("ms", "ms_128"; "ms_128_per_tile" with one block per tile) beside
         # the mma.sync kernel ("mma_ms_128") on the same inputs
         "by_shape": int8["by_shape"],

@@ -31,7 +31,6 @@ from ..engine.checkpoint import (
     write_meta,
 )
 from ..engine.optim import build_optimizer
-from ..ops.quant import FROZEN_INT8_TRAINING
 from ..engine.train_step import TrainState, batch_to_device, build_train_step, build_train_step_anchor
 from ..utils.logging import get_root_logger
 from .common import (
@@ -58,15 +57,6 @@ def check_trainable_quant(model_cfg) -> None:
                 f"model.{part}.quant={pcfg.get('quant')!r} without qat=True is a deploy-time "
                 "option: train the float config, or set qat=True"
             )
-
-
-def check_int8_training(model_cfg) -> None:
-    """Frozen-stage int8 training (``backbone.frozen_int8=True``) is item
-    14c: raise before any step.  (Such a config infers and evaluates on the
-    float path.)  Quantization-aware training (``qat=True``) trains."""
-    if model_cfg.get("backbone", {}).get("frozen_int8"):
-        raise NotImplementedError(f"training with model.backbone.frozen_int8=True is not ported "
-                                  f"({FROZEN_INT8_TRAINING})")
 
 
 def _merge_pretrained(model, state_dict, logger) -> None:
@@ -127,7 +117,6 @@ def train_detector(
     cfg.dump(osp.join(work_dir, "config.py"))
 
     check_trainable_quant(cfg.model)
-    check_int8_training(cfg.model)
     head_type = head_type_from_cfg(cfg)
     if dataset is None:
         dataset = build_dataset(cfg, "train", test_mode=False)

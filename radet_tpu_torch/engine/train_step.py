@@ -11,7 +11,9 @@ the optimizer update and the schedule's step.
 
 A model with quantization-aware training (``qat``) runs its forward and
 backward with cuDNN's TF32 off (``ops.quant.qat_precision``): its fake-quantized
-convolutions are float32 on the deploy grid.
+convolutions are float32 on the deploy grid.  A ``frozen_int8`` model's step
+is a float model's: its frozen prefix's int8 convolutions sum exactly in
+int32 and take no gradient.
 
 The assignment noise comes from a device generator seeded by (seed, step),
 the counterpart of ``fold_in(rng_key, step)``: a run resumed from a
@@ -34,7 +36,7 @@ from ..models.anchor_heads import flatten_anchor_outputs
 from ..models.anchor_loss import anchor_head_loss, atss_loss
 from ..models.detector import flatten_head_outputs, preprocess_images
 from ..models.radet_loss import radet_loss
-from ..ops.quant import FROZEN_INT8_TRAINING, qat_precision
+from ..ops.quant import qat_precision
 from .optim import ClippedOptimizer
 
 BATCH_KEYS = ("image", "gt_boxes", "gt_labels", "gt_valid", "dist_vals")
@@ -71,15 +73,6 @@ def batch_to_device(batch: Dict[str, Any], device, keys=BATCH_KEYS) -> Dict[str,
     return out
 
 
-def refuse_int8_training(model) -> None:
-    """Raise for a model with frozen-stage int8 training (``frozen_int8``)
-    switched on: item 14c."""
-    for name, m in model.named_modules():
-        if getattr(m, "frozen_int8", False):
-            raise NotImplementedError(f"training {name or 'the model'} with frozen_int8=True is not ported "
-                                      f"({FROZEN_INT8_TRAINING})")
-
-
 def build_train_step(
     model,
     anchors: np.ndarray,
@@ -96,9 +89,7 @@ def build_train_step(
 
     ``batch``: device tensors under :data:`BATCH_KEYS` (see
     :func:`batch_to_device`).  ``noise``: optional (gumbel_pool,
-    gumbel_draw) for the assignment (``core.assignment.assign_labels``).
-    A model with ``frozen_int8`` raises (item 14c)."""
-    refuse_int8_training(model)
+    gumbel_draw) for the assignment (``core.assignment.assign_labels``)."""
     return TrainStep(model, anchors, regress_ranges, img_norm=img_norm, num_classes=num_classes,
                      assignment_cfg=assignment_cfg, normalizer=normalizer, loss_cfg=loss_cfg)
 
@@ -194,8 +185,7 @@ def build_train_step_anchor(
     AnchorHead models.  ``spec``: ``apis.common.anchor_head_spec`` of the
     config.  ``batch``: device tensors under :data:`ANCHOR_BATCH_KEYS`.
     The assignment is deterministic (IoU-based): the step draws no random
-    numbers.  A model with ``frozen_int8`` raises (item 14c)."""
-    refuse_int8_training(model)
+    numbers."""
     return AnchorTrainStep(model, anchors, num_level_anchors, img_norm=img_norm, num_classes=num_classes,
                            spec=spec)
 

@@ -3,8 +3,8 @@
 with RADetHead, and SingleStageDetector with ATSSHead or AnchorHead, over
 ResNet (depths 18-152), ResNetV1d, ResNeXt, Res2Net, ResNeSt or RegNet;
 with the int8 deploy options ``backbone.quant`` and ``bbox_head.quant``
-and ``qat`` (quantization-aware training), and ``frozen_int8`` (whose
-training is not ported: item 14c)."""
+and ``qat`` (quantization-aware training), and ``frozen_int8`` (the
+frozen stem and stages on the int8 deploy arithmetic in training)."""
 
 from __future__ import annotations
 

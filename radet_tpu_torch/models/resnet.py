@@ -17,6 +17,8 @@ with ``strict=True``.  ``quant`` gives the plain and ResNeXt trunks the
 JAX package's int8 deploy arithmetic at eval (``QUANT_LEVELS``; the
 parameters stay the float convs'), and with ``qat`` its quantization-aware
 training: the same arithmetic, fake-quantized, in training mode.
+``frozen_int8`` runs the frozen stem and stages of a float trunk on the
+'int8_stream' deploy arithmetic in training mode.
 """
 
 from __future__ import annotations
@@ -33,7 +35,6 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.quant import (
-    FROZEN_INT8_TRAINING,
     INV127,
     affine_act_scale,
     fake_quant_ste,
@@ -319,7 +320,9 @@ class Bottleneck(nn.Module):
         it; under ``qat`` ``x`` is the fake-quantized stream), conv1 and the
         downsample conv consume ``x`` with the per-channel scales folded
         into their weights, and the block returns (its int8 output, the
-        stats of that output)."""
+        stats of that output).  A block carrying a stream runs the
+        'int8_stream' level whatever its ``quant`` (a frozen_int8 trunk's
+        float blocks carry one)."""
         if stream is not None:
             s_in = _stream_scale(stream)
             out = _q8_conv(self.conv1, x, s_in, dtype, qat)
@@ -327,7 +330,7 @@ class Bottleneck(nn.Module):
             out = self.conv1(x)
         out = F.relu(self.bn1(out))
         out = F.relu(self.bn2(_q8_conv(self.conv2, out, _bn_act_scale(self.bn1), dtype, qat)))
-        if self.quant == "int8_conv2":
+        if stream is None and self.quant == "int8_conv2":
             out = self.conv3(out)
         else:
             out = _q8_conv(self.conv3, out, _bn_act_scale(self.bn2), dtype, qat)
@@ -456,6 +459,7 @@ class _Backbone(nn.Module):
     def _finish(self, stage_widths: Sequence[int], out_indices, frozen_stages: int, norm_eval: bool,
                 with_cp: bool, stem: Sequence[nn.Module]) -> None:
         self.num_stages = len(stage_widths)
+        self.frozen_stages = frozen_stages
         self.out_indices = tuple(out_indices)
         self.out_channels = [stage_widths[i] for i in self.out_indices]
         self.with_cp = with_cp
@@ -492,11 +496,14 @@ class _Backbone(nn.Module):
                     m.running_var.fill_(1.0)
 
     def forward(self, x):
-        x = self.forward_stem(x)
+        return self.forward_stages(self.forward_stem(x))
+
+    def forward_stages(self, x, first: int = 0, outs=()):
+        """Stages ``first`` onwards on ``x``; their taps follow ``outs``."""
         # with_cp: each block's activations are recomputed in backward
         cp = self.with_cp and self.training and torch.is_grad_enabled()
-        outs = []
-        for i in range(self.num_stages):
+        outs = list(outs)
+        for i in range(first, self.num_stages):
             for block in getattr(self, f"layer{i + 1}"):
                 x = checkpoint(block, x, use_reentrant=False, context_fn=_checkpoint_contexts) if cp else block(x)
             if i in self.out_indices:
@@ -521,8 +528,10 @@ class ResNet(_Backbone):
     arithmetic, in training its fake-quantized form (the stem's output
     fake-quantized before a float max-pool under 'int8_stream', the float
     stream handed out at the taps; ``with_cp`` checkpoints the
-    stream-carrying blocks too); a ``frozen_int8`` trunk runs the float
-    path at eval and raises in training (item 14c)."""
+    stream-carrying blocks too).  A ``frozen_int8`` trunk runs the float
+    path at eval; in training (``frozen_stages >= 0``) its frozen stem and
+    first ``frozen_stages`` stages run the 'int8_stream' arithmetic
+    (:meth:`forward_frozen_int8`) and the stages after them the float one."""
 
     def __init__(
         self,
@@ -594,20 +603,19 @@ class ResNet(_Backbone):
         return self.maxpool(x)
 
     def forward(self, x):
-        if self.training and self.frozen_int8:
-            raise NotImplementedError(f"training with backbone.frozen_int8=True is not ported "
-                                      f"({FROZEN_INT8_TRAINING})")
+        if self.frozen_int8 and self.training and self.frozen_stages >= 0:
+            return self.forward_frozen_int8(x)
         qat = self.qat and self.training
         if self.quant != "int8_stream" or (self.training and not qat):
             return super().forward(x)
+        if not qat:
+            return tuple(self._stream_prefix(x, self.num_stages)[2])
         dtype = x.dtype
         x = F.relu(self.bn1(self.conv1(x)))
         stream = _bn_affine_stats(self.bn1)
-        if qat:  # max commutes with the fake quantization as with the int8 one
-            x = self.maxpool(fake_quant_ste(x, _stream_scale(stream)[:, None, None]))
-        else:
-            x = _max_pool_int8(quantize_int8(x, _stream_scale(stream)))
-        cp = self.with_cp and qat and torch.is_grad_enabled()
+        # max commutes with the fake quantization as with the int8 one
+        x = self.maxpool(fake_quant_ste(x, _stream_scale(stream)[:, None, None]))
+        cp = self.with_cp and torch.is_grad_enabled()
         outs = []
         for i in range(self.num_stages):
             for block in getattr(self, f"layer{i + 1}"):
@@ -617,8 +625,46 @@ class ResNet(_Backbone):
                 else:
                     x, stream = block(x, stream, dtype)
             if i in self.out_indices:
-                outs.append(x.to(dtype) if qat else (x.float() * _stream_scale(stream)[:, None, None]).to(dtype))
+                outs.append(x.to(dtype))
         return tuple(outs)
+
+    def _stream_prefix(self, x, n_stages: int):
+        """The 'int8_stream' deploy arithmetic of the stem and the first
+        ``n_stages`` stages: the stem's BN + ReLU output quantized and
+        max-pooled in int8, each block carrying the stream.  Returns (the
+        int8 stream, its stats, the taps among those stages dequantized)."""
+        dtype = x.dtype
+        x = F.relu(self.bn1(self.conv1(x)))
+        stream = _bn_affine_stats(self.bn1)
+        x = _max_pool_int8(quantize_int8(x, _stream_scale(stream)))
+        outs = []
+        for i in range(n_stages):
+            for block in getattr(self, f"layer{i + 1}"):
+                x, stream = block.forward_int8(x, dtype, stream)
+            if i in self.out_indices:
+                outs.append(_dequantized(x, stream, dtype))
+        return x, stream, outs
+
+    def forward_frozen_int8(self, x):
+        """The training forward of ``frozen_int8``, as the JAX package's: the
+        stem and the first ``frozen_stages`` stages on the 'int8_stream'
+        deploy arithmetic (:meth:`_stream_prefix`), the last frozen stage's
+        stream (the stem's, at ``frozen_stages`` 0) dequantized for the
+        first trainable stage, which runs on as the float trunk does
+        (checkpointed with ``with_cp``).  The frozen prefix runs without
+        autograd: it takes no gradient, and the int8 convolution has none."""
+        dtype = x.dtype
+        frozen = min(self.frozen_stages, self.num_stages)
+        with torch.no_grad():
+            x, stream, outs = self._stream_prefix(x, frozen)
+            # the last frozen stage's tap is its dequantized output
+            x = outs[-1] if frozen - 1 in self.out_indices else _dequantized(x, stream, dtype)
+        return self.forward_stages(x, frozen, outs)
+
+
+def _dequantized(x, stream, dtype):
+    """The int8 stream ``x`` with its stats ``stream`` in float32, cast to ``dtype``."""
+    return (x.float() * _stream_scale(stream)[:, None, None]).to(dtype)
 
 
 def _check_quant(kind, quant, qat, frozen_int8, norm_eval, deep_stem, avg_down, scales, radix) -> None:

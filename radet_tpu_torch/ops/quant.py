@@ -50,7 +50,6 @@ from .int8_conv_cuda import conv_output_hw, int8_conv_cuda
 
 # float32(1 / 127): XLA compiles ``a / 127.0`` to ``a * INV127``
 INV127 = float(np.float32(1.0) / np.float32(127.0))
-FROZEN_INT8_TRAINING = "ROADMAP.md Queue 1 item 14c, frozen-stage int8 training"
 # the dtype a QAT conv stores its float32 output in, as the deploy conv's
 QAT_OUT_DTYPE = torch.bfloat16
 

@@ -23,8 +23,13 @@ product), and ``mfu`` = step FLOPs / step time / ``--peak-tflops`` (default
 989.4, one H100 SXM's dense bf16 rate at 700 W).  Prints one JSON object
 with the JAX tool's keys, the device it ran on (the card's name and power
 limit) and ``time_source``.  ``--trace-dir`` writes a ``torch.profiler``
-trace of one step there.  ``--frozen-int8`` (the int8 deploy family)
-raises.
+trace of one step there.  ``--frozen-int8`` builds the trunk with
+``frozen_int8`` (the frozen stem and layer1 on the int8 deploy arithmetic,
+``configs/bop/r50_ycbv_pbr_frozen_int8.py``).  The JSON also gives the
+int8 convolution kernel's launches in one step (``int8_launches_per_step``,
+and by kernel path: ``ops/int8_conv_cuda.py``'s ``LAUNCHES`` and
+``PATH_LAUNCHES``; 0 on the CPU, whose int8 convolutions run the plain
+version).
 """
 
 from __future__ import annotations
@@ -42,11 +47,11 @@ from ..engine.optim import build_optimizer
 from ..engine.train_step import TrainState, batch_to_device, build_train_step
 from ..models.builder import build_detector
 from ..models.detector import preprocess_images
+from ..ops import int8_conv_cuda
 from ..utils.profiling import device_label, resolve_device, trace
 
 H100_BF16_TFLOPS = 989.4  # H100 SXM, dense bf16 (NVIDIA's data sheet, 700 W)
 IMG_NORM = dict(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375])
-_INT8 = "ROADMAP.md Queue 1 item 14c, frozen-stage int8 training"
 
 
 def parse_args(argv=None):
@@ -62,7 +67,9 @@ def parse_args(argv=None):
     p.add_argument("--trace-dir", default=None, help="write a torch.profiler trace of one step here")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--cpu", action="store_true", help="--device cpu")
-    p.add_argument("--frozen-int8", action="store_true", help=f"not ported ({_INT8})")
+    p.add_argument("--frozen-int8", action="store_true",
+                   help="backbone.frozen_int8: the frozen stem and layer1 run the int8_stream deploy arithmetic "
+                        "in the train forward (configs/bop/r50_ycbv_pbr_frozen_int8.py)")
     p.add_argument("--step-only", action="store_true", help="time only the full train step")
     return p.parse_args(argv)
 
@@ -102,15 +109,14 @@ def synthetic_batch(b: int, h: int, w: int, n_anchor: int, num_classes: int, max
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    if args.frozen_int8:
-        raise NotImplementedError(f"--frozen-int8 is not ported ({_INT8})")
     device = resolve_device(args.device, args.cpu)
     cuda = device.type == "cuda"
     h, w = args.input_size
     b = args.batch
     model_cfg = dict(
         type="RADet",
-        backbone=dict(depth=args.depth, out_indices=(0, 1, 2, 3), frozen_stages=1, norm_eval=True),
+        backbone=dict(depth=args.depth, out_indices=(0, 1, 2, 3), frozen_stages=1, norm_eval=True,
+                      frozen_int8=args.frozen_int8),
         neck=dict(out_channels=256, start_level=1, num_outs=5),
         bbox_head=dict(num_classes=args.num_classes, in_channels=256, stacked_convs=4, feat_channels=256),
     )
@@ -126,10 +132,14 @@ def main(argv=None) -> dict:
                             assignment_cfg=dict(positive_num=10, neg_threshold=0.2, balance_sample=True))
     batch = batch_to_device(synthetic_batch(b, h, w, anchors.shape[0], args.num_classes, args.max_gt), device)
 
-    # FLOPs of one whole step (it also updates the weights, like a warm-up step)
+    # FLOPs and int8 kernel launches of one whole step (it also updates the
+    # weights, like a warm-up step)
+    int8_conv_cuda.LAUNCHES = 0
+    int8_conv_cuda.PATH_LAUNCHES.update(dict.fromkeys(int8_conv_cuda.PATHS, 0))
     with FlopCounterMode(display=False) as counter:
         step(state, batch)
     step_flops = counter.get_total_flops()
+    int8_launches, int8_paths = int8_conv_cuda.LAUNCHES, dict(int8_conv_cuda.PATH_LAUNCHES)
 
     if args.step_only:
         t_assign = t_fwd = t_fwdloss = float("nan")
@@ -173,6 +183,9 @@ def main(argv=None) -> dict:
         mfu=mfu,
         peak_tflops=args.peak_tflops,
         dtype=str(model.dtype),
+        frozen_int8=args.frozen_int8,
+        int8_launches_per_step=int8_launches,
+        int8_launches_by_path=int8_paths,
         device=device_label(device),
         time_source="CUDA events" if cuda else "host clock (cpu)",
     )

@@ -19,8 +19,13 @@ eval through the int8 deploy config (``--qat-quant``: ``auto`` is
 int8_stream at bottleneck depths, int8 for ResNet-18/34), a QAT fine-tune
 (``--qat-iters`` steps, ``norm_eval=True``, a tenth of the learning rate,
 OneCycle), and the deploy eval of the fine-tuned weights; it prints
-``RESULT ptq[...]`` and ``RESULT qat[...]``.  ``--frozen-int8`` raises
-(item 14c).
+``RESULT ptq[...]`` and ``RESULT qat[...]``.  ``--frozen-int8`` (depth 50
+or more) A/B-measures frozen-stage int8 training: from the same float
+weights, two fine-tunes of ``--frozen-int8-iters`` steps with the stem and
+layer1 frozen (``norm_eval=True``, OneCycle), one on the float path and one
+with ``frozen_int8``, each evaluated on the float path; it prints
+``RESULT frozen-float``, ``RESULT frozen-int8`` and ``RESULT
+frozen-int8-delta``.
 """
 
 from __future__ import annotations
@@ -42,7 +47,6 @@ from ..engine.checkpoint import save_weights
 from ..utils.config import Config
 from ..utils.logging import get_root_logger
 
-_FROZEN_INT8 = "ROADMAP.md Queue 1 item 14c, frozen-stage int8 training"
 # --int8-eval's variants: (tag, backbone.quant), each with the head's tower in int8
 INT8_EVALS = (("int8-head", None), ("int8-conv2", "int8_conv2"), ("int8-full", "int8"))
 
@@ -72,8 +76,10 @@ def parse_args(argv=None):
     p.add_argument("--qat-quant", default="auto",
                    help="backbone quant level of the QAT loop: int8_stream | int8 | int8_conv2 | auto "
                         "(int8_stream at bottleneck depths, int8 for ResNet-18/34)")
-    p.add_argument("--frozen-int8", action="store_true", help=f"not ported ({_FROZEN_INT8})")
-    p.add_argument("--frozen-int8-iters", type=int, default=200, help=f"not ported ({_FROZEN_INT8})")
+    p.add_argument("--frozen-int8", action="store_true",
+                   help="then fine-tune the float weights twice with the stem and layer1 frozen, on the float "
+                        "path and with frozen_int8, and report the mAP delta (depth 50 or more)")
+    p.add_argument("--frozen-int8-iters", type=int, default=200, help="frozen-int8 A/B fine-tune steps")
     return p.parse_args(argv)
 
 
@@ -211,11 +217,42 @@ def qat_loop(args, cfg, model, metrics, root: str, device) -> dict:
     return {f"ptq[{trunk}]": m_ptq, f"qat[{trunk}]": m_qat}
 
 
+def frozen_int8_ab(args, cfg, model, root: str, device) -> dict:
+    """Frozen-stage int8 training against the same recipe on the float path:
+    the trained float ``model``'s weights fine-tuned twice for
+    ``--frozen-int8-iters`` steps with the stem and layer1 frozen
+    (``norm_eval=True``: the static scales read the fitted running
+    statistics; OneCycle over the steps + 10), once with ``frozen_int8``;
+    both evaluated on the float path (the flag does nothing at eval).
+    Prints the three RESULT lines; returns both arms' metrics."""
+    float_weights = osp.join(root, "float_weights_fi8.pth")
+    save_weights(float_weights, model.state_dict())
+    ab = {}
+    for tag, fi8 in (("frozen-float", False), ("frozen-int8", True)):
+        cfg_t = copy.deepcopy(cfg)
+        for key, value in dict(frozen_stages=1, norm_eval=True, frozen_int8=fi8).items():
+            cfg_t.model["backbone"][key] = value
+        cfg_t["load_from"] = float_weights
+        cfg_t["lr_config"] = dict(policy="onecycle", max_lr=args.lr, total_steps=args.frozen_int8_iters + 10,
+                                  pct_start=0.1)
+        cfg_t["runner"] = dict(max_iters=args.frozen_int8_iters)
+        state = train_detector(cfg_t, work_dir=osp.join(root, f"work_{tag}"), eval_during_train=False,
+                               device=device)
+        _, _, m = test_from_config(cfg_t, state.model, split="test", batch_size=args.batch)
+        ab[tag] = m
+        print(f"RESULT {tag} mAP50={m['bbox_mAP_50']:.3f} mAP={m['bbox_mAP']:.3f}", flush=True)
+    d50 = ab["frozen-int8"]["bbox_mAP_50"] - ab["frozen-float"]["bbox_mAP_50"]
+    d = ab["frozen-int8"]["bbox_mAP"] - ab["frozen-float"]["bbox_mAP"]
+    print(f"RESULT frozen-int8-delta mAP50={d50:+.3f} mAP={d:+.3f} (frozen_int8 training vs the identical "
+          f"frozen-float recipe, {args.frozen_int8_iters} fine-tune steps each)", flush=True)
+    return ab
+
+
 def main(argv=None) -> dict:
     """Run the check; returns the COCO metrics (exits 1 below ``--min-map50``)."""
     args = parse_args(argv)
-    if args.frozen_int8:
-        raise NotImplementedError(f"--frozen-int8 is not ported ({_FROZEN_INT8})")
+    if args.frozen_int8 and args.depth < 50:
+        raise AssertionError("--frozen-int8 reuses the int8_stream Bottleneck path: run with --depth 50")
     device = torch.device("cpu" if args.cpu else args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass --device cpu (or --cpu) to run on the CPU")
@@ -233,6 +270,8 @@ def main(argv=None) -> dict:
             metrics["int8_eval"] = int8_eval(cfg, state.model, metrics, args.batch, device)
         if args.qat:
             metrics["qat"] = qat_loop(args, cfg, state.model, metrics, root, device)
+        if args.frozen_int8:
+            metrics["frozen_int8"] = frozen_int8_ab(args, cfg, state.model, root, device)
     if map50 < args.min_map50:
         print(f"FAIL: mAP50 {map50:.3f} < {args.min_map50}", flush=True)
         sys.exit(1)

@@ -10,7 +10,8 @@ reference flags, against the JAX package on the CPU:
   but for the file names, and the same masks;
 - ``python -m radet_tpu_torch.tools.validate_learning --cpu`` for 3
   iterations: the RESULT line, then PASS (exit 0) or FAIL (exit 1); its
-  ``--frozen-int8`` raises naming item 14c;
+  ``--frozen-int8`` below depth 50 raises as the JAX tool's (the A/B run
+  itself: ``tests/test_torch_frozen_int8.py``);
 - every BOP config the sweep runs (the seven ``_pbr`` ones and the three
   ``_mixpbr``): the test dataset in both packages over an annotation file
   of its class names, with the same ``num_classes``, ``cat2label``,
@@ -139,12 +140,12 @@ def test_validate_learning_gates_on_map50(min_map50, code, capsys):
 
 
 def test_validate_learning_refuses_int8_and_a_missing_card():
-    with pytest.raises(NotImplementedError, match="item 14c"):
+    with pytest.raises(AssertionError, match="--depth 50"):
         validate_learning.main(["--cpu", "--frozen-int8"])
     args = validate_learning.parse_args(["--cpu"])
     assert (args.iters, args.depth, args.images, args.batch, args.lr, args.min_map50, args.img_size,
-            args.feat, args.stacked_convs, args.num_classes, args.dtype, args.workers) == (
-        400, 18, 16, 4, 1e-3, 0.5, (128, 160), 64, 2, 3, "float32", 4)
+            args.feat, args.stacked_convs, args.num_classes, args.dtype, args.workers, args.frozen_int8,
+            args.frozen_int8_iters) == (400, 18, 16, 4, 1e-3, 0.5, (128, 160), 64, 2, 3, "float32", 4, False, 200)
     cfg = validate_learning.learning_config(args, "root")
     assert cfg.model.backbone.norm_eval is False and cfg.model.backbone.frozen_stages == -1
     if not torch.cuda.is_available():

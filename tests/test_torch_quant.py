@@ -18,8 +18,9 @@ branches of the head and the trunk) against the JAX package, on the CPU.
   normalizations' rounding);
 - that the six ``configs/bop/*int8*`` configs build, and the JAX builder's
   fail-fast cases raise the same way; that a plain quant config refuses to
-  train, ``frozen_int8`` training raises naming item 14c and the QAT config
-  takes a train step (``tests/test_torch_qat.py`` holds QAT to JAX's);
+  train and the ``frozen_int8`` and QAT configs each take a train step
+  (``tests/test_torch_frozen_int8.py`` and ``tests/test_torch_qat.py`` hold
+  them to JAX's);
 - ``profile_infer --quant int8 --cpu`` and ``validate_learning --int8-eval
   --cpu`` at a tiny size;
 - ``int8_conv_cuda.plan``, the static rule that picks the wgmma kernel or
@@ -416,15 +417,17 @@ def test_fail_fast_as_the_jax_builder(jx, case):
 
 def test_int8_training_refused(jx, tmp_path):
     """A plain quant config refuses to train (as the JAX package's
-    ``check_trainable_quant``); ``frozen_int8`` training raises naming item
-    14c before any step, from the trainer, the train step and the
-    trunk's training-mode forward, while the QAT config builds a train step
-    and takes one (``tests/test_torch_qat.py`` holds it to JAX's); at eval
-    both run."""
+    ``check_trainable_quant``); the ``frozen_int8`` config and the QAT
+    config each build a train step and take one (``tests/test_torch_qat.py``
+    and ``tests/test_torch_frozen_int8.py`` hold them to JAX's): the
+    frozen stem and layer1 take no gradient and keep their weights, the
+    others move; at eval both run."""
     from radet_tpu.apis.train import check_trainable_quant as jax_check
 
+    from radet_tpu_torch.data import InMemoryBOPDataset, collate, train_transforms
     from radet_tpu_torch.engine import build_optimizer
     from radet_tpu_torch.engine.train_step import TrainState
+    from synthetic_bop import synthetic_bop_records
 
     plain = Config.fromfile(osp.join(BOP, "r50_ycbv_pbr_int8_full.py"))
     with pytest.raises(AssertionError, match="qat=True"):
@@ -434,31 +437,31 @@ def test_int8_training_refused(jx, tmp_path):
     small = ["model.backbone.depth=18", "model.neck.out_channels=32", "model.bbox_head.in_channels=32",
              "model.bbox_head.feat_channels=64", "model.bbox_head.stacked_convs=1", "input_size=(64, 64)"]
     x = torch.zeros((1, 3, 64, 64))
-    cfg = Config.fromfile(osp.join(BOP, "r50_ycbv_pbr_frozen_int8.py"), small + ["model.backbone.depth=50"])
-    with pytest.raises(NotImplementedError, match="item 14c"):
-        train_detector(cfg, work_dir=str(tmp_path / "frozen_int8"), device="cpu")
-    model, anchors, ranges, _ = build_model_and_anchors(cfg, dtype="float32")
-    with pytest.raises(NotImplementedError, match="item 14c"):
-        build_train_step(model, anchors, ranges, img_norm=cfg.img_norm_cfg.to_dict(), num_classes=21)
-    with pytest.raises(NotImplementedError, match="item 14c"):
-        model.train()(x)
-    with torch.no_grad():
-        assert len(model.eval()(x)) == 3
-
-    cfg = Config.fromfile(osp.join(BOP, "r50_ycbv_pbr_int8_qat.py"), small + ["model.backbone.quant='int8'"])
-    model, anchors, ranges, _ = build_model_and_anchors(cfg, dtype="float32")
-    model.init_weights(torch.Generator().manual_seed(0))
-    step = build_train_step(model, anchors, ranges, img_norm=cfg.img_norm_cfg.to_dict(), num_classes=21)
-    from radet_tpu_torch.data import InMemoryBOPDataset, collate, train_transforms
-    from synthetic_bop import synthetic_bop_records
-
     ds = InMemoryBOPDataset(synthetic_bop_records(np.random.RandomState(0), 2, (64, 64)),
                             train_transforms((64, 64), max_gt=32, seed=0), max_gt=32)
-    tx, _ = build_optimizer(cfg.optimizer.to_dict(), cfg.lr_config.to_dict(), cfg.grad_clip.to_dict(), model)
-    metrics = step(TrainState(model.train(), tx), batch_to_device(collate([ds[0], ds[1]]), "cpu"))
-    assert np.isfinite(float(metrics["loss"])) and float(metrics["grad_norm"]) > 0
-    with torch.no_grad():
-        assert len(model.eval()(x)) == 3
+    frozen = ("backbone.conv1.", "backbone.bn1.", "backbone.layer1.")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # 64x64 maps: more threads only wait on the other test processes
+    try:
+        for name, opts in (("r50_ycbv_pbr_frozen_int8.py", ["model.backbone.depth=50"]),
+                           ("r50_ycbv_pbr_int8_qat.py", ["model.backbone.quant='int8'"])):
+            cfg = Config.fromfile(osp.join(BOP, name), small + opts)
+            model, anchors, ranges, _ = build_model_and_anchors(cfg, dtype="float32")
+            model.init_weights(torch.Generator().manual_seed(0))
+            before = {k: v.clone() for k, v in model.state_dict().items()}
+            step = build_train_step(model, anchors, ranges, img_norm=cfg.img_norm_cfg.to_dict(), num_classes=21)
+            tx, _ = build_optimizer(cfg.optimizer.to_dict(), cfg.lr_config.to_dict(), cfg.grad_clip.to_dict(), model)
+            metrics = step(TrainState(model.train(), tx), batch_to_device(collate([ds[0], ds[1]]), "cpu"))
+            assert np.isfinite(float(metrics["loss"])) and float(metrics["grad_norm"]) > 0, name
+            for k, p in model.named_parameters():
+                assert (p.grad is None) == k.startswith(frozen), (name, k)
+            after = model.state_dict()
+            assert all(torch.equal(after[k], before[k]) for k in before if k.startswith(frozen)), name
+            assert not torch.equal(after["backbone.layer2.0.conv1.weight"], before["backbone.layer2.0.conv1.weight"])
+            with torch.no_grad():
+                assert len(model.eval()(x)) == 3
+    finally:
+        torch.set_num_threads(threads)
 
 
 def test_profile_infer_quant_on_the_cpu(capsys):

@@ -338,10 +338,11 @@ def test_profilers_on_the_cpu(capsys):
     for key in ("batch", "input_size", "step_ms", "img_per_s", "fwd_ms", "fwd_loss_ms", "bwd_opt_ms",
                 "assign_ms", "assign_frac", "step_tflops", "mfu", "peak_tflops", "device"):
         assert key in train
+    assert not train["frozen_int8"] and train["int8_launches_per_step"] == 0
     assert train["mfu"] == pytest.approx(train["step_tflops"] / (train["step_ms"] / 1e3) / train["peak_tflops"],
                                          rel=1e-12)
-    with pytest.raises(NotImplementedError, match="item 14c"):
-        profile_train.main(["--device", "cpu", "--frozen-int8"])
+    with pytest.raises(AssertionError, match="frozen_int8"):  # a BasicBlock trunk has no int8_stream path
+        profile_train.main(["--device", "cpu", "--frozen-int8", "--depth", "18"])
 
     for pipeline, modes in (("train", ["thread", "process"]), ("test", ["thread"])):
         summary = profile_pipeline.main(["--pipeline", pipeline, "--samples", "8", "--workers", "1", "--batch",
