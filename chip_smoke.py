@@ -199,7 +199,18 @@ Run from the repository root, with one card:  python3 chip_smoke.py
    radet_tpu_torch.tools.validate_learning --depth 50 --frozen-int8``
    (ResNet-50 from scratch, mAP50 at least 0.5; then two 100-step frozen
    fine-tunes of its weights, one with ``frozen_int8`` at 10 int8 launches
-   a step, each evaluated on the float path, with their RESULT lines).
+   a step, each evaluated on the float path, with their RESULT lines);
+17. runs the eval path's test-time variants, each through
+   ``radet_tpu_torch.tools.test``'s ``main`` on 32 landscape images of the
+   eval phase's PNG set with its weights (strict, full width, bf16, batch
+   16): the plain strict eval (first and last), ``test_cfg.flip_tta=True``,
+   ``test_cfg.tta.scales`` (640x480 and 800x600) with ``flip=True``,
+   ``--fuse-conv-bn`` and ``test_cfg.nms_impl=scan``, every vote-NMS call
+   counted by K (the views' K 2048, the fusion's K 200 and 400, the scan's
+   4420) and held to the plain version in float64, each run's img/s
+   beside the strict eval's; the fused float32 forward on the card (TF32
+   off) against the unfused one; and the fusion's and the scan's kernel
+   calls timed beside the plain version and the bound.
    Each phase prints its wall time.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
@@ -3946,6 +3957,168 @@ def fi8_phase(gpu: str, repo: Path, files: str, eval_opts, pbr_checkpoints: str)
     return out
 
 
+# 17. the eval path's test-time variants: flip and multi-scale TTA, --fuse-conv-bn, nms_impl='scan'
+TTA_GROUPS = ((16, (480, 640)), (16, (540, 720)))  # landscape images of the eval phase's set, 2 batches of 16
+TTA_BATCH = 16
+TTA_SCALES = [(640, 480), (800, 600)]  # (w, h): the flagship's scale and a larger one (padded to 608x800)
+TTA_FUSE_RTOL = 1e-4  # fused vs unfused float32 head maps on the card, TF32 off, of each map's max
+# the vote-NMS calls a batch of each run makes, by K: the views' at the strict eval's K and the fusion's;
+# the strict eval runs first and last, the first a warm-up of the loader and the convolutions' shapes
+TTA_RUNS = {
+    "strict": ([], [], {2048: 1}),
+    "flip_tta": ([], ["test_cfg.flip_tta=True"], {2048: 2, 200: 1}),
+    "multiscale_flip_tta": ([], [f"test_cfg.tta.scales={TTA_SCALES}", "test_cfg.tta.flip=True"],
+                            {2048: 2 * len(TTA_SCALES), 200 * len(TTA_SCALES): 1}),
+    "fuse_conv_bn": (["--fuse-conv-bn"], [], {2048: 1}),
+    "nms_impl_scan": ([], ["test_cfg.nms_impl='scan'"], {4420: 1}),  # every candidate: 4 x 1000 + 420
+}
+
+
+def tta_test_set(work: str):
+    """The config options reading TTA_GROUPS's images of the eval phase's
+    PNG set (its landscape images: TTA's views have no orientation views)
+    as data.test, in batches of TTA_BATCH."""
+    with open(osp.join(work, "test.json")) as f:
+        coco = json.load(f)
+    keep = []
+    for n, hw in TTA_GROUPS:
+        keep += [i for i in coco["images"] if (i["height"], i["width"]) == hw][:n]
+    ids = {i["id"] for i in keep}
+    subset = dict(coco, images=keep, annotations=[a for a in coco["annotations"] if a["image_id"] in ids])
+    path = osp.join(work, "tta.json")
+    with open(path, "w") as f:
+        json.dump(subset, f)
+    return [f"data.test.ann_file={path!r}", f"data.test.img_prefix={osp.join(work, 'test') + '/'!r}",
+            f"data.samples_per_gpu={TTA_BATCH}"]
+
+
+def tta_cli(repo: Path, config: str, ckpt: str, work: str, name: str, opts) -> dict:
+    """``tools.test --eval bbox`` (its ``main``, in this process) for one of
+    TTA_RUNS, its vote-NMS calls recorded and counted by K against the
+    run's expected calls, each held to the plain version in float64, its
+    detections and metrics checked.  Returns its numbers and its calls."""
+    import radet_tpu_torch.models.postprocess as postprocess
+    import radet_tpu_torch.ops.vote_nms_cuda as vnc
+
+    flags, extra, per_batch = TTA_RUNS[name]
+    n = sum(n for n, _ in TTA_GROUPS)
+    want_k = {k: c * -(-n // TTA_BATCH) for k, c in per_batch.items()}
+    out = osp.join(work, f"tta_{name}.pkl")
+    calls = []
+    kernel_nms, postprocess.vote_nms = recorded_vote_nms(calls)
+    vnc.LAUNCHES = 0
+    try:
+        stdout, log, wall = tool_run(repo, ["-m", "radet_tpu_torch.tools.test", config, ckpt, "--eval", "bbox",
+                                            "--out", out, *flags, "--cfg-options", *opts, *extra], f"tools.test {name}")
+    finally:
+        postprocess.vote_nms = kernel_nms
+    torch.cuda.synchronize()
+    launches = vnc.LAUNCHES
+    metrics = json.loads(stdout[stdout.index("{"):])
+    with open(out, "rb") as f:
+        results = pickle.load(f)
+    done = [ln for ln in log.splitlines() if ln.startswith("inference done")]
+    by_k = {}
+    for args, _, _ in calls:
+        by_k[int(args[0].shape[1])] = by_k.get(int(args[0].shape[1]), 0) + 1
+    ok = (len(results) == n and all(len(r["boxes"]) and np.isfinite(r["boxes"]).all() for r in results)
+          and all(math.isfinite(v) for v in metrics.values()))
+    if launches < 1 or launches != len(calls) or by_k != want_k or len(done) != 1 or not ok:
+        fail(f"tools.test {name}: vote_nms launches {launches} ({len(calls)} recorded, by K {by_k}, expected "
+             f"{want_k}), {len(results)} results for {n} images, finite detections and metrics: {ok}")
+    ips = float(re.findall(r"\(([\d.]+) img/s\)", done[0])[0])
+    fused = [int(v) for v in re.findall(r"folded (\d+) frozen BNs", log)]
+    print(f"  {name} ({' '.join(flags + extra) or 'strict'}): {done[0]}; {wall:.1f} s in all (model build and "
+          f"COCO evaluation included); vote_nms launches by K {by_k}; bbox_mAP {metrics['bbox_mAP']:.4f}"
+          + (f"; folded {fused[0]} BNs" if fused else ""))
+    err = hold_to_plain(calls, f"tools.test {name}")
+    return dict(launches=launches, by_k=by_k, max_abs_err=err, img_s=ips, wall_s=wall, fused=fused,
+                metrics=metrics, calls=calls)
+
+
+def fused_forward_check(config: str, ckpt: str, gpu: str) -> tuple:
+    """The flagship's float32 forward on the card, TF32 off, with the
+    checkpoint's weights and with them folded (``models/fuse.py``), on two
+    random normalized 480x640 images: every head map within TTA_FUSE_RTOL
+    of its max.  Returns (the largest error, the folded BNs)."""
+    import copy
+
+    from radet_tpu_torch.apis.common import build_model_and_anchors
+    from radet_tpu_torch.engine import load_weights
+    from radet_tpu_torch.models.fuse import fuse_conv_bn
+    from radet_tpu_torch.utils import Config
+
+    dev = torch.device("cuda")
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on: the fused and unfused float32 forwards would differ by its rounding")
+    cfg = Config.fromfile(config)
+    model = build_model_and_anchors(cfg, dtype="float32")[0]
+    model.load_state_dict(load_weights(ckpt), strict=True)
+    model.to(dev).eval()
+    fused = copy.deepcopy(model)
+    weights, report = fuse_conv_bn(model.state_dict())
+    fused.load_state_dict(weights, strict=True)
+    x = torch.randn((2, 3) + tuple(cfg.input_size), device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
+    with torch.no_grad():
+        want = [m for maps in model(x) for m in maps]
+        got = [m for maps in fused(x) for m in maps]
+    err = max(float((g - w).abs().max() / max(float(w.abs().max()), 1e-30)) for g, w in zip(got, want))
+    print(f"  --fuse-conv-bn: {report['fused']} BNs folded ({report['skipped']} left), float32 forward on the card "
+          f"with TF32 off, fused vs unfused head maps: max error {err:.3g} of each map's max (limit "
+          f"{TTA_FUSE_RTOL}) [{gpu}]")
+    if err > TTA_FUSE_RTOL or report["fused"] != 53 or report["skipped"]:
+        fail(f"--fuse-conv-bn: fused forward off by {err:.3g}, or {report} is not the ResNet-50's 53 BNs")
+    del model, fused
+    torch.cuda.empty_cache()
+    return err, report["fused"]
+
+
+def tta_phase(config: str, gpu: str, repo: Path, work: str) -> dict:
+    """Phase 17: the eval path's test-time variants on the eval phase's PNG
+    set (TTA_GROUPS) and weights (random, cls bias 0), each through the
+    test CLI's ``main``, full width, bf16, strict: the plain strict eval,
+    flip TTA, multi-scale (TTA_SCALES) + flip TTA, ``--fuse-conv-bn`` and
+    ``nms_impl='scan'`` (TTA_RUNS: every vote-NMS call counted by K and
+    held to the plain version), then the strict eval again (its img/s the
+    others' yardstick); the fused float32 forward against the
+    unfused one; the fusion's kernel timed at its (B, K) beside the plain
+    version and the bound.  Returns the kernels line's numbers."""
+    import radet_tpu_torch.ops.vote_nms_cuda as vnc
+    from radet_tpu_torch.ops.vote_nms import vote_nms_plain
+
+    opts = tta_test_set(work)
+    ckpt = osp.join(work, "random_cls0.pth")
+    n = sum(n for n, _ in TTA_GROUPS)
+    print(f"tta: radet_tpu_torch.tools.test.main on {n} PNG images of the eval set "
+          f"({', '.join(f'{k} at {h}x{w}' for k, (h, w) in TTA_GROUPS)}), batch {TTA_BATCH}, strict, full width, "
+          f"bf16:")
+    runs = {name: tta_cli(repo, config, ckpt, work, name, opts) for name in TTA_RUNS}
+    runs["strict_last"] = tta_cli(repo, config, ckpt, work, "strict", opts)
+    fuse_err, folded = fused_forward_check(config, ckpt, gpu)
+    base = runs["strict_last"]["img_s"]
+    print(f"timing: eval img/s over {n} images (inference, files to detections, batch {TTA_BATCH}): strict "
+          f"{base:.1f} (run last; {runs['strict']['img_s']:.1f} run first); "
+          + "; ".join(f"{k} {r['img_s']:.1f} ({r['img_s'] / base:.2f}x)" for k, r in runs.items()
+                      if not k.startswith("strict"))
+          + f" [{gpu}]")
+    # the fusion's and the scan's kernel calls timed against the plain version, beside the bound
+    timing = {}
+    for name, k in (("flip_tta", 200), ("multiscale_flip_tta", 200 * len(TTA_SCALES)), ("nms_impl_scan", 4420)):
+        args, kw, _ = next(c for c in runs[name]["calls"] if int(c[0][0].shape[1]) == k)
+        kernel_ms, plain_ms, _, _ = alternate_ms(lambda: vnc.vote_nms_cuda(*args, **kw),
+                                                 lambda: vote_nms_plain(*args, **kw), 50, 3)
+        bound_ms, bound_by, _, _ = nms_bound(args, kw["max_out"])
+        key = f"B={args[0].shape[0]},K={k}"
+        timing[name] = dict(shape=key, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        print(f"timing: vote_nms {'fusion' if k < 2048 else 'scan'} of {name} at {key} "
+              f"({int(args[4].sum())} valid candidates): kernel {kernel_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms * 1e3:.3f} us by {bound_by} ({bound_ms / kernel_ms:.2%}) [{gpu}]")
+    for r in runs.values():
+        del r["calls"]
+    torch.cuda.empty_cache()
+    return dict(runs=runs, fuse_err=fuse_err, folded=folded, timing=timing)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -4147,6 +4320,9 @@ def main() -> None:
 
         # 16. frozen-stage int8 training
         fi8 = phase("frozen-int8 training", fi8_phase, gpu, repo, files, eval_opts, pbr_checkpoints)
+
+        # 17. the eval path's test-time variants
+        tta = phase("test-time variants", tta_phase, config, gpu, repo, work)
     nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by, _ = nms_times[ANCHOR_MAIN_SHAPE]
 
     print(f"card: {gpu}; smoke {time.perf_counter() - start:.1f} s wall")
@@ -4179,6 +4355,16 @@ def main() -> None:
         "frozen_int8_launches": dict(fi8["nms"], validate_learning=fi8["learning"]["nms"]),
         "frozen_int8_max_abs_err": dict(train_cli_eval=fi8["max_abs_err"],
                                         validate_learning=fi8["learning"]["max_abs_err"]),
+        # phase 17: the test CLI's vote-NMS launches by K over 32 images, batch 16: flip TTA's and multi-scale +
+        # flip TTA's views (K 2048) and their fusion (K 200, 400); --fuse-conv-bn's; nms_impl='scan''s
+        "tta_launches": {k: tta["runs"][k]["by_k"] for k in ("flip_tta", "multiscale_flip_tta", "fuse_conv_bn")},
+        "scan_launches": tta["runs"]["nms_impl_scan"]["by_k"],
+        "tta_max_abs_err": {k: tta["runs"][k]["max_abs_err"]
+                            for k in ("flip_tta", "multiscale_flip_tta", "fuse_conv_bn")},
+        "scan_max_abs_err": tta["runs"]["nms_impl_scan"]["max_abs_err"],
+        # phase 17: the fusion's and the scan's calls timed (ms, plain_ms, bound_ms at their B and K)
+        "tta_ms": tta["timing"],
+        "tta_img_s": {k: r["img_s"] for k, r in tta["runs"].items()},
     }, {
         "name": "batched_nms (vote_nms.cu, no-vote mode)",
         "route": "cuda",

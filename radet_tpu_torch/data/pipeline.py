@@ -32,7 +32,6 @@ from .image_io import IMREAD_GRAYSCALE, IMREAD_UNCHANGED, imread, imread_rgb
 from .poly import fill_poly
 
 _MASK_FREE = "ROADMAP.md Queue 1 item 17, mask-free distance maps"
-_TTA = "ROADMAP.md Queue 1 item 12, TTA"
 _OTHER = "ROADMAP.md Queue 1 item 12, other transforms and dataset types"
 
 
@@ -394,10 +393,10 @@ def build_pipeline(
     since images are decoded RGB) and the formatting entries.  A
     ``MultiScaleFlipAug`` with one scale and ``flip=False`` is unwrapped,
     its scale going to the inner ``Resize``; other test-time augmentation
-    raises.  ``CosyPoseAug``'s ops (``PillowBlur``, ...) are no pipeline
-    entries of their own and raise ``KeyError``, as in the JAX package; any
-    other type besides these and ``_TRANSFORMS``' raises
-    ``NotImplementedError``."""
+    raises ``ValueError`` pointing to the ``tta`` config section.
+    ``CosyPoseAug``'s ops (``PillowBlur``, ...) are no pipeline entries of
+    their own and raise ``KeyError``, as in the JAX package; any other type
+    besides these and ``_TRANSFORMS``' raises ``NotImplementedError``."""
     ts = []
 
     def add(t_cfg):
@@ -418,9 +417,10 @@ def build_pipeline(
             scales = t_cfg.get("img_scale")
             scales = scales if isinstance(scales, list) else [scales]
             if len(scales) != 1 or t_cfg.get("flip", False):
-                raise NotImplementedError(
-                    f"MultiScaleFlipAug with several scales or flip=True is test-time "
-                    f"augmentation, which is not ported ({_TTA})"
+                raise ValueError(
+                    "MultiScaleFlipAug with multiple scales or flip=True is "
+                    "test-time augmentation: configure it via the `tta` "
+                    "config section (apis/test.py run_tta_inference)"
                 )
             for inner in t_cfg.get("transforms", []):
                 if inner.get("type") == "RandomFlip":

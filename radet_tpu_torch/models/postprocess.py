@@ -10,7 +10,8 @@ class-aware greedy NMS ranked by cls * iou.  :func:`get_bboxes_anchor`
 score -> delta decode with the border clamp -> rescale -> one top
 ``nms_topk`` over the (box, class) pairs above ``score_thr`` -> class-aware
 greedy NMS.  The output is a fixed (B, max_per_img) detection set plus a
-validity mask.
+validity mask.  :func:`vote_fuse` fuses several such sets of one batch
+(test-time augmentation's views) with one vote-NMS call.
 
 Rows are selected with ``torch.gather``/indexing; the JAX package's one-hot
 matmul selection is a TPU workaround and has no counterpart here.
@@ -170,26 +171,33 @@ def vote_nms_inputs(
 
     Returns ``(args, kwargs)`` for :func:`ops.vote_nms.vote_nms`: args are
     (boxes, cluster scores, vote scores, labels, valid) of the top
-    ``nms_topk`` candidates by cluster score, sorted descending with invalid
+    ``nms_topk`` candidates by cluster score (with ``nms_impl='scan'``,
+    every candidate, ties in index order), sorted descending with invalid
     slots last."""
     nms_cfg = dict(test_cfg.get("nms", {"type": "vote", "iou_threshold": 0.65}))
     nms_type = nms_cfg.pop("type", "vote")
     if nms_type not in ("vote", "global_vote"):
         raise ValueError(f"vote_nms_inputs takes nms.type 'vote' or 'global_vote', got {nms_type!r}")
-    # 'fast' (XLA) and 'pallas' (TPU kernel) compute the same vote-NMS: here
-    # that is the CUDA kernel on the card and the plain version on the CPU
+    # 'fast' (XLA) and 'pallas' (TPU kernel) compute the same vote-NMS over
+    # the top nms_topk candidates, 'scan' (the JAX package's lax.scan of
+    # argmax steps) over every candidate: here each is the CUDA kernel on
+    # the card and the plain version on the CPU
     nms_impl = str(test_cfg.get("nms_impl", "fast"))
-    if nms_impl not in ("fast", "pallas"):
-        raise NotImplementedError(f"nms_impl={nms_impl!r} is not ported ({_OTHER_NMS})")
+    if nms_impl not in ("fast", "pallas", "scan"):
+        raise ValueError(f"nms_impl is 'fast', 'pallas' or 'scan', got {nms_impl!r}")
     boxes, cls_s, iou_s, labels, valid, _ = _candidates(
         cls_list, reg_list, iou_list, anchors_per_level, img_shapes, scale_factors,
         test_cfg, normalizer, rescale,
     )
     cluster = _resolve_score(nms_cfg.pop("cluster_score", "cls"), cls_s, iou_s)
     vote = _resolve_score(nms_cfg.pop("vote_score", "iou"), cls_s, iou_s)
-    kk = min(int(test_cfg.get("nms_topk", 1024)), boxes.shape[1])
     masked = torch.where(valid, cluster, torch.full((), NEG_INF, device=cluster.device))
-    _, top_idx = _topk(masked, kk)
+    if nms_impl == "scan":
+        # every candidate, ties in index order: the scan's argmax takes the
+        # lowest index among equal scores
+        _, top_idx = _topk_stable(masked, boxes.shape[1])
+    else:
+        _, top_idx = _topk(masked, min(int(test_cfg.get("nms_topk", 1024)), boxes.shape[1]))
     args = (
         _gather_rows(boxes, top_idx).contiguous(),
         _gather_rows(cluster, top_idx).contiguous(),
@@ -245,6 +253,35 @@ def get_bboxes(
         return Detections(boxes, cls_s * iou_s, labels, valid, anchors)
     return _greedy_nms(boxes, cls_s * iou_s, labels, valid, float(nms_cfg.get("iou_threshold", 0.6)),
                        int(test_cfg.get("max_per_img", 100)))
+
+
+def vote_fuse(dets: Sequence[Detections], test_cfg: dict) -> Detections:
+    """One vote-NMS call over the union of several (B, M_v) detection sets
+    of the same images: the test-time augmentation's fusion (the JAX
+    package's ``apis/test.py::_host_vote_fuse`` over each image's
+    concatenated views).  Each image's valid detections, view by view, are
+    sorted stably by score, descending (so that on ties an earlier view's
+    come first), with the invalid slots last; the score is both the
+    cluster and the vote score.  Returns (B, ``max_per_img``) Detections.
+
+    The fusion's settings are the JAX package's whatever ``test_cfg.nms``
+    says besides its threshold: ``nms.iou_threshold`` (default 0.6), no IoU
+    reweighting, sigma 0.025, not global.  On CPU tensors the plain version
+    votes in float64, as the JAX package's host fusion does; the kernel on
+    the card votes in float32."""
+    boxes, scores, labels, valid = (torch.cat([getattr(d, f) for d in dets], dim=1)
+                                    for f in ("boxes", "scores", "labels", "valid"))
+    if boxes.device.type == "cpu":
+        boxes, scores = boxes.double(), scores.double()
+    ranked = torch.where(valid, scores, torch.full((), NEG_INF, device=scores.device))
+    _, order = _topk_stable(ranked, ranked.shape[1])
+    boxes, scores, labels, valid = (_gather_rows(t, order).contiguous()
+                                    for t in (boxes, scores, labels.to(torch.int32), valid))
+    out = vote_nms(boxes, scores, scores, labels, valid,
+                   iou_threshold=float(dict(test_cfg.get("nms", {})).get("iou_threshold", 0.6)),
+                   max_out=int(test_cfg.get("max_per_img", 100)), iou_enable=False, sigma=0.025,
+                   global_mode=False)
+    return Detections(boxes=out[0].float(), scores=out[2].float(), labels=out[1], valid=out[3])
 
 
 def _greedy_nms(boxes, scores, labels, valid, iou_threshold: float, max_out: int) -> Detections:

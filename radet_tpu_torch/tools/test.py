@@ -15,6 +15,13 @@ with ``bop_submission=True``, ``p.bop.json`` (BOP submission format).
 ``--show-score-thr`` (``utils/visualization.py::imshow_det_bboxes``) into
 ``D/<file name with "/" as "_">``, in the format of its extension (PNG for
 the BOP test sets); ``--show`` draws into ``work_dir/shown`` (no display).
+``--fuse-conv-bn`` folds the trunk's frozen BatchNorms into its
+convolutions before testing (``models/fuse.py``; exact).  Test-time
+augmentation is the config's: ``--cfg-options test_cfg.flip_tta=True``
+(horizontal flip), or ``test_cfg.tta.scales=...`` with
+``test_cfg.tta.flip`` (several scales, optionally flipped), each batch's
+views fused on the vote-NMS kernel; and ``test_cfg.nms_impl=scan`` runs
+vote-NMS over every candidate.
 """
 
 from __future__ import annotations
@@ -31,11 +38,11 @@ from ..apis.common import build_model_and_anchors
 from ..apis.test import test_from_config
 from ..data.image_io import imread_rgb
 from ..engine.checkpoint import load_weights
+from ..models.fuse import fuse_conv_bn
 from ..utils.config import Config, parse_kv_options
 from ..utils.logging import get_root_logger
 from ..utils.visualization import imshow_det_bboxes
 
-_FUSE = "ROADMAP.md Queue 1 item 12, models/fuse.py"
 _MULTI_GPU = "ROADMAP.md Queue 1 item 13, multi-GPU"
 
 
@@ -60,7 +67,9 @@ def parse_args(argv=None):
     p.add_argument("--show", action="store_true", help="draw into work_dir/shown (no display)")
     p.add_argument("--show-dir", default=None, help="draw the detections onto the images and save them here")
     p.add_argument("--show-score-thr", type=float, default=0.3)
-    p.add_argument("--fuse-conv-bn", action="store_true", help=f"not ported ({_FUSE})")
+    p.add_argument("--fuse-conv-bn", action="store_true",
+                   help="fold the frozen BatchNorms into the preceding convolutions "
+                        "(exact: they are constant affines at eval; models/fuse.py)")
     # the reference CLI's launcher flags: one process, results gathered in it
     for flag in ("--gpu-collect", "--shuffle"):
         p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
@@ -74,12 +83,14 @@ def main(argv=None):
     args = parse_args(argv)
     if args.launcher != "none":
         raise NotImplementedError(f"--launcher {args.launcher} is not ported ({_MULTI_GPU})")
-    if args.fuse_conv_bn:
-        raise NotImplementedError(f"--fuse-conv-bn is not ported ({_FUSE})")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass --device cpu to test on the CPU")
     cfg = Config.fromfile(args.config, args.cfg_options)
+    if args.fuse_conv_bn and cfg.get("model", {}).get("backbone", {}).get("quant"):
+        raise ValueError(
+            "--fuse-conv-bn is incompatible with backbone.quant='int8': the int8 trunk derives static "
+            "activation scales from the frozen BN affine params, which folding erases (resnet._bn_act_scale)")
     logger = get_root_logger()
     eval_options = parse_kv_options(args.eval_options)
     if args.show and not args.show_dir:
@@ -93,6 +104,11 @@ def main(argv=None):
     else:
         model.init_weights(torch.Generator().manual_seed(int(cfg.get("seed", 0))))
         logger.warning("no checkpoint given: random weights")
+    if args.fuse_conv_bn:
+        weights, report = fuse_conv_bn(model.state_dict())
+        model.load_state_dict(weights, strict=True)
+        logger.info(f"--fuse-conv-bn: folded {report['fused']} frozen BNs into conv weights "
+                    f"({report['skipped']} left in place: {report['skipped_paths'] or 'none'})")
     model.to(device).eval()
 
     dataset, results, metrics = test_from_config(

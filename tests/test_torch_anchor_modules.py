@@ -39,6 +39,7 @@ from radet_tpu_torch.models.postprocess import get_bboxes, get_bboxes_anchor
 from radet_tpu_torch.ops.vote_nms import batched_nms, batched_nms_plain
 from radet_tpu_torch.utils.config import Config
 from torch_parity import ANCHOR_CONFIGS, ANCHOR_HW
+from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 HEADS = sorted(ANCHOR_CONFIGS)
 

@@ -43,6 +43,7 @@ from radet_tpu_torch.tools import test as test_cli
 from radet_tpu_torch.utils.config import Config
 from synthetic_bop import write_bop_test_set
 from torch_parity import ANCHOR_CONFIGS, ANCHOR_HW, anchor_pair
+from torch_threads import one_thread_env, one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 HEADS = sorted(ANCHOR_CONFIGS)
@@ -184,23 +185,24 @@ def png_opts(tmp_path_factory):
 
 def test_atss_test_from_config_matches_jax(pairs, png_opts):
     """Strict ``test_from_config`` (single scale, ``nms_topk`` 2048) of both
-    packages on the PNG set with the same weights."""
+    packages on the PNG set with the same weights; then with flip TTA
+    (``test_cfg.flip_tta``), whose views the JAX package fuses with vote-NMS
+    on the anchor heads too."""
     _, _, jax_model, variables, port, _, _ = pairs("atss")
     path, options = ANCHOR_CONFIGS["atss"]
-    jax_cfg, cfg = JaxConfig.fromfile(path, options + png_opts), Config.fromfile(path, options + png_opts)
-    _, ref, ref_metrics = jax_test_from_config(jax_cfg, variables)
-    _, got, got_metrics = port_test.test_from_config(cfg, port)
-    assert [r["img_id"] for r in got] == [r["img_id"] for r in ref] and len(got) == 6
-    assert sum(len(r["labels"]) for r in got) > 50
-    for a, b in zip(got, ref):
-        np.testing.assert_array_equal(a["labels"], b["labels"])
-        np.testing.assert_allclose(a["boxes"], b["boxes"], rtol=0, atol=1e-3)
-        np.testing.assert_allclose(a["scores"], b["scores"], rtol=0, atol=1e-5)
-    assert got_metrics.keys() == ref_metrics.keys()
-    for k in ref_metrics:
-        assert abs(got_metrics[k] - ref_metrics[k]) <= 1e-3, k
-    with pytest.raises(NotImplementedError, match="TTA"):
-        port_test.test_from_config(Config.fromfile(path, options + png_opts + ["test_cfg.flip_tta=True"]), port)
+    for extra in ([], ["test_cfg.flip_tta=True"]):
+        opts = options + png_opts + extra
+        _, ref, ref_metrics = jax_test_from_config(JaxConfig.fromfile(path, opts), variables)
+        _, got, got_metrics = port_test.test_from_config(Config.fromfile(path, opts), port)
+        assert [r["img_id"] for r in got] == [r["img_id"] for r in ref] and len(got) == 6
+        assert sum(len(r["labels"]) for r in got) > 50
+        for a, b in zip(got, ref):
+            np.testing.assert_array_equal(a["labels"], b["labels"])
+            np.testing.assert_allclose(a["boxes"], b["boxes"], rtol=0, atol=1e-3)
+            np.testing.assert_allclose(a["scores"], b["scores"], rtol=0, atol=1e-5)
+        assert got_metrics.keys() == ref_metrics.keys()
+        for k in ref_metrics:
+            assert abs(got_metrics[k] - ref_metrics[k]) <= 1e-3, k
 
 
 @pytest.mark.parametrize("name", HEADS)
@@ -221,7 +223,7 @@ def test_train_cli_checkpoint_serves_and_tests(name, png_opts, tmp_path, capsys)
     cmd = [sys.executable, "-m", "radet_tpu_torch.tools.train", path, "--work-dir", str(work), "--device", "cpu",
            "--max-iters", "2", "--cfg-options", *opts]
     proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300,
-                          env=dict(os.environ, OMP_NUM_THREADS="1"))
+                          env=one_thread_env())
     assert proc.returncode == 0, proc.stderr[-3000:]
     iters = [ln for ln in proc.stderr.splitlines() if " - iter " in ln]
     assert len(iters) == 2 and all("loss_cls" in ln and "num_pos" in ln for ln in iters)

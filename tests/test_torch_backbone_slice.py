@@ -49,6 +49,7 @@ from radet_tpu_torch.tools import test as test_cli
 from radet_tpu_torch.utils.config import Config
 from synthetic_bop import synthetic_bop_records, write_bop_test_set, write_png, write_train_config
 from torch_parity import IMG_HW, NARROW, ZOO_CONFIGS, jax_assignment_noise, zoo_pair
+from torch_threads import one_thread_env, one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 ZOO = sorted(ZOO_CONFIGS)
@@ -189,7 +190,7 @@ def test_train_cli_checkpoint_infers_and_tests(tmp_path, capsys):
     work = tmp_path / "work"
     cmd = [sys.executable, "-m", "radet_tpu_torch.tools.train", config, "--work-dir", str(work), "--device", "cpu",
            "--max-iters", "2", "--cfg-options", *opts, "log_config.interval=1", "checkpoint_config.interval=2"]
-    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300, env=one_thread_env())
     assert proc.returncode == 0, proc.stderr[-3000:]
     iters = [ln for ln in proc.stderr.splitlines() if " - iter " in ln]
     assert len(iters) == 2 and all("loss_cls" in ln and "loss_iou" in ln for ln in iters)

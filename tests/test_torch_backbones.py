@@ -42,6 +42,7 @@ from torch_parity import TOL, numpy_variables
 
 sys.path.insert(0, osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))), "tools"))
 from convert_torch_weights import convert_mmdet_detector  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401 (autouse: one torch thread)
 
 
 def _nest(tree, path):

@@ -25,6 +25,7 @@ from radet_tpu_torch.data.pipeline import LoadAnnotations, build_pipeline
 from radet_tpu_torch.data.poly import fill_poly
 from radet_tpu_torch.utils.config import Config
 from torch_parity import FLAGSHIP
+from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 HERE = osp.dirname(osp.abspath(__file__))
 FIXTURES = osp.join(HERE, "data", "color_aug")

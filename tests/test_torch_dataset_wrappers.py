@@ -22,6 +22,7 @@ from radet_tpu_torch.data import dataset_wrappers as wrappers
 from radet_tpu_torch.utils.config import Config
 from fixtures import make_synthetic_bop
 from torch_parity import NARROW
+from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 MIXPBR = osp.join(REPO, "configs", "bop", "r50_ycbv_mixpbr.py")

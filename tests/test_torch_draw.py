@@ -49,6 +49,7 @@ from radet_tpu_torch.utils.image_write import encode_jpeg, imwrite
 from radet_tpu_torch.utils.text_glyphs import GLYPHS
 from synthetic_bop import JPEG_FIXTURES, write_bop_test_set
 from torch_parity import FLAGSHIP, IMG_HW, NARROW
+from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CHARS = "".join(chr(c) for c in range(32, 127))

@@ -35,6 +35,7 @@ from radet_tpu_torch.utils.config import Config
 from radet_tpu_torch.utils.visualization import imshow_det_bboxes
 from synthetic_bop import synthetic_bop_records, write_bop_test_set
 from torch_parity import FLAGSHIP, IMG_HW, NARROW, flax_and_port_models
+from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 
@@ -183,9 +184,15 @@ def test_unported_dataset_paths_raise(png_set):
     bad = Config.fromfile(FLAGSHIP, opts + ["data.test.type='CocoDataset'"])
     with pytest.raises(NotImplementedError, match="item 12"):
         build_dataset(bad, "test")
-    tta = Config.fromfile(FLAGSHIP, opts + ["test_cfg.flip_tta=True"])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        port_test.test_from_config(tta, build_model_and_anchors(cfg)[0])
+    # test-time augmentation in the pipeline: the JAX package's ValueError, pointing to test_cfg.tta
+    for opt in ("data.test.pipeline.1.flip=True", "data.test.pipeline.1.img_scale=[(96, 64), (128, 96)]"):
+        tta = opts + ["data.test.pipeline.1.type='MultiScaleFlipAug'", opt,
+                      "data.test.pipeline.1.transforms=[{'type': 'Resize', 'keep_ratio': True}]"]
+        with pytest.raises(ValueError) as ref:
+            jax_build_dataset(JaxConfig.fromfile(FLAGSHIP, tta), "test")
+        with pytest.raises(ValueError) as got:
+            build_dataset(Config.fromfile(FLAGSHIP, tta), "test")
+        assert got.value.args == ref.value.args and "`tta`" in got.value.args[0]
 
 
 # ----------------------------------------------------- strict test_from_config
@@ -266,8 +273,10 @@ def test_cli_writes_bbox_and_bop_json(png_set, tmp_path, capsys):
         want = imshow_det_bboxes(imread_rgb(osp.join(dataset.img_prefix, name)), r["boxes"], r["labels"],
                                  r["scores"], class_names=dataset.CLASSES, score_thr=0.3)
         np.testing.assert_array_equal(imread(str(show_dir / name.replace("/", "_")), IMREAD_UNCHANGED), want)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        test_cli.main([FLAGSHIP, "--device", "cpu", "--fuse-conv-bn"])
+    # --fuse-conv-bn refuses an int8 trunk, whose activation scales come from the BN affines
+    with pytest.raises(ValueError, match="--fuse-conv-bn is incompatible with backbone.quant"):
+        test_cli.main([osp.join(osp.dirname(FLAGSHIP), "r50_ycbv_pbr_int8_stream.py"), "--device", "cpu",
+                       "--fuse-conv-bn"])
 
 
 # ---------------------------------------------------- eval during training

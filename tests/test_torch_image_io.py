@@ -29,6 +29,7 @@ from radet_tpu_torch.data.pipeline import (
     resize_nearest,
 )
 from synthetic_bop import JPEG_FIXTURES, write_png
+from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 IMREAD = {"color": IMREAD_COLOR, "gray": IMREAD_GRAYSCALE, "unchanged": IMREAD_UNCHANGED}
 
@@ -459,8 +460,12 @@ def test_reference_test_pipeline_is_absorbed(tmp_path):
         build_pipeline([dict(type="Normalize", mean=[0, 0, 0], std=[1, 1, 1])], img_norm=norm)
     with pytest.raises(ValueError, match="to_rgb"):
         build_pipeline([dict(type="Normalize", to_rgb=False)])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        build_pipeline([dict(type="MultiScaleFlipAug", img_scale=[(64, 48), (96, 72)], transforms=[])])
+    tta = [dict(type="MultiScaleFlipAug", img_scale=[(64, 48), (96, 72)], transforms=[])]
+    with pytest.raises(ValueError) as want:
+        jax_pipeline.build_pipeline(tta)
+    with pytest.raises(ValueError) as got:
+        build_pipeline(tta)
+    assert got.value.args == want.value.args and "`tta`" in got.value.args[0]
     entries = [dict(type="LoadAnnotations", with_bbox=True), dict(type="CosyPoseAug")]
     assert [type(t).__name__ for t in build_pipeline(entries).transforms] == [
         type(t).__name__ for t in jax_pipeline.build_pipeline(entries).transforms] == ["LoadAnnotations",

@@ -47,6 +47,7 @@ from radet_tpu_torch.tools import test as test_cli
 from radet_tpu_torch.utils.config import Config
 from synthetic_bop import write_bop_test_set
 from torch_parity import FLAGSHIP, NARROW
+from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 

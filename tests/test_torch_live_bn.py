@@ -48,6 +48,7 @@ from radet_tpu_torch.utils.config import Config
 from synthetic_bop import synthetic_bop_records
 from test_torch_backbones import BACKBONE, BLOCK, SPLIT_ATTENTION, _blocks, _carry, _nchw
 from torch_parity import FLAGSHIP, NARROW, jax_assignment_noise, numpy_variables
+from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 STAT_RTOL = 1e-5
 # the narrow flagship on ResNet-18 with live BN at validate_learning's input

@@ -22,6 +22,7 @@ from radet_tpu_torch.models import build_detector
 from radet_tpu_torch.models.detector import flatten_head_outputs, preprocess_images
 from radet_tpu_torch.utils.config import Config
 from torch_parity import IMG_HW, SMALL_MODEL, TOL, flax_and_port_models
+from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 FLAGSHIP = "configs/bop/r50_ycbv_pbr.py"
 

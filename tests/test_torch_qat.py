@@ -56,6 +56,7 @@ from radet_tpu_torch.ops import quant
 from radet_tpu_torch.utils.config import Config
 from test_torch_backbones import BLOCK, _carry, _nchw
 from torch_parity import numpy_variables
+from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 QAT_CONFIG = osp.join(REPO, "configs", "bop", "r50_ycbv_pbr_int8_qat.py")

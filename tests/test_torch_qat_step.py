@@ -26,6 +26,7 @@ from radet_tpu_torch.utils.config import Config
 from synthetic_bop import synthetic_bop_records
 from test_torch_qat import FLIP_SHARE, QAT_CONFIG, STEP_HW, STEP_RTOL, SharedLevels, _close
 from torch_parity import jax_assignment_noise, numpy_variables
+from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 
 def _step_batch(n, num_classes, seed=0):

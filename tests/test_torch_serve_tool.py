@@ -22,6 +22,7 @@ from radet_tpu_torch import BatchingDetector
 from radet_tpu_torch.tools.serve import make_server
 from synthetic_bop import JPEG_FIXTURES, write_png
 from torch_parity import assert_same_detections, serving_pair
+from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 TIMEOUT = 60
 

@@ -29,6 +29,7 @@ from radet_tpu_torch.models.postprocess import get_bboxes
 from radet_tpu_torch.utils.config import Config
 from synthetic_bop import write_png
 from torch_parity import FLAGSHIP, IMG_HW, NARROW, flax_and_port_models
+from torch_threads import one_thread_env, one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 
@@ -107,12 +108,16 @@ def test_candidates_without_nms_match_jax(rng):
     np.testing.assert_array_equal(det.labels.numpy()[dv], np.asarray(ref.labels)[rv])
 
 
-@pytest.mark.parametrize("override", [{"nms_impl": "scan"},
-                                      {"nms_impl": "scan", "nms": {"type": "global_vote", "iou_threshold": 0.65}}])
+@pytest.mark.parametrize("override", [{"nms": {"type": "soft_nms", "iou_threshold": 0.65}},
+                                      {"nms_impl": "bitonic", "nms": {"type": "global_vote", "iou_threshold": 0.65}}])
 def test_unported_nms_variants_raise(override):
+    """An NMS type the port does not have raises naming its ROADMAP item;
+    an ``nms_impl`` other than 'fast', 'pallas' and 'scan' (each ported:
+    tests/test_torch_test_time.py holds 'scan' to the JAX package) raises."""
     maps = [[torch.zeros(1, 1, 1, d)] for d in (4, 4, 1)]
     test_cfg = {"nms": {"type": "vote", "iou_threshold": 0.65}, **override}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    error = ValueError if "nms_impl" in override else NotImplementedError
+    with pytest.raises(error, match="nms_impl" if "nms_impl" in override else "ROADMAP"):
         get_bboxes(*maps, [torch.zeros(1, 4)], torch.ones(1, 2), torch.ones(1, 4), test_cfg=test_cfg)
 
 
@@ -236,7 +241,7 @@ print("ran", sorted(out))
 """
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300,
-        env={**os.environ, "PYTHONPATH": REPO},
+        env=one_thread_env(PYTHONPATH=REPO),
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "ran ['boxes', 'labels', 'scores']" in proc.stdout

@@ -72,6 +72,7 @@ import convert_jax_weights  # noqa: E402
 import convert_torch_weights  # noqa: E402
 import export_model as jax_export_model  # noqa: E402
 import get_flops as jax_get_flops  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402, F401 (autouse: one torch thread)
 
 CPU_NARROW = [o for o in NARROW if not o.startswith("compute_dtype")] + SERVE_TEST_CFG
 # the export and the anchor heads' conversions trace, save and load whole

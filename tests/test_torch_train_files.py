@@ -37,6 +37,7 @@ from radet_tpu_torch.utils.config import Config
 from fixtures import make_synthetic_bop
 from synthetic_bop import write_png, write_train_config
 from torch_parity import FLAGSHIP, NARROW
+from torch_threads import one_thread_env, one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 MIXPBR = osp.join(REPO, "configs", "bop", "r50_ycbv_mixpbr.py")
@@ -312,7 +313,7 @@ def test_background_cache_under_loader_threads(tmp_path):
 def _train_cli(config, work, *args):
     cmd = [sys.executable, "-m", "radet_tpu_torch.tools.train", config, "--work-dir", str(work), "--device", "cpu",
            "--max-iters", "2", *args]
-    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300, env=one_thread_env())
     assert proc.returncode == 0, proc.stderr[-3000:]
     return proc.stderr
 

@@ -20,6 +20,7 @@ import torch
 
 import radet_tpu_torch.ops.vote_nms_cuda as cuda_mod
 from radet_tpu_torch.ops.vote_nms import batched_nms, batched_nms_plain, pairwise_iou, vote_nms, vote_nms_plain
+from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
 
 THR = 0.5
 
