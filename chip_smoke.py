@@ -4,8 +4,9 @@
 Run from the repository root, with one card:  python3 chip_smoke.py
 
 1. prints the card and builds, in parallel, the vote-NMS and int8 conv
-   kernels, the host PNG unfilter, the host JPEG decoder and encoder and
-   the host CosyPose ops from ``radet_tpu_torch/csrc``; holds the decoder to cv2's recorded SHA-256 of
+   kernels, the host PNG unfilter, the host JPEG decoder and encoder, the
+   host CosyPose ops, the host distance transforms and the host TIFF
+   decompressors from ``radet_tpu_torch/csrc``; holds the decoder to cv2's recorded SHA-256 of
    the committed fixtures (``tests/data/jpeg``; this machine has no cv2)
    and times JPEG decode beside PNG decode of the same pixels; holds
    ``csrc/color_aug.cpp`` and its numpy twins (every CosyPose op at fixed
@@ -210,7 +211,23 @@ Run from the repository root, with one card:  python3 chip_smoke.py
    4420) and held to the plain version in float64, each run's img/s
    beside the strict eval's; the fused float32 forward on the card (TF32
    off) against the unfused one; and the fusion's and the scan's kernel
-   calls timed beside the plain version and the bound.
+   calls timed beside the plain version and the bound;
+18. trains from boxes alone (``GenerateDistanceMap(with_gt_mask=False)``,
+   ROADMAP item 17): the C++ MBD and GDT against their numpy twins on the
+   crops of two training images' boxes (spawned processes), bit for bit;
+   the train pipeline's ms per sample on one thread with masks and
+   mask-free (GDT, MBD); ``tools.train`` on the flagship's mask-free GDT
+   config at full width (``MF_STEPS`` steps, each step's ms and data wait
+   printed, one periodic eval, its vote-NMS calls at K 512 held to the
+   plain version); then that step's two halves alone: the train step on a
+   batch on the card, and the loader with no step running;
+19. tests the ITODD config on gray TIFFs (ROADMAP item 20): the committed
+   TIFF fixtures against cv2's recorded hashes; 32 synthetic 1280x960 gray
+   Deflate TIFFs in BOP's layout; their decode timed beside an
+   uncompressed TIFF and a PNG of the same pixels; ``tools.test`` on
+   ``configs/bop/r50_itodd_pbr.py`` (28 classes, full width, bf16, batch
+   16, ``--eval bbox`` with the BOP json), its two vote-NMS launches at K
+   2048 held to the plain version.
    Each phase prints its wall time.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
@@ -4119,6 +4136,318 @@ def tta_phase(config: str, gpu: str, repo: Path, work: str) -> dict:
     return dict(runs=runs, fuse_err=fuse_err, folded=folded, timing=timing)
 
 
+MF_STEPS = 12  # the mask-free train CLI's steps (full width, batch 16), one periodic eval at the last
+MF_LOADER_BATCHES = 4  # batches timed from the mask-free loader alone, after its first
+MF_TWIN_IMAGES = 2  # training images whose large boxes' crops hold the C++ transforms to their numpy twins
+MF_SAMPLES = 16  # samples timed per pipeline, one thread
+ITODD_CONFIG = "configs/bop/r50_itodd_pbr.py"
+ITODD_IMAGES = 32  # 1280x960 8-bit gray TIFFs (BOP ITODD's test images), batches of 16
+ITODD_HW = (960, 1280)
+ITODD_BATCH = 16
+
+
+def mf_twin(job):
+    """One crop's transform, the C++ function against its numpy twin (run in
+    a process of its own): (method, crop shape, max abs difference, equal)."""
+    from radet_tpu_torch.ops import distance_transform as dt
+
+    method, small = job
+    sx, sy = dt.border_seeds(*small.shape[:2])
+    if method == "mbd":
+        a, b = dt.mbd(small, sx, sy), dt.mbd_plain(small, sx, sy)
+    else:
+        cost = dt.sobel_edges(small)
+        a, b = dt.gdt(cost, sx, sy), dt.gdt_plain(cost, sx, sy)
+    return method, small.shape[:2], float(np.abs(a - b).max()), bool(np.array_equal(a, b))
+
+
+def mf_twin_checks(files: str, gpu: str) -> dict:
+    """Phase 18a: the crops of the first MF_TWIN_IMAGES training images'
+    large boxes (padded, resized to a short edge of 150, blurred: the
+    transforms' input), each through the C++ MBD and GDT and their numpy
+    twins (spawned processes, one crop each), bit for bit."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from radet_tpu_torch.data import image_io
+    from radet_tpu_torch.ops import distance_transform as dt
+
+    with open(osp.join(files, "train_pbr.json")) as f:
+        coco = json.load(f)
+    jobs = []
+    for info in coco["images"][:MF_TWIN_IMAGES]:
+        img = image_io.imread_rgb(osp.join(files, "train_pbr", info["file_name"]))
+        for ann in (a for a in coco["annotations"] if a["image_id"] == info["id"]):
+            x, y, w, h = (int(v) for v in ann["bbox"])
+            if (w + 1) * (h + 1) > 32 ** 2:
+                small = dt.shrink(dt.padded_crop(img, (x, y, x + w, y + h), 0.05, (128, 128, 128))[0])
+                jobs += [("mbd", small), ("gdt", small)]
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(min(8, len(jobs)), mp_context=multiprocessing.get_context("spawn")) as pool:
+        results = list(pool.map(mf_twin, jobs))
+    out = {m: dict(crops=sum(r[0] == m for r in results), max_abs_diff=max(r[2] for r in results if r[0] == m))
+           for m in ("mbd", "gdt")}
+    shapes = sorted({r[1] for r in results})
+    print(f"mask-free: C++ MBD and GDT against their numpy twins on {len(jobs) // 2} crops of {MF_TWIN_IMAGES} "
+          f"training images (padded boxes at a short edge of 150: {shapes[0]} to {shapes[-1]}): "
+          + ", ".join(f"{m} {v['crops']} crops, max |C++ - twin| {v['max_abs_diff']:.3g}" for m, v in out.items())
+          + f"; {time.perf_counter() - t0:.1f} s on {min(8, len(jobs))} processes [host of {gpu}]")
+    if not jobs or not all(r[3] for r in results):
+        fail(f"the C++ distance transforms differ from their numpy twins: {[r[:3] for r in results if not r[3]]}")
+    return out
+
+
+def mf_pipeline_timing(configs: dict, gpu: str) -> dict:
+    """Phase 18b: ms per sample on one thread at 480x640 of the flagship's
+    train pipeline (masks) and of its mask-free GDT and MBD variants, and of
+    their GenerateDistanceMap alone, over the same MF_SAMPLES samples."""
+    from radet_tpu_torch.apis.common import build_dataset
+    from radet_tpu_torch.utils import Config
+
+    out = {}
+    for name, path in configs.items():
+        dataset = build_dataset(Config.fromfile(path), "train")
+        gdm = next(i for i, t in enumerate(dataset.pipeline.transforms)
+                   if type(t).__name__ == "GenerateDistanceMap")
+        inner, spent = dataset.pipeline.transforms[gdm], [0.0]
+
+        def timed(results, inner=inner, spent=spent):
+            t0 = time.perf_counter()
+            out = inner(results)
+            spent[0] += time.perf_counter() - t0
+            return out
+
+        dataset.pipeline.transforms[gdm] = timed
+        random.seed(SEED)
+        np.random.seed(SEED)
+        dataset[0]  # first call: libraries loaded, backgrounds cached
+        spent[0] = 0.0
+        t0 = time.perf_counter()
+        for i in range(MF_SAMPLES):
+            dataset[i % len(dataset)]
+        out[name] = dict(ms=(time.perf_counter() - t0) * 1000 / MF_SAMPLES, map_ms=spent[0] * 1000 / MF_SAMPLES)
+    base = out["masked"]["ms"]
+    print(f"timing: train pipeline at 480x640, one thread, ms per sample (mean of {MF_SAMPLES}; GenerateDistanceMap "
+          f"alone in brackets): " + "; ".join(f"{k} {v['ms']:.2f} ({v['map_ms']:.2f}, {v['ms'] / base:.2f}x)"
+                                              for k, v in out.items()) + f" [host of {gpu}]")
+    return out
+
+
+def mf_cli_phase(config: str, gpu: str, eval_opts) -> dict:
+    """Phase 18c: ``tools.train`` (its ``main``, in this process) on the
+    mask-free GDT config at full width, bf16, batch 16, FILES_WORKERS
+    loader threads, MF_STEPS steps and one periodic eval (K = 512) at
+    ``score_thr`` 0: finite losses, a checkpoint, and every vote-NMS call
+    of the eval held to the plain version.  Returns its numbers."""
+    import radet_tpu_torch.models.postprocess as postprocess
+    import radet_tpu_torch.ops.vote_nms_cuda as vnc
+    from radet_tpu_torch.engine import load_weights
+
+    repo = Path(__file__).resolve().parent
+    work_dir = osp.join(osp.dirname(config), "work_dir_mask_free")
+    print(f"mask-free train CLI: radet_tpu_torch.tools.train.main on {CONFIG} from boxes alone "
+          f"(GenerateDistanceMap(with_gt_mask=False, distance_transform='gdt'); full width, bf16, batch 16, "
+          f"{FILES_WORKERS} loader threads), {MF_STEPS} steps, one eval:")
+    calls = []
+    kernel_nms, postprocess.vote_nms = recorded_vote_nms(calls)
+    vnc.LAUNCHES = 0
+    try:
+        _, log, wall = tool_run(repo, ["-m", "radet_tpu_torch.tools.train", config, "--work-dir", work_dir,
+                                       "--max-iters", MF_STEPS, "--cfg-options", "log_config.interval=1",
+                                       f"checkpoint_config.interval={MF_STEPS}", f"evaluation.interval={MF_STEPS}",
+                                       f"data.workers_per_gpu={FILES_WORKERS}", "test_cfg.score_thr=0.0",
+                                       *eval_opts], "the mask-free train CLI")
+    finally:
+        postprocess.vote_nms = kernel_nms
+    torch.cuda.synchronize()
+    launches = vnc.LAUNCHES
+    log = log.splitlines()
+    iters = [ln for ln in log if ln.startswith("iter ")]
+    evals = [ln for ln in log if ln.startswith("eval: ")]
+    history = [float(v) for ln in iters for v in re.findall(r" loss (\S+)", ln)]
+    ks = sorted({int(a[0].shape[1]) for a, _, _ in calls})
+    for ln in iters[:1] + iters[-1:] + evals:
+        print(f"  {ln}")
+    if (len(iters) != MF_STEPS or len(history) != MF_STEPS or not all(math.isfinite(v) for v in history)
+            or len(evals) != 1 or launches < 1 or launches != len(calls) or ks != [512]
+            or not load_weights(osp.join(work_dir, "checkpoints"))):
+        fail(f"the mask-free train CLI: {len(iters)} steps, losses {history}, {len(evals)} evals, vote_nms "
+             f"launches {launches} ({len(calls)} recorded at K {ks}), or no checkpoint")
+    per_step = [float(m) for ln in iters for m in re.findall(r"\| (\S+) ms/iter", ln)]
+    waits = [float(m) for ln in iters for m in re.findall(r"data wait (\S+) ms/iter", ln)]
+    ms = float(np.median(per_step[1:]))
+    print(f"  each step, ms (data wait ms): " + ", ".join(f"{a:.1f} ({w:.1f})" for a, w in zip(per_step, waits)))
+    print(f"  {MF_STEPS} steps, {ms:.1f} ms/step (median of steps 2-{MF_STEPS}), data wait {sum(waits[1:]):.1f} of "
+          f"{sum(per_step[1:]):.1f} ms over steps 2-{MF_STEPS}, {wall:.1f} s in all (model build and eval included); "
+          f"vote_nms launches {launches} at K {ks} [{gpu}]")
+    err = hold_to_plain(calls, "the mask-free train CLI's eval")
+    return dict(launches=launches, max_abs_err=err, step_ms=ms, step_ms_each=per_step, data_wait_ms_each=waits,
+                wall_s=wall)
+
+
+def mf_step_parts(config: str, gpu: str) -> dict:
+    """Phase 18d: the two halves of the mask-free train CLI's step, each
+    alone: the train step on one batch already on the card (``step_ms``),
+    and the loader (FILES_WORKERS threads, batch 16, no step running) in ms
+    per batch over MF_LOADER_BATCHES batches after its first."""
+    from radet_tpu_torch.apis.common import build_dataset
+    from radet_tpu_torch.data.loader import DataLoader
+    from radet_tpu_torch.utils import Config
+
+    cfg = Config.fromfile(config)
+    dataset = build_dataset(cfg, "train")
+    bare_ms, _ = step_ms(cfg, dataset, "mask-free gdt", gpu)
+    batch = int(cfg.data.samples_per_gpu)
+    it = iter(DataLoader(dataset, batch_size=batch, num_workers=FILES_WORKERS, seed=SEED, infinite=True))
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(MF_LOADER_BATCHES):
+        next(it)
+    loader_ms = (time.perf_counter() - t0) * 1000 / MF_LOADER_BATCHES
+    it.close()
+    print(f"timing: mask-free gdt loader alone, {FILES_WORKERS} threads, batch {batch}: {loader_ms:.1f} ms/batch "
+          f"({batch * 1000 / loader_ms:.1f} img/s; mean of {MF_LOADER_BATCHES} after the first) [host of {gpu}]")
+    return dict(bare_step_ms=bare_ms, loader_ms=loader_ms)
+
+
+def mask_free_phase(files: str, gpu: str, eval_opts) -> dict:
+    """Phase 18: the mask-free distance maps (ROADMAP item 17)."""
+    from synthetic_bop import write_train_config
+
+    twins = mf_twin_checks(files, gpu)
+    ann, prefix, bg = osp.join(files, "train_pbr.json"), osp.join(files, "train_pbr") + "/", osp.join(files, "backgrounds")
+    repo = Path(__file__).resolve().parent
+    configs = {"masked": osp.join(files, "train_config.py")}
+    for method in ("gdt", "mbd"):
+        configs[f"mask-free {method}"] = write_train_config(osp.join(files, f"mask_free_{method}.py"),
+                                                            str(repo / CONFIG), ann, prefix, bg, mask_free=method)
+    timing = mf_pipeline_timing(configs, gpu)
+    cli = mf_cli_phase(configs["mask-free gdt"], gpu, eval_opts)
+    parts = mf_step_parts(configs["mask-free gdt"], gpu)
+    return dict(twins=twins, pipeline=timing, **cli, **parts)
+
+
+def itodd_fixture_checks(gpu: str) -> int:
+    """Phase 19a: the committed TIFF fixtures (tests/data/tiff: tiles,
+    big-endian files, the predictor) decoded here under the three flags
+    against cv2's recorded SHA-256 (this machine has no cv2)."""
+    import hashlib
+
+    from radet_tpu_torch.data import image_io
+
+    fixtures = Path(__file__).resolve().parent / "tests" / "data" / "tiff"
+    with open(fixtures / "hashes.json") as f:
+        recorded = json.load(f)
+    n = 0
+    for name, reads in sorted(recorded["files"].items()):
+        for flag, want in reads.items():
+            px = image_io.imread(str(fixtures / name), recorded["flags"][flag])
+            px = px[..., ::-1] if flag == "color" else px
+            got = hashlib.sha256(np.ascontiguousarray(px).tobytes()).hexdigest()
+            if got != want["sha256"] or list(px.shape) != want["shape"] or str(px.dtype) != want["dtype"]:
+                fail(f"TIFF fixture {name} read {flag} differs from cv2 {recorded['cv2']}'s recorded pixels")
+            n += 1
+    print(f"itodd: {len(recorded['files'])} committed TIFF fixtures, {n} reads (IMREAD_UNCHANGED, COLOR, GRAYSCALE) "
+          f"equal to cv2 {recorded['cv2']}'s recorded SHA-256")
+    return n
+
+
+def itodd_decode_timing(root: str, ann: str, gpu: str) -> dict:
+    """Phase 19b: ms per 1280x960 gray image to read (``imread_rgb``, one
+    thread): the split's Deflate TIFF, the same pixels as an uncompressed
+    TIFF and as a PNG."""
+    from radet_tpu_torch.data import image_io
+    from synthetic_bop import tiff_bytes, write_png
+
+    with open(ann) as f:
+        first = json.load(f)["images"][0]["file_name"]
+    path = osp.join(root, "test", first)
+    gray = image_io.imread(path, image_io.IMREAD_GRAYSCALE)
+    paths = {"tiff_deflate": path, "tiff_none": osp.join(root, "none.tif"), "png": osp.join(root, "same.png")}
+    with open(paths["tiff_none"], "wb") as f:
+        f.write(tiff_bytes(gray, compression=1))
+    write_png(paths["png"], gray)
+    out = {}
+    for name, p in paths.items():
+        if not np.array_equal(image_io.imread_rgb(p)[..., 1], gray):
+            fail(f"{name}: the decoded pixels differ")
+        t0 = time.perf_counter()
+        for _ in range(10):
+            image_io.imread_rgb(p)
+        out[name] = (time.perf_counter() - t0) * 100
+    print("timing: imread_rgb of a 1280x960 gray image, one thread, mean of 10: "
+          + ", ".join(f"{k} ({os.path.getsize(paths[k]) // 1024} KB) {v:.2f} ms" for k, v in out.items())
+          + f" [host of {gpu}]")
+    return out
+
+
+def itodd_phase(gpu: str, work: str) -> dict:
+    """Phase 19: the ITODD config's strict test CLI on gray TIFFs (ROADMAP
+    item 20): the fixtures; ITODD_IMAGES synthetic 1280x960 gray Deflate
+    TIFFs of 28 classes in BOP's layout; ``tools.test`` (its ``main``) with
+    ``configs/bop/r50_itodd_pbr.py`` at full width, bf16, seeded random
+    weights with the cls bias at 0, batch ITODD_BATCH, ``--eval bbox``
+    with the BOP json: one vote-NMS launch per batch at K = 2048, each held
+    to the plain version; results, metrics and the json checked."""
+    import radet_tpu_torch.models.postprocess as postprocess
+    import radet_tpu_torch.ops.vote_nms_cuda as vnc
+    from radet_tpu_torch.apis.common import build_model_and_anchors
+    from radet_tpu_torch.engine import save_weights
+    from radet_tpu_torch.utils import Config
+    from synthetic_bop import write_bop_test_set
+
+    repo = Path(__file__).resolve().parent
+    fixtures = itodd_fixture_checks(gpu)
+    root = osp.join(work, "itodd")
+    t0 = time.perf_counter()
+    ann = write_bop_test_set(root, np.random.RandomState(SEED + 20), [(ITODD_IMAGES, ITODD_HW)],
+                             [str(i + 1) for i in range(28)], tiff_gray=True)
+    print(f"itodd: {ITODD_IMAGES} gray 8-bit Deflate TIFFs {ITODD_HW[0]}x{ITODD_HW[1]} (BOP ITODD's test layout, "
+          f"28 classes) written in {time.perf_counter() - t0:.1f} s")
+    decode = itodd_decode_timing(root, ann, gpu)
+    config = str(repo / ITODD_CONFIG)
+    model = build_model_and_anchors(Config.fromfile(config))[0]
+    model.init_weights(torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        model.bbox_head.atss_cls.bias.zero_()
+    ckpt = osp.join(work, "itodd_cls0.pth")
+    save_weights(ckpt, model.state_dict())
+    del model
+    prefix, out = osp.join(root, "result"), osp.join(root, "result.pkl")
+    calls = []
+    kernel_nms, postprocess.vote_nms = recorded_vote_nms(calls)
+    vnc.LAUNCHES = 0
+    try:
+        stdout, log, wall = tool_run(repo, [
+            "-m", "radet_tpu_torch.tools.test", config, ckpt, "--eval", "bbox", "--json-prefix", prefix,
+            "--out", out, "--cfg-options", f"data.test.ann_file={ann!r}",
+            f"data.test.img_prefix={osp.join(root, 'test') + '/'!r}", f"data.samples_per_gpu={ITODD_BATCH}"],
+            "tools.test on the ITODD config")
+    finally:
+        postprocess.vote_nms = kernel_nms
+    torch.cuda.synchronize()
+    launches = vnc.LAUNCHES
+    metrics = json.loads(stdout[stdout.index("{"):])
+    with open(out, "rb") as f:
+        results = pickle.load(f)
+    with open(prefix + ".bop.json") as f:
+        bop = json.load(f)
+    done = [ln for ln in log.splitlines() if ln.startswith("inference done")]
+    ks = [int(a[0].shape[1]) for a, _, _ in calls]
+    want = -(-ITODD_IMAGES // ITODD_BATCH)
+    ok = (len(results) == ITODD_IMAGES and all(len(r["boxes"]) and np.isfinite(r["boxes"]).all() for r in results)
+          and all(math.isfinite(v) for v in metrics.values()) and len(bop) == sum(len(r["boxes"]) for r in results)
+          and all(1 <= d["category_id"] <= 28 and d["time"] == -1.0 for d in bop))
+    if launches != want or len(calls) != want or set(ks) != {2048} or len(done) != 1 or not ok:
+        fail(f"tools.test on the ITODD config: vote_nms launches {launches} ({len(calls)} recorded at K {ks}; "
+             f"expected {want} at 2048), {len(results)} results, {len(bop)} BOP json entries, finite: {ok}")
+    ips = float(re.findall(r"\(([\d.]+) img/s\)", done[0])[0])
+    print(f"  {done[0]}; {wall:.1f} s in all (model build, decode and COCO evaluation included); vote_nms launches "
+          f"{launches} at K {sorted(set(ks))}; {len(bop)} BOP json entries; bbox_mAP {metrics['bbox_mAP']:.4f} [{gpu}]")
+    err = hold_to_plain(calls, "tools.test on the ITODD config")
+    return dict(launches=launches, max_abs_err=err, img_s=ips, wall_s=wall, decode_ms=decode, fixture_reads=fixtures)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -4136,7 +4465,8 @@ def main() -> None:
     import radet_tpu_torch.ops.int8_conv_cuda as icc
     import radet_tpu_torch.ops.vote_nms_cuda as vnc
     from radet_tpu_torch import inference_detector, init_detector
-    from radet_tpu_torch.data import color_aug, image_io
+    from radet_tpu_torch.data import color_aug, image_io, tiff
+    from radet_tpu_torch.ops import distance_transform
     from radet_tpu_torch.utils import image_write, native
     from radet_tpu_torch.ops.vote_nms import vote_nms_plain
 
@@ -4155,14 +4485,16 @@ def main() -> None:
         fn()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(6) as pool:
+    with ThreadPoolExecutor(8) as pool:
         builds = [(src, flags, pool.submit(timed, fn)) for src, flags, fn in (
             (vnc.SOURCE, f"nvcc {' '.join(vnc.NVCC_FLAGS)}", vnc.build),
             (icc.SOURCE, f"nvcc {' '.join(icc.NVCC_FLAGS)}", icc.build),
             (image_io.SOURCE, f"c++ {' '.join(image_io.CXX_FLAGS)}", image_io.build),
             (image_io.JPEG_SOURCE, f"c++ {' '.join(image_io.CXX_FLAGS)}", image_io.build_jpeg),
             (image_write.JPEG_SOURCE, f"c++ {' '.join(image_write.CXX_FLAGS)}", image_write.build_jpeg_encoder),
-            (color_aug.SOURCE, f"c++ {' '.join(color_aug.CXX_FLAGS)}", color_aug.build))]
+            (color_aug.SOURCE, f"c++ {' '.join(color_aug.CXX_FLAGS)}", color_aug.build),
+            (distance_transform.SOURCE, f"c++ {' '.join(distance_transform.CXX_FLAGS)}", distance_transform.build),
+            (tiff.SOURCE, f"c++ {' '.join(tiff.CXX_FLAGS)}", tiff.build))]
         for src, flags, fut in builds:
             print(f"build: {src.relative_to(repo)} -> {native.BUILD_DIR.relative_to(repo)} "
                   f"with {flags}: {fut.result():.2f} s [{gpu}]")
@@ -4323,6 +4655,10 @@ def main() -> None:
 
         # 17. the eval path's test-time variants
         tta = phase("test-time variants", tta_phase, config, gpu, repo, work)
+
+        # 18. mask-free distance maps; 19. the ITODD config's test split of gray TIFFs
+        mask_free = phase("mask-free distance maps", mask_free_phase, files, gpu, eval_opts)
+        itodd = phase("ITODD TIFF test split", itodd_phase, gpu, work)
     nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by, _ = nms_times[ANCHOR_MAIN_SHAPE]
 
     print(f"card: {gpu}; smoke {time.perf_counter() - start:.1f} s wall")
@@ -4365,6 +4701,12 @@ def main() -> None:
         # phase 17: the fusion's and the scan's calls timed (ms, plain_ms, bound_ms at their B and K)
         "tta_ms": tta["timing"],
         "tta_img_s": {k: r["img_s"] for k, r in tta["runs"].items()},
+        # phase 18: the mask-free GDT train CLI's periodic eval (K 512); phase 19: the ITODD config's strict test
+        # CLI over 32 gray TIFFs, batch 16 (K 2048); each call held to the plain version
+        "mask_free_launches": {"train_cli_eval": mask_free["launches"]},
+        "mask_free_max_abs_err": mask_free["max_abs_err"],
+        "itodd_launches": {"test_cli": itodd["launches"]},
+        "itodd_max_abs_err": itodd["max_abs_err"],
     }, {
         "name": "batched_nms (vote_nms.cu, no-vote mode)",
         "route": "cuda",

@@ -105,9 +105,9 @@ def _sample_counts(logits_t, pool_t, k, cap, balance_sample, gumbel_pool, gumbel
     scores = torch.where(pool_t, logits_t + gumbel_pool, torch.full_like(logits_t, NEG_INF))
     top_vals, top_idx = torch.topk(scores, cap, dim=-1)
     kth = torch.gather(top_vals, -1, (k.long() - 1).clamp(min=0)[..., None])
-    counts_without = ((scores >= kth) & pool_t).float()
+    counts_without = ((scores >= kth) & pool_t).to(scores.dtype)
     if not balance_sample:
-        counts_with = pool_t.float()
+        counts_with = pool_t.to(scores.dtype)
     else:
         # every pool member already sits in the top-cap slots when the pool
         # is smaller than k, so the draws range over the slots only
@@ -116,7 +116,7 @@ def _sample_counts(logits_t, pool_t, k, cap, balance_sample, gumbel_pool, gumbel
             slot_live, torch.gather(logits_t, -1, top_idx), torch.full_like(top_vals, NEG_INF)
         )
         draws = (gumbel_draw + slot_logits[..., None, :]).argmax(-1)  # (..., cap)
-        draw_live = (torch.arange(cap, device=k.device) < k[..., None]).float()
+        draw_live = (torch.arange(cap, device=k.device) < k[..., None]).to(top_vals.dtype)
         slot_counts = torch.zeros_like(top_vals).scatter_add_(-1, draws, draw_live)
         counts_with = torch.zeros_like(logits_t).scatter_add_(-1, top_idx, slot_counts)
     pool_small = pool_t.sum(-1) < k
@@ -246,7 +246,8 @@ def assign_labels(
         anchors: (N, 4) xyxy; regress_ranges: (N, 2).
         gt_boxes: (B, G, 4) xyxy, padded; gt_valid: (B, G) bool.
         dist_vals: (B, N, G) distance value at each anchor center (any float
-            dtype; computed in float32).
+            dtype; computed in float32, or in the given noise's dtype when
+            that is wider).
         impl: 'auto'/'vectorized' (exclusive candidates, one pass) or 'scan'
             (sequential claim loop).
         gumbel_pool: (B, G, N) and gumbel_draw: (B, G, cap, cap) noise, with
@@ -257,7 +258,8 @@ def assign_labels(
         raise ValueError(f"unknown ambiguous_sample: {ambiguous_sample!r}")
     if impl not in ("auto", "vectorized", "scan"):
         raise ValueError(f"unknown assignment impl: {impl!r}")
-    dist_vals = dist_vals.float()
+    dist_vals = dist_vals.to(torch.float32 if gumbel_pool is None else torch.promote_types(torch.float32,
+                                                                                          gumbel_pool.dtype))
     b, n, g = dist_vals.shape
     k_cap = positive_num * 4 if adapt_positive_num else positive_num
     dev = dist_vals.device

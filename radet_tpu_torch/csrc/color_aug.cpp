@@ -19,7 +19,12 @@
 //   the channels (the gray of PIL's Color);
 // - radet_lut: cv2.LUT with one 256-entry table for every channel;
 // - radet_pil_gray: PIL's mode-'L' conversion,
-//   (R * 19595 + G * 38470 + B * 7471 + 2^15) >> 16.
+//   (R * 19595 + G * 38470 + B * 7471 + 2^15) >> 16;
+// - radet_rgb_to_gray: cv2's fixed-point gray of RGB pixels at `shift`
+//   fractional bits, (R * cR + G * cG + B * cB + 2^(shift-1)) >> shift with
+//   cR = round(0.299 * 2^shift), cG = round(0.587 * 2^shift) and
+//   cB = 2^shift - cR - cG: shift 15 is cv2.cvtColor(COLOR_RGB2GRAY) in
+//   cv2 5.0, shift 14 the gray cv2.imread makes of a colour TIFF.
 //
 // Images are contiguous HWC uint8.  ctypes releases the interpreter lock
 // around each call, so loader threads run them in parallel.
@@ -204,6 +209,19 @@ void radet_pil_gray(const uint8_t* rgb, uint8_t* gray, int64_t pixels) {
   for (int64_t p = 0; p < pixels; ++p) {
     const uint32_t v = rgb[3 * p] * 19595u + rgb[3 * p + 1] * 38470u + rgb[3 * p + 2] * 7471u + 0x8000u;
     gray[p] = static_cast<uint8_t>(v >> 16);
+  }
+}
+
+// cv2's gray of `pixels` pixels of `step` bytes each (R, G, B first).
+void radet_rgb_to_gray(const uint8_t* rgb, uint8_t* gray, int64_t pixels, int64_t step, int shift) {
+  const double one = static_cast<double>(1 << shift);
+  const uint32_t cr = static_cast<uint32_t>(0.299 * one + 0.5);
+  const uint32_t cg = static_cast<uint32_t>(0.587 * one + 0.5);
+  const uint32_t cb = (1u << shift) - cr - cg;
+  const uint32_t half = 1u << (shift - 1);
+  for (int64_t p = 0; p < pixels; ++p) {
+    const uint8_t* px = rgb + p * step;
+    gray[p] = static_cast<uint8_t>((px[0] * cr + px[1] * cg + px[2] * cb + half) >> shift);
   }
 }
 

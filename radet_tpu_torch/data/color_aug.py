@@ -18,7 +18,14 @@ cv2's byte for byte:
 - Blur: ``cv2.GaussianBlur(img, (0, 0), sigma)`` at an integer sigma, cv2's
   fixed-point separable filter with its integer taps (``GAUSSIAN_TAPS``,
   sigma 1 to 10, taken from cv2 by ``tests/data/color_aug/make_fixtures.py``);
-  another sigma raises.
+  another sigma raises.  The same filter at a kernel size with sigma 0,
+  ``cv2.GaussianBlur(img, (k, k), 0)`` (``GAUSSIAN_KSIZE_TAPS``, k 3 and 9),
+  blurs the mask-free distance maps' crops (``ops/distance_transform.py``).
+
+Beside the CosyPose ops, ``rgb_to_gray`` is cv2's fixed-point gray: of
+``cv2.cvtColor(img, COLOR_RGB2GRAY)`` (15 fractional bits in cv2 5.0; the
+mask-free maps' Sobel cost) and of ``cv2.imread`` reading a colour TIFF as
+gray (14 bits; ``data/image_io.py``).
 
 The ``*_plain`` functions are the numpy twins of the C++ functions, which
 the tests hold equal to them and to cv2; the training path calls the C++
@@ -43,7 +50,7 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 
 from ..utils.native import CSRC, load_library
-from .gaussian_taps import GAUSSIAN_TAPS
+from .gaussian_taps import GAUSSIAN_KSIZE_TAPS, GAUSSIAN_TAPS
 
 SOURCE = CSRC / "color_aug.cpp"
 # -ffp-contract=off: no fused multiply-add beyond the explicit fmaf
@@ -58,7 +65,9 @@ _API = {
     "radet_add_weighted": ([_P, _P, _P, _I64, _I64, _I64, ctypes.c_float, ctypes.c_float], None),
     "radet_lut": ([_P, _P, _I64, _P], None),
     "radet_pil_gray": ([_P, _P, _I64], None),
+    "radet_rgb_to_gray": ([_P, _P, _I64, _I64, ctypes.c_int], None),
 }
+GRAY_SHIFTS = (14, 15)  # imread's gray of a colour TIFF, cvtColor's COLOR_RGB2GRAY
 
 
 def build() -> ctypes.CDLL:
@@ -72,19 +81,34 @@ def _hwc(img: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(img)
 
 
-def _taps(sigma: int) -> np.ndarray:
+def _taps(sigma: int, ksize: int = 0) -> np.ndarray:
+    """The integer taps of sigma ``sigma``, or of kernel size ``ksize`` at
+    sigma 0."""
+    if ksize:
+        if sigma or ksize not in GAUSSIAN_KSIZE_TAPS:
+            raise NotImplementedError(f"Gaussian blur at kernel size {ksize!r} and sigma {sigma!r} ({_SIGMA})")
+        return np.asarray(GAUSSIAN_KSIZE_TAPS[ksize], np.int32)
     if sigma not in GAUSSIAN_TAPS:
         raise NotImplementedError(f"Gaussian blur at sigma {sigma!r} ({_SIGMA})")
     return np.asarray(GAUSSIAN_TAPS[sigma], np.int32)
 
 
+def _gray_coefficients(shift: int):
+    if shift not in GRAY_SHIFTS:
+        raise ValueError(f"gray at {shift} fractional bits: cv2 uses {GRAY_SHIFTS}")
+    one = 1 << shift
+    cr, cg = int(0.299 * one + 0.5), int(0.587 * one + 0.5)
+    return cr, cg, one - cr - cg
+
+
 # ------------------------------------------------------------ C++ functions
 
 
-def gaussian_blur(img: np.ndarray, sigma: int) -> np.ndarray:
-    """``cv2.GaussianBlur(img, (0, 0), sigmaX=sigma)`` on uint8 (H, W, C)."""
+def gaussian_blur(img: np.ndarray, sigma: int = 0, ksize: int = 0) -> np.ndarray:
+    """``cv2.GaussianBlur(img, (0, 0), sigmaX=sigma)`` on uint8 (H, W, C);
+    with ``ksize``, ``cv2.GaussianBlur(img, (ksize, ksize), 0)``."""
     img = _hwc(img)
-    taps = _taps(sigma)
+    taps = _taps(sigma, ksize)
     out = np.empty_like(img)
     h, w, c = img.shape
     if build().radet_gaussian_blur(img.ctypes.data, out.ctypes.data, h, w, c, taps.ctypes.data, len(taps)):
@@ -135,13 +159,26 @@ def pil_gray(img: np.ndarray) -> np.ndarray:
     return out
 
 
+def rgb_to_gray(img: np.ndarray, shift: int = 15) -> np.ndarray:
+    """cv2's gray of (H, W, C >= 3) uint8 ``img`` (R, G, B first), (H, W)
+    uint8: ``shift`` 15 is ``cv2.cvtColor(img, cv2.COLOR_RGB2GRAY)``, 14 the
+    gray ``cv2.imread`` makes of a colour TIFF (see the module docstring)."""
+    img = _hwc(img)
+    if img.shape[2] < 3:
+        raise ValueError(f"expected RGB pixels, got {img.shape}")
+    _gray_coefficients(shift)
+    out = np.empty(img.shape[:2], np.uint8)
+    build().radet_rgb_to_gray(img.ctypes.data, out.ctypes.data, img.shape[0] * img.shape[1], img.shape[2], shift)
+    return out
+
+
 # -------------------------------------------------------------- numpy twins
 
 
-def gaussian_blur_plain(img: np.ndarray, sigma: int) -> np.ndarray:
+def gaussian_blur_plain(img: np.ndarray, sigma: int = 0, ksize: int = 0) -> np.ndarray:
     """numpy twin of :func:`gaussian_blur`: int64 sums over a
     BORDER_REFLECT_101 padding."""
-    taps = _taps(sigma).astype(np.int64)
+    taps = _taps(sigma, ksize).astype(np.int64)
     r = len(taps) // 2
     h, w = img.shape[:2]
     x = np.pad(img.astype(np.int64), ((r, r), (r, r), (0, 0)), mode="reflect")
@@ -178,6 +215,13 @@ def apply_lut_plain(img: np.ndarray, lut: np.ndarray) -> np.ndarray:
 def pil_gray_plain(img: np.ndarray) -> np.ndarray:
     r, g, b = (img[..., i].astype(np.uint32) for i in range(3))
     return ((r * 19595 + g * 38470 + b * 7471 + 0x8000) >> 16).astype(np.uint8)
+
+
+def rgb_to_gray_plain(img: np.ndarray, shift: int = 15) -> np.ndarray:
+    """numpy twin of :func:`rgb_to_gray`."""
+    cr, cg, cb = _gray_coefficients(shift)
+    r, g, b = (img[..., i].astype(np.uint32) for i in range(3))
+    return ((r * cr + g * cg + b * cb + (1 << (shift - 1))) >> shift).astype(np.uint8)
 
 
 NATIVE = SimpleNamespace(blur=gaussian_blur, smooth=smooth, add_weighted=add_weighted, lut=apply_lut,

@@ -1,12 +1,12 @@
 """Image files without cv2: PNG decoded with ``zlib`` and a host C++ unfilter,
-baseline JPEG with a host C++ decoder (port of
+baseline JPEG with a host C++ decoder, TIFF with ``data/tiff.py`` (port of
 ``radet_tpu/data/pipeline.py::imread_rgb`` and of the pipeline's
 ``cv2.imread`` calls on masks).
 
-:func:`imread` returns what ``cv2.imread(path, flags)`` returns for a PNG or
-JPEG file, and :func:`imdecode` what ``cv2.imdecode(data, flags)`` returns
-for its bytes, with one change: ``IMREAD_COLOR`` gives RGB (cv2's BGR
-swapped, as ``imread_rgb`` does).
+:func:`imread` returns what ``cv2.imread(path, flags)`` returns for a PNG,
+JPEG or TIFF file, and :func:`imdecode` what ``cv2.imdecode(data, flags)``
+returns for its bytes, with one change: ``IMREAD_COLOR`` gives RGB (cv2's
+BGR swapped, as ``imread_rgb`` does).
 
 - ``IMREAD_COLOR``: (H, W, 3) uint8 RGB; gray is replicated to 3 channels,
   alpha is dropped, and 16-bit samples keep their high byte (libpng's
@@ -35,6 +35,16 @@ the host C++ compiler and loaded with ``ctypes``; a missing compiler
 raises.  ``zlib`` and the ``ctypes`` calls release the interpreter lock, so
 loader threads decode in parallel.
 
+TIFF (``data/tiff.py``): cv2 reads an 8-bit file, and a 16-bit one under
+``IMREAD_COLOR`` or ``IMREAD_GRAYSCALE``, through libtiff's RGBA interface,
+whose arithmetic :func:`_imread_tiff` repeats: 16-bit gray keeps its high
+byte, 16-bit colour samples become (v + 128) // 257, an unassociated alpha
+(``ExtraSamples`` 2) premultiplies the colours as (c * a + 127) // 255,
+and gray under ``IMREAD_GRAYSCALE`` is ``color_aug.rgb_to_gray`` at 14
+fractional bits (cv2's own conversion of those RGBA rows).  A 16-bit file
+under ``IMREAD_UNCHANGED`` keeps its samples (gray + alpha excepted: cv2
+reads it as 8-bit gray).
+
 A missing file raises ``FileNotFoundError``, a corrupt one ``ValueError``;
 what is not decoded yet raises ``NotImplementedError`` naming its ROADMAP
 item.
@@ -49,6 +59,7 @@ import zlib
 import numpy as np
 
 from ..utils.native import CSRC, load_library
+from . import color_aug, tiff
 
 IMREAD_UNCHANGED, IMREAD_GRAYSCALE, IMREAD_COLOR = -1, 0, 1  # cv2's values
 
@@ -59,7 +70,6 @@ CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # color type -> samples per pixel
 _VARIANTS = "ROADMAP.md Queue 1 item 19, Adam7 and other PNG and JPEG variants"
-_TIFF = "ROADMAP.md Queue 1 item 20, TIFF images (the ITODD test set)"
 
 _INT = ctypes.POINTER(ctypes.c_int)
 # each library's functions: (argtypes, restype)
@@ -237,8 +247,46 @@ def _imread_jpeg(where: str, data: bytes, flags: int) -> np.ndarray:
     return decode_jpeg(data, gray=flags == IMREAD_GRAYSCALE)
 
 
+def _rgba8(samples: np.ndarray, info) -> np.ndarray:
+    """libtiff's RGBA rows (``TIFFReadRGBAStrip``) of a colour TIFF's
+    samples: (H, W, 4) uint8."""
+    h, w, spp = samples.shape
+    rgba = ((samples.astype(np.uint32) + 128) // 257).astype(np.uint8) if samples.dtype == np.uint16 else samples
+    out = np.empty((h, w, 4), np.uint8)
+    out[..., :3] = rgba[..., :3]
+    out[..., 3] = rgba[..., 3] if spp == 4 else 255
+    if spp == 4 and info["extra_samples"][:1] == (tiff.UNASSOCIATED_ALPHA,):
+        out[..., :3] = (out[..., :3] * out[..., 3:].astype(np.uint32) + 127) // 255
+    return out
+
+
+def _imread_tiff(data: bytes, flags: int) -> np.ndarray:
+    samples, info = tiff.decode(data)
+    gray = info["photometric"] == tiff.MINISBLACK
+    wide = samples.dtype == np.uint16
+    if flags == IMREAD_UNCHANGED and wide and samples.shape[2] != 2:
+        if gray:
+            return samples[..., 0]
+        return np.ascontiguousarray(samples[..., [2, 1, 0, 3][:samples.shape[2]]])
+    if flags not in (IMREAD_COLOR, IMREAD_GRAYSCALE, IMREAD_UNCHANGED):
+        raise ValueError(f"flags must be IMREAD_COLOR, IMREAD_GRAYSCALE or IMREAD_UNCHANGED, got {flags}")
+    if gray:  # libtiff's RGBA rows repeat the gray value; its 14-bit gray is the value
+        if (wide or samples.shape[2] == 2) and info["clipped_tiles"]:
+            raise tiff.unsupported("gray with 16-bit samples or alpha in tiles past the right edge (libtiff's "
+                                   "RGBA reader, which cv2.imread takes here, leaves all but the first row of "
+                                   "those tiles unread)")
+        v = (samples[..., 0] >> 8).astype(np.uint8) if wide else samples[..., 0]
+        return np.stack([v, v, v], -1) if flags == IMREAD_COLOR else np.ascontiguousarray(v)
+    rgba = _rgba8(samples, info)
+    if flags == IMREAD_COLOR:
+        return np.ascontiguousarray(rgba[..., :3])
+    if flags == IMREAD_GRAYSCALE:
+        return color_aug.rgb_to_gray(rgba, shift=14)
+    return np.ascontiguousarray(rgba[..., [2, 1, 0, 3][:samples.shape[2]]])
+
+
 def imread(path: str, flags: int = IMREAD_COLOR) -> np.ndarray:
-    """``cv2.imread(path, flags)`` for PNG and JPEG files, RGB for
+    """``cv2.imread(path, flags)`` for PNG, JPEG and TIFF files, RGB for
     ``IMREAD_COLOR`` (see the module docstring)."""
     with open(path, "rb") as f:  # a missing file raises FileNotFoundError
         data = f.read()
@@ -246,7 +294,7 @@ def imread(path: str, flags: int = IMREAD_COLOR) -> np.ndarray:
 
 
 def imdecode(data, flags: int = IMREAD_COLOR) -> np.ndarray:
-    """``cv2.imdecode(data, flags)`` for the bytes of a PNG or JPEG file
+    """``cv2.imdecode(data, flags)`` for the bytes of a PNG, JPEG or TIFF file
     (anything ``bytes()`` takes: bytes, a buffer, a uint8 array), RGB for
     ``IMREAD_COLOR``, as :func:`imread`.  Where ``cv2.imdecode`` returns
     None this raises ``ValueError``; a variant that is not decoded raises
@@ -259,10 +307,13 @@ def _decode(data: bytes, flags: int, where: str) -> np.ndarray:
     it in errors."""
     if data.startswith(b"\xff\xd8\xff"):
         return _imread_jpeg(where, data, flags)
-    if data[:4] in (b"II*\x00", b"MM\x00*"):
-        raise NotImplementedError(f"{where}: TIFF is not decoded ({_TIFF})")
+    if data[:2] in (b"II", b"MM"):
+        try:
+            return _imread_tiff(data, flags)
+        except (ValueError, NotImplementedError) as e:
+            raise type(e)(f"{where}: {e}") from None
     if not data.startswith(_PNG_SIGNATURE):
-        raise ValueError(f"{where}: not a PNG or JPEG file")
+        raise ValueError(f"{where}: not a PNG, JPEG or TIFF file")
     samples = decode_png(data)
     channels = samples.shape[2]
     if flags == IMREAD_UNCHANGED:

@@ -31,7 +31,6 @@ from . import color_aug
 from .image_io import IMREAD_GRAYSCALE, IMREAD_UNCHANGED, imread, imread_rgb
 from .poly import fill_poly
 
-_MASK_FREE = "ROADMAP.md Queue 1 item 17, mask-free distance maps"
 _OTHER = "ROADMAP.md Queue 1 item 12, other transforms and dataset types"
 
 
@@ -130,10 +129,10 @@ def resize_linear(img: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
     (a + b + c + d + 2) >> 2; otherwise each row is interpolated across x
     with 11-bit integer weights (exact int32 sums), and rows are blended as
     cv2's SIMD path does: ((r0 >> 4) * b0 >> 16) + ((r1 >> 4) * b1 >> 16),
-    then (+ 2) >> 2.  cv2 finishes a row whose W * C is not a multiple of
-    its vector width with a scalar tail rounded as (r0 * b0 + r1 * b1 +
-    2^21) >> 22, which can differ by 1 on those last columns; output widths
-    that are multiples of 64 / C have no tail."""
+    then (+ 2) >> 2.  cv2 5.0.0 blends every column so, the last ones of a
+    row whose W * C is not a multiple of its vector width included
+    (tests/test_torch_distance_map.py holds this at odd widths and
+    arbitrary ratios)."""
     w1, h1 = size_wh
     h0, w0 = img.shape[:2]
     x = img.reshape(h0, w0, -1).astype(np.int32)
@@ -152,6 +151,41 @@ def resize_linear(img: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
     r1 = rows[np.clip(sy + 1, 0, h0 - 1)] >> 4
     out = ((r0 * b0[:, None, None]) >> 16) + ((r1 * b1[:, None, None]) >> 16)
     return np.clip((out + 2) >> 2, 0, 255).astype(np.uint8).reshape((h1, w1) + img.shape[2:])
+
+
+def resize_linear_f32(img: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(img, size_wh)`` (INTER_LINEAR) on a float32 (H, W) map,
+    in OpenCV's own arithmetic, bit for bit: each row interpolated across x
+    as s0 * (1 - fx) + s1 * fx and the rows blended as r0 * (1 - fy) + r1 *
+    fy, each product and sum rounded to float32 (no fused multiply-add);
+    columns past either edge take the edge, rows past an edge keep their
+    weights on the clamped row; an exact 2x downscale is the 2x2 average
+    ((a + b) + (c + d)) * 0.25, the last W % 4 columns ((a + b) + c) + d.
+
+    cv2's default build sends float32 INTER_LINEAR through Intel IPP, whose
+    source coordinates round otherwise: within 2e-5 of a [0, 1] map
+    (tests/test_torch_distance_map.py); OpenCV's arithmetic is
+    ``cv2.resize`` under ``cv2.ipp.setUseIPP(False)``."""
+    w1, h1 = size_wh
+    x = np.ascontiguousarray(img, np.float32)
+    h0, w0 = x.shape
+    if (w1, h1) == (w0, h0):
+        return x.copy()
+    f32 = np.float32
+    if (w0, h0) == (2 * w1, 2 * h1):
+        a, b, c, d = x[0::2, 0::2], x[0::2, 1::2], x[1::2, 0::2], x[1::2, 1::2]
+        out = ((a + b) + (c + d)) * f32(0.25)
+        tail = w1 % 4
+        if tail:
+            out[:, w1 - tail:] = (((a + b) + c) + d)[:, w1 - tail:] * f32(0.25)
+        return out
+    sx, fx = _linear_taps(w1, w0)
+    fx[(sx < 0) | (sx >= w0 - 1)] = 0
+    sx = np.clip(sx, 0, w0 - 1)
+    rows = x[:, sx] * (f32(1) - fx) + x[:, np.minimum(sx + 1, w0 - 1)] * fx
+    sy, fy = _linear_taps(h1, h0)
+    return (rows[np.clip(sy, 0, h0 - 1)] * (f32(1) - fy)[:, None]
+            + rows[np.clip(sy + 1, 0, h0 - 1)] * fy[:, None])
 
 
 def resize_nearest(img: np.ndarray, size_wh: Tuple[int, int]) -> np.ndarray:
@@ -311,17 +345,29 @@ class Pad:
 
 
 class GenerateDistanceMap:
-    """With GT masks the binary visible mask is the distance map."""
+    """With GT masks the binary visible mask is the distance map; without
+    (``with_gt_mask=False``), each GT's map is estimated from its box by
+    ``distance_transform`` ('gdt' or 'mbd'; ``kwargs`` are
+    ``ops.distance_transform.boxes_to_distance_maps``'s), the fill colours
+    of its padded crops drawn as the JAX package draws them (see
+    :func:`_generator`)."""
 
-    def __init__(self, with_gt_mask: bool = True, distance_transform: str = "gdt", **kwargs):
-        if not with_gt_mask:
-            raise NotImplementedError(
-                f"GenerateDistanceMap(with_gt_mask=False) estimates maps from boxes "
-                f"({distance_transform!r}) and is not ported ({_MASK_FREE})"
-            )
+    def __init__(self, with_gt_mask: bool = True, distance_transform: str = "gdt", seed: Optional[int] = None,
+                 **kwargs):
+        self.with_gt_mask = with_gt_mask
+        self.distance_transform = distance_transform
+        self.kwargs = kwargs
+        self.rng = _generator(seed)
 
     def __call__(self, results: Dict[str, Any]) -> Dict[str, Any]:
-        results["distance_maps"] = results["gt_masks"].astype(np.float32)
+        if self.with_gt_mask:
+            results["distance_maps"] = results["gt_masks"].astype(np.float32)
+            return results
+        from ..ops.distance_transform import boxes_to_distance_maps  # it imports this module's resizes
+
+        results["distance_maps"] = boxes_to_distance_maps(results["img"], results["gt_bboxes"],
+                                                          method=self.distance_transform, rng=self.rng,
+                                                          **self.kwargs)
         return results
 
 

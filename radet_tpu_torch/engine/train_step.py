@@ -122,8 +122,10 @@ class TrainStep:
         device = next(model.parameters()).device
         self.anchors = torch.as_tensor(anchors, dtype=torch.float32, device=device)
         self.ranges = torch.as_tensor(regress_ranges, dtype=torch.float32, device=device)
-        self.mean = torch.tensor(img_norm["mean"], dtype=torch.float32, device=device)
-        self.std = torch.tensor(img_norm["std"], dtype=torch.float32, device=device)
+        # in preprocess_images' working dtype: float32, or float64 for a float64 model
+        work = torch.promote_types(model.dtype, torch.float32)
+        self.mean = torch.tensor(img_norm["mean"], dtype=work, device=device)
+        self.std = torch.tensor(img_norm["std"], dtype=work, device=device)
         self.precision = step_precision(model)
 
     @torch.no_grad()
@@ -202,8 +204,10 @@ class AnchorTrainStep:
         self.anchors = torch.as_tensor(anchors, dtype=torch.float32, device=device)
         mask = spec.get("valid_mask")
         self.valid_mask = None if mask is None else torch.as_tensor(mask, device=device)
-        self.mean = torch.tensor(img_norm["mean"], dtype=torch.float32, device=device)
-        self.std = torch.tensor(img_norm["std"], dtype=torch.float32, device=device)
+        # in preprocess_images' working dtype: float32, or float64 for a float64 model
+        work = torch.promote_types(model.dtype, torch.float32)
+        self.mean = torch.tensor(img_norm["mean"], dtype=work, device=device)
+        self.std = torch.tensor(img_norm["std"], dtype=work, device=device)
         self.precision = step_precision(model)
 
     @torch.no_grad()

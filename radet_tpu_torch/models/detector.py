@@ -19,11 +19,14 @@ def preprocess_images(images_u8, mean, std, dtype=torch.float32):
 
     The result is a channels-last view (NHWC bytes in NCHW shape): no
     transpose is copied, and cuDNN's convolutions take that layout as is.
-    ``mean``/``std`` are per-channel float32 tensors or sequences.
+    ``mean``/``std`` are per-channel tensors or sequences.  The
+    normalization runs in float32, or in ``dtype`` where that is wider (a
+    float64 model).
     """
-    x = images_u8.float()
-    mean = torch.as_tensor(mean, dtype=torch.float32, device=x.device)
-    std = torch.as_tensor(std, dtype=torch.float32, device=x.device)
+    work = torch.promote_types(dtype, torch.float32)
+    x = images_u8.to(work)
+    mean = torch.as_tensor(mean, dtype=work, device=x.device)
+    std = torch.as_tensor(std, dtype=work, device=x.device)
     x = (x - mean) / std
     return x.to(dtype).permute(0, 3, 1, 2)
 

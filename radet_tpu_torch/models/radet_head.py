@@ -37,6 +37,12 @@ import torch.nn.functional as F
 from ..ops.quant import affine_act_scale, fake_quant_ste, int8_conv_forward, qat_conv_forward, quantize_int8
 from .layers import Conv2d, normal_
 
+
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or as it is when wider (a float64 model)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 HEAD_QUANT = (None, "int8")
 _GN_BOUND_K = 8.0  # k of the static GroupNorm activation bound
 
@@ -53,7 +59,7 @@ class ConvGNBlock(nn.Module):
     def forward(self, x):
         # GroupNorm in float32 on the upcast conv output, as the JAX package
         # does under bf16 compute
-        return F.relu(self.gn(self.conv(x).float())).to(x.dtype)
+        return F.relu(self.gn(_wide(self.conv(x)))).to(x.dtype)
 
     def forward_int8(self, x, x_scale, emit_int8: bool, dtype, qat: bool = False):
         """The int8 block: ``x`` float (``x_scale`` None: dynamic absmax) or
@@ -154,11 +160,11 @@ class RADetHead(nn.Module):
         for scale, x in zip(self.scales, feats):
             cls_feat = _run_tower(self.cls_convs, x, self.quant, qat)
             reg_feat = _run_tower(self.reg_convs, x, self.quant, qat)
-            cls_score = self.atss_cls(cls_feat).float()
-            bbox_pred = scale(self.atss_reg(reg_feat).float())
+            cls_score = _wide(self.atss_cls(cls_feat))
+            bbox_pred = scale(_wide(self.atss_reg(reg_feat)))
             if self.reg_relu:
                 bbox_pred = F.relu(bbox_pred)
-            iou_pred = self.atss_centerness(reg_feat).float()
+            iou_pred = _wide(self.atss_centerness(reg_feat))
             cls_out.append(cls_score.permute(0, 2, 3, 1))
             reg_out.append(bbox_pred.permute(0, 2, 3, 1))
             iou_out.append(iou_pred.permute(0, 2, 3, 1))

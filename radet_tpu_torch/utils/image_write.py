@@ -32,7 +32,7 @@ from .native import CSRC, load_library
 JPEG_SOURCE = CSRC / "jpeg_encode.cpp"
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 JPEG_EXTENSIONS = (".jpg", ".jpeg", ".jpe")
-_TIFF = "ROADMAP.md Queue 1 item 20, TIFF images"
+_TIFF = "ROADMAP.md Queue 1 item 20b, TIFF writing"
 _FORMATS = "ROADMAP.md Queue 1 item 15c's remainder, other image formats"
 _JPEG_API = {
     "radet_jpeg_encode": ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64,

@@ -6,8 +6,10 @@ of its polygon masks (``cv2.fillPoly``) on fixed polygons.
 
 - ``radet_tpu_torch/data/gaussian_taps.py``: for each integer sigma 1..10,
   the integer taps (summing to 256) of ``cv2.GaussianBlur(img, (0, 0),
-  sigma)`` on uint8, read off a blur of a one-pixel vertical line of 255s
-  (each output of the line's row is its tap, as every tap is below 128);
+  sigma)`` on uint8, and for each kernel size of ``KSIZES`` those of
+  ``cv2.GaussianBlur(img, (k, k), 0)`` (sigma derived by cv2), read off a
+  blur of a one-pixel vertical line of 255s (each output of the line's row
+  is its tap, as every tap is at most 128);
 - ``hashes.json``: for each fixture of ``tests/data/jpeg`` decoded RGB by
   cv2, each enhance op at the factors of ``FACTORS`` and the blur at sigma
   1, 2, 3 (``OPS``), and the masks of ``polygons()`` as
@@ -30,6 +32,7 @@ REPO = osp.dirname(osp.dirname(osp.dirname(HERE)))
 JPEG_DIR = osp.join(osp.dirname(HERE), "jpeg")
 TAPS_MODULE = osp.join(REPO, "radet_tpu_torch", "data", "gaussian_taps.py")
 SIGMAS = range(1, 11)
+KSIZES = (3, 9)  # the mask-free distance maps' blurs (sigma 0)
 # enhance op: factors (its interval's ends in the flagship and one inside)
 FACTORS = {
     "Brightness": (0.1, 1.7, 6.0),
@@ -41,13 +44,14 @@ BLUR_SIGMAS = (1, 2, 3)
 MASK_HW = (480, 640)
 
 
-def cv2_taps(sigma: int) -> list:
-    """cv2's integer taps of the uint8 Gaussian blur at ``sigma``."""
-    k = int(round(6 * sigma + 1)) | 1
+def cv2_taps(sigma: int = 0, ksize: int = 0) -> list:
+    """cv2's integer taps of the uint8 Gaussian blur at ``sigma`` (kernel
+    size from sigma), or at kernel size ``ksize`` with sigma 0."""
+    k = ksize or int(round(6 * sigma + 1)) | 1
     n = 4 * k + 1
     img = np.zeros((3, n), np.uint8)
     img[:, n // 2] = 255
-    row = cv2.GaussianBlur(img, (0, 0), sigmaX=float(sigma))[1].astype(int)
+    row = cv2.GaussianBlur(img, (ksize, ksize), sigmaX=float(sigma))[1].astype(int)
     return row[n // 2 - k // 2:n // 2 + k // 2 + 1].tolist()
 
 
@@ -81,15 +85,21 @@ def main():
     from radet_tpu.data import pipeline as jax_pipeline
 
     taps = {s: cv2_taps(s) for s in SIGMAS}
-    assert all(sum(t) == 256 and max(t) < 128 for t in taps.values())
+    ktaps = {k: cv2_taps(ksize=k) for k in KSIZES}
+    assert all(sum(t) == 256 and max(t) <= 128 for t in [*taps.values(), *ktaps.values()])
     with open(TAPS_MODULE, "w") as f:
         f.write('"""Integer taps of cv2\'s uint8 Gaussian blur, ``cv2.GaussianBlur(img, (0, 0),\n'
-                'sigma)``, at integer sigma 1 to 10 (kernel size round(6 sigma + 1) | 1; the\n'
-                'taps sum to 256).  Written by tests/data/color_aug/make_fixtures.py from\n'
+                'sigma)``, at integer sigma 1 to 10 (kernel size round(6 sigma + 1) | 1), and\n'
+                '``cv2.GaussianBlur(img, (k, k), 0)`` at kernel sizes k of ``GAUSSIAN_KSIZE_TAPS``\n'
+                '(sigma 0.3 (k / 2 - 1) + 0.8; k 3 takes cv2\'s fixed [1, 2, 1] / 4); the taps sum\n'
+                'to 256.  Written by tests/data/color_aug/make_fixtures.py from\n'
                 f'cv2 {cv2.__version__}; tests/test_torch_color_aug.py derives them again."""\n\n'
                 "GAUSSIAN_TAPS = {\n")
         for s, t in taps.items():
             f.write(f"    {s}: {tuple(t)},\n")
+        f.write("}\n\nGAUSSIAN_KSIZE_TAPS = {\n")
+        for k, t in ktaps.items():
+            f.write(f"    {k}: {tuple(t)},\n")
         f.write("}\n")
 
     def sha(a):

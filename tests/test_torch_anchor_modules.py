@@ -40,6 +40,7 @@ from radet_tpu_torch.ops.vote_nms import batched_nms, batched_nms_plain
 from radet_tpu_torch.utils.config import Config
 from torch_parity import ANCHOR_CONFIGS, ANCHOR_HW
 from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
+from torch_tmp import drop_module_tmp, drop_passed_tmp_path  # noqa: F401 (autouse: passed tests' files removed)
 
 HEADS = sorted(ANCHOR_CONFIGS)
 

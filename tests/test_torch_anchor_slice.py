@@ -44,6 +44,7 @@ from radet_tpu_torch.utils.config import Config
 from synthetic_bop import write_bop_test_set
 from torch_parity import ANCHOR_CONFIGS, ANCHOR_HW, anchor_pair
 from torch_threads import one_thread_env, one_torch_thread  # noqa: F401 (autouse: one torch thread)
+from torch_tmp import drop_module_tmp, drop_passed_tmp_path  # noqa: F401 (autouse: passed tests' files removed)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 HEADS = sorted(ANCHOR_CONFIGS)

@@ -22,6 +22,7 @@ from radet_tpu_torch.core.anchors import generate_anchors
 from radet_tpu_torch.core.assignment import assign_labels, candidate_mask
 from torch_parity import jax_assignment_noise
 from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
+from torch_tmp import drop_module_tmp, drop_passed_tmp_path  # noqa: F401 (autouse: passed tests' files removed)
 
 IMG_HW = (128, 192)
 B, G = 3, 8

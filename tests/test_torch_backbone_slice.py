@@ -50,6 +50,7 @@ from radet_tpu_torch.utils.config import Config
 from synthetic_bop import synthetic_bop_records, write_bop_test_set, write_png, write_train_config
 from torch_parity import IMG_HW, NARROW, ZOO_CONFIGS, jax_assignment_noise, zoo_pair
 from torch_threads import one_thread_env, one_torch_thread  # noqa: F401 (autouse: one torch thread)
+from torch_tmp import drop_module_tmp, drop_passed_tmp_path  # noqa: F401 (autouse: passed tests' files removed)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 ZOO = sorted(ZOO_CONFIGS)

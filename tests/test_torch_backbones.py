@@ -43,6 +43,7 @@ from torch_parity import TOL, numpy_variables
 sys.path.insert(0, osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))), "tools"))
 from convert_torch_weights import convert_mmdet_detector  # noqa: E402
 from torch_threads import one_torch_thread  # noqa: E402, F401 (autouse: one torch thread)
+from torch_tmp import drop_module_tmp, drop_passed_tmp_path  # noqa: E402, F401 (autouse: passed tests' files removed)
 
 
 def _nest(tree, path):

@@ -26,6 +26,7 @@ from radet_tpu_torch.data.poly import fill_poly
 from radet_tpu_torch.utils.config import Config
 from torch_parity import FLAGSHIP
 from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
+from torch_tmp import drop_module_tmp, drop_passed_tmp_path  # noqa: F401 (autouse: passed tests' files removed)
 
 HERE = osp.dirname(osp.abspath(__file__))
 FIXTURES = osp.join(HERE, "data", "color_aug")

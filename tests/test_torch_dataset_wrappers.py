@@ -23,6 +23,7 @@ from radet_tpu_torch.utils.config import Config
 from fixtures import make_synthetic_bop
 from torch_parity import NARROW
 from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
+from torch_tmp import drop_module_tmp, drop_passed_tmp_path  # noqa: F401 (autouse: passed tests' files removed)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 MIXPBR = osp.join(REPO, "configs", "bop", "r50_ycbv_mixpbr.py")

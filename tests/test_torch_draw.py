@@ -50,6 +50,7 @@ from radet_tpu_torch.utils.text_glyphs import GLYPHS
 from synthetic_bop import JPEG_FIXTURES, write_bop_test_set
 from torch_parity import FLAGSHIP, IMG_HW, NARROW
 from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
+from torch_tmp import drop_module_tmp, drop_passed_tmp_path  # noqa: F401 (autouse: passed tests' files removed)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CHARS = "".join(chr(c) for c in range(32, 127))
@@ -262,7 +263,7 @@ def test_png_decodes_to_cv2_pixels_and_other_formats_raise(tmp_path):
         cv2.imwrite(str(tmp_path / "cv2.png"), img)
         for path in ("port.png", "cv2.png"):
             np.testing.assert_array_equal(cv2.imread(str(tmp_path / path), cv2.IMREAD_UNCHANGED), img)
-    with pytest.raises(NotImplementedError, match="item 20"):
+    with pytest.raises(NotImplementedError, match="item 20b, TIFF writing"):
         imwrite(str(tmp_path / "x.tif"), img[..., :3])
     with pytest.raises(NotImplementedError, match="item 15c"):
         imwrite(str(tmp_path / "x.bmp"), img[..., :3])

@@ -67,6 +67,7 @@ from test_torch_qat import STEP_RTOL, _close
 from test_torch_qat_step import _step_batch
 from test_torch_quant import STREAM_FLIPS, STREAM_LEVELS, STREAM_RTOL, _nchw, _nhwc, _rel_err
 from torch_parity import jax_assignment_noise, numpy_variables
+from torch_tmp import drop_module_tmp, drop_passed_tmp_path  # noqa: F401 (autouse: passed tests' files removed)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CONFIG = osp.join(REPO, "configs", "bop", "r50_ycbv_pbr_frozen_int8.py")

@@ -30,6 +30,7 @@ from radet_tpu_torch.data.pipeline import (
 )
 from synthetic_bop import JPEG_FIXTURES, write_png
 from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
+from torch_tmp import drop_module_tmp, drop_passed_tmp_path  # noqa: F401 (autouse: passed tests' files removed)
 
 IMREAD = {"color": IMREAD_COLOR, "gray": IMREAD_GRAYSCALE, "unchanged": IMREAD_UNCHANGED}
 
@@ -123,9 +124,9 @@ def test_unread_files_raise(tmp_path):
     cv2.imwrite(str(tmp_path / "a.jpg"), img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     with pytest.raises(NotImplementedError, match="item 19"):
         image_io.imread_rgb(str(tmp_path / "a.jpg"))
-    cv2.imwrite(str(tmp_path / "a.tif"), img)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        image_io.imread_rgb(str(tmp_path / "a.tif"))
+    cv2.imwrite(str(tmp_path / "a.tif"), img)  # TIFF is read (item 20): as cv2 reads it
+    np.testing.assert_array_equal(image_io.imread_rgb(str(tmp_path / "a.tif")),
+                                  cv2.imread(str(tmp_path / "a.tif"))[..., ::-1])
     (tmp_path / "adam7.png").write_bytes(_png_bytes(img, interlace=1))
     with pytest.raises(NotImplementedError, match="item 19"):
         image_io.imread_rgb(str(tmp_path / "adam7.png"))

@@ -49,6 +49,7 @@ from synthetic_bop import synthetic_bop_records
 from test_torch_backbones import BACKBONE, BLOCK, SPLIT_ATTENTION, _blocks, _carry, _nchw
 from torch_parity import FLAGSHIP, NARROW, jax_assignment_noise, numpy_variables
 from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
+from torch_tmp import drop_module_tmp, drop_passed_tmp_path  # noqa: F401 (autouse: passed tests' files removed)
 
 STAT_RTOL = 1e-5
 # the narrow flagship on ResNet-18 with live BN at validate_learning's input

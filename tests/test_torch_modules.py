@@ -23,6 +23,7 @@ from radet_tpu_torch.models.detector import flatten_head_outputs, preprocess_ima
 from radet_tpu_torch.utils.config import Config
 from torch_parity import IMG_HW, SMALL_MODEL, TOL, flax_and_port_models
 from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
+from torch_tmp import drop_module_tmp, drop_passed_tmp_path  # noqa: F401 (autouse: passed tests' files removed)
 
 FLAGSHIP = "configs/bop/r50_ycbv_pbr.py"
 

@@ -57,6 +57,7 @@ from radet_tpu_torch.utils.config import Config
 from test_torch_backbones import BLOCK, _carry, _nchw
 from torch_parity import numpy_variables
 from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
+from torch_tmp import drop_module_tmp, drop_passed_tmp_path  # noqa: F401 (autouse: passed tests' files removed)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 QAT_CONFIG = osp.join(REPO, "configs", "bop", "r50_ycbv_pbr_int8_qat.py")

@@ -27,6 +27,7 @@ from synthetic_bop import synthetic_bop_records
 from test_torch_qat import FLIP_SHARE, QAT_CONFIG, STEP_HW, STEP_RTOL, SharedLevels, _close
 from torch_parity import jax_assignment_noise, numpy_variables
 from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
+from torch_tmp import drop_module_tmp, drop_passed_tmp_path  # noqa: F401 (autouse: passed tests' files removed)
 
 
 def _step_batch(n, num_classes, seed=0):

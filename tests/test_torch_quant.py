@@ -54,6 +54,7 @@ from radet_tpu_torch.models.resnet import Bottleneck
 from radet_tpu_torch.ops import quant
 from radet_tpu_torch.tools import profile_infer, validate_learning
 from radet_tpu_torch.utils.config import Config
+from torch_tmp import drop_module_tmp, drop_passed_tmp_path  # noqa: F401 (autouse: passed tests' files removed)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 BOP = osp.join(REPO, "configs", "bop")

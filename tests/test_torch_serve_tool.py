@@ -23,6 +23,7 @@ from radet_tpu_torch.tools.serve import make_server
 from synthetic_bop import JPEG_FIXTURES, write_png
 from torch_parity import assert_same_detections, serving_pair
 from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
+from torch_tmp import drop_module_tmp, drop_passed_tmp_path  # noqa: F401 (autouse: passed tests' files removed)
 
 TIMEOUT = 60
 

@@ -22,6 +22,7 @@ from radet_tpu.apis.inference import inference_detector as jax_inference_detecto
 from radet_tpu_torch import BatchingDetector, async_inference_detector, inference_detector
 from torch_parity import assert_same_detections, serving_pair
 from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
+from torch_tmp import drop_module_tmp, drop_passed_tmp_path  # noqa: F401 (autouse: passed tests' files removed)
 
 # the input size, smaller and larger ones (resized), and ones that are padded
 SIZES = [(64, 96), (48, 72), (100, 150), (60, 96), (128, 192), (30, 40), (64, 80)]

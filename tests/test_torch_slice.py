@@ -30,6 +30,7 @@ from radet_tpu_torch.utils.config import Config
 from synthetic_bop import write_png
 from torch_parity import FLAGSHIP, IMG_HW, NARROW, flax_and_port_models
 from torch_threads import one_thread_env, one_torch_thread  # noqa: F401 (autouse: one torch thread)
+from torch_tmp import drop_module_tmp, drop_passed_tmp_path  # noqa: F401 (autouse: passed tests' files removed)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 

@@ -51,6 +51,7 @@ from synthetic_bop import write_bop_test_set
 from test_torch_backbones import BACKBONE, VARIANTS, _carry, _nchw
 from torch_parity import ANCHOR_CONFIGS, FLAGSHIP, IMG_HW, NARROW, numpy_variables
 from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
+from torch_tmp import drop_module_tmp, drop_passed_tmp_path  # noqa: F401 (autouse: passed tests' files removed)
 
 NAMES = ["a", "b", "c", "d"]
 GROUPS = [(3, IMG_HW), (2, (81, 108))]  # landscape only: one JAX compile per test_from_config

@@ -73,6 +73,7 @@ import convert_torch_weights  # noqa: E402
 import export_model as jax_export_model  # noqa: E402
 import get_flops as jax_get_flops  # noqa: E402
 from torch_threads import one_torch_thread  # noqa: E402, F401 (autouse: one torch thread)
+from torch_tmp import drop_module_tmp, drop_passed_tmp_path  # noqa: E402, F401 (autouse: passed tests' files removed)
 
 CPU_NARROW = [o for o in NARROW if not o.startswith("compute_dtype")] + SERVE_TEST_CFG
 # the export and the anchor heads' conversions trace, save and load whole

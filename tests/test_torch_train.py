@@ -14,6 +14,7 @@ refusals, and ``train_detector`` with JAX made unimportable.
 import os
 import os.path as osp
 import pickle
+import random
 import subprocess
 import sys
 
@@ -72,6 +73,7 @@ from torch_parity import (
 )
 from synthetic_bop import synthetic_bop_records as synthetic_records
 from torch_threads import default_torch_threads, one_thread_env, one_torch_thread  # noqa: F401 (fixtures)
+from torch_tmp import drop_module_tmp, drop_passed_tmp_path  # noqa: F401 (autouse: passed tests' files removed)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 TRAIN = NARROW + ["data.samples_per_gpu=2"]
@@ -309,6 +311,86 @@ def test_train_step_matches_jax(narrow):
     assert moved > 100
 
 
+class _JnpX64:
+    """``jax.numpy`` with ``float32`` read as ``float64``: the JAX package's
+    explicit float32 casts (preprocessing, GroupNorm, the head's outputs)
+    keep float64 under it."""
+
+    def __getattr__(self, name):
+        return jnp.float64 if name == "float32" else getattr(jnp, name)
+
+
+def _float64_grads(opt_state, batch_stats):
+    """The JAX step's float64 gradients as a port state dict in float64:
+    ``state_dict_from_flax`` gives float32 tensors, so the gradients go
+    through it as a float32 head and tail whose sum is exact to 2^-48."""
+    g = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), opt_state)
+    hi = jax.tree_util.tree_map(lambda a: a.astype(np.float32), g)
+    lo = jax.tree_util.tree_map(lambda a, h: (a - h.astype(np.float64)).astype(np.float32), g, hi)
+    hi_sd = state_dict_from_flax({"params": hi, "batch_stats": batch_stats})
+    lo_sd = state_dict_from_flax({"params": lo, "batch_stats": batch_stats})
+    return {k: hi_sd[k].double() + lo_sd[k].double() for k in hi_sd}
+
+
+def test_train_step_matches_jax_in_float64(monkeypatch):
+    """The float32 case above holds its gradients at 1e-4 of each tensor's
+    max only on torch's default thread count (ROADMAP Queue 3): in float64,
+    on one thread, the same narrow step of both packages (the JAX package
+    under x64, its float32 casts read as float64; the port's model in
+    float64) agrees to 1e-10 of each tensor's max and its losses to 1e-12,
+    so the float32 gap is the order of float32 reductions.  The JAX
+    package is not edited: its modules' ``jnp`` and the dtype table of
+    ``radet_tpu/models/builder.py`` are patched for this test only."""
+    import radet_tpu.models.builder as jax_builder
+
+    assert torch.get_num_threads() == 1
+    cfg = Config.fromfile(FLAGSHIP, TRAIN)
+    batch = _batch(cfg)
+    with jax.enable_x64(True):
+        monkeypatch.setitem(jax_builder._DTYPES, "float64", jnp.float64)
+        for name, mod in list(sys.modules.items()):
+            if name.startswith("radet_tpu.") and getattr(mod, "jnp", None) is jnp:
+                monkeypatch.setattr(mod, "jnp", _JnpX64())
+        jax_cfg = JaxConfig.fromfile(FLAGSHIP, TRAIN + ["compute_dtype='float64'"])
+        jax_model, anchors, ranges, _ = jax_build_model_and_anchors(jax_cfg)
+        port, _, _, _ = build_model_and_anchors(cfg, dtype=torch.float64)
+        variables = flax_and_port_models(jax_model, port)
+        variables = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), variables)
+        capture = optax.GradientTransformation(
+            lambda p: jax.tree_util.tree_map(jnp.zeros_like, p),
+            lambda g_, s, p=None: (jax.tree_util.tree_map(jnp.zeros_like, g_), g_),
+        )
+        jstep = jax_build_train_step(
+            jax_model, capture, anchors, ranges, img_norm=jax_cfg.img_norm_cfg.to_dict(), num_classes=4,
+            assignment_cfg=jax_assignment_cfg_from(jax_cfg), loss_cfg=jax_loss_cfg_from(jax_cfg),
+        )
+        params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
+        jstate = JaxTrainState(step=jnp.zeros((), jnp.int32), params=params,
+                               batch_stats=jax.tree_util.tree_map(jnp.asarray, variables["batch_stats"]),
+                               opt_state=capture.init(params))
+        key = jax.random.PRNGKey(7)
+        jstate, ref = jstep(jstate, {k: jnp.asarray(batch[k]) for k in
+                                     ("image", "gt_boxes", "gt_labels", "gt_valid", "dist_vals")}, key)
+        ref_grads = _float64_grads(jstate.opt_state, variables["batch_stats"])
+        b, n, g = batch["dist_vals"].shape[0], anchors.shape[0], batch["gt_boxes"].shape[1]
+        noise = tuple(torch.from_numpy(a) for a in jax_assignment_noise(jax.random.fold_in(key, 0), b, g, n, 10))
+    assert noise[0].dtype == torch.float64 and all(v.dtype == torch.float64 for v in ref_grads.values())
+    port = port.double()
+    port.load_state_dict({k: v.double() if v.is_floating_point() else v
+                          for k, v in state_dict_from_flax(variables).items()})
+    step = build_train_step(port, anchors, ranges, img_norm=cfg.img_norm_cfg.to_dict(), num_classes=4,
+                            assignment_cfg=assignment_cfg_from(cfg), loss_cfg=loss_cfg_from(cfg))
+    sgd0, _ = build_optimizer(dict(type="SGD", lr=0.0), dict(policy="fixed"), None, port)
+    metrics = step(TrainState(port, sgd0), batch_to_device(batch, "cpu"), noise)
+    assert float(metrics["num_pos"]) > 10
+    for k in ("loss_cls", "loss_bbox", "loss_iou", "num_pos", "loss", "grad_norm"):
+        _close(float(metrics[k]), float(ref[k]), 1e-12, k)
+    for name, p in port.named_parameters():
+        if p.requires_grad:
+            assert p.grad.dtype == torch.float64, name
+            _close(p.grad.numpy(), ref_grads[name].numpy(), 1e-10, name)
+
+
 def test_checkpoint_resume_equals_uninterrupted_run(tmp_path):
     cfg = Config.fromfile(FLAGSHIP, TRAIN)
     batches = [batch_to_device(_batch(cfg, seed=s), "cpu") for s in range(3)]
@@ -424,8 +506,15 @@ def test_unported_training_options_raise(tmp_path):
     with pytest.raises(RuntimeError) as got:
         train_detector(files, work_dir=str(tmp_path), device="cpu")
     assert str(got.value) == str(ref.value)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        GenerateDistanceMap(with_gt_mask=False)
+    # the mask-free distance maps are ported (item 17): both packages' maps of one box, the same fill colour drawn
+    rec = synthetic_records(np.random.RandomState(2), 1, IMG_HW, 4)[0]
+    for method in ("gdt", "mbd"):
+        results = dict(img=rec["img"], gt_bboxes=np.array([[4.0, 6.0, 60.0, 50.0]], np.float32))
+        got = GenerateDistanceMap(with_gt_mask=False, distance_transform=method, seed=5)(dict(results))
+        random.seed(5)
+        want = jax_pipeline.GenerateDistanceMap(with_gt_mask=False, distance_transform=method)(dict(results))
+        assert got["distance_maps"].shape == (1,) + IMG_HW and got["distance_maps"].max() == 1.0
+        np.testing.assert_allclose(got["distance_maps"], want["distance_maps"], rtol=0, atol=2e-5)
     entries = [dict(type="LoadAnnotations", with_bbox=True, with_bop_mask=True), dict(type="CosyPoseAug", p=0.8)]
     assert [type(t).__name__ for t in build_pipeline(entries).transforms] == [
         type(t).__name__ for t in jax_pipeline.build_pipeline(entries).transforms] == ["LoadAnnotations",
@@ -447,7 +536,8 @@ def test_unported_training_options_raise(tmp_path):
 
 def test_train_detector_resumes_and_loads_weights(tmp_path):
     records = synthetic_records(np.random.RandomState(1), 4, IMG_HW, 4)
-    opts = TRAIN + ["checkpoint_config.interval=1", "log_config.interval=1", "data.workers_per_gpu=1"]
+    # checkpoints at step 2 only, and where each run ends: no test reads a step-1 checkpoint
+    opts = TRAIN + ["checkpoint_config.interval=2", "log_config.interval=1", "data.workers_per_gpu=1"]
     cfg = Config.fromfile(FLAGSHIP, opts)
 
     def run(work_dir, cfg=cfg, **kw):

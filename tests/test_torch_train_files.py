@@ -38,6 +38,7 @@ from fixtures import make_synthetic_bop
 from synthetic_bop import write_png, write_train_config
 from torch_parity import FLAGSHIP, NARROW
 from torch_threads import one_thread_env, one_torch_thread  # noqa: F401 (autouse: one torch thread)
+from torch_tmp import drop_module_tmp, drop_passed_tmp_path  # noqa: F401 (autouse: passed tests' files removed)
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 MIXPBR = osp.join(REPO, "configs", "bop", "r50_ycbv_mixpbr.py")

@@ -21,6 +21,7 @@ import torch
 import radet_tpu_torch.ops.vote_nms_cuda as cuda_mod
 from radet_tpu_torch.ops.vote_nms import batched_nms, batched_nms_plain, pairwise_iou, vote_nms, vote_nms_plain
 from torch_threads import one_torch_thread  # noqa: F401 (autouse: one torch thread)
+from torch_tmp import drop_module_tmp, drop_passed_tmp_path  # noqa: F401 (autouse: passed tests' files removed)
 
 THR = 0.5
 
