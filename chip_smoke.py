@@ -107,7 +107,7 @@ Run from the repository root, with one card:  python3 chip_smoke.py
    ``inference_detector`` on 8 random 480x640 images with the vote-NMS
    launches counted, that run's NMS inputs through the kernel and the plain
    version in float64, the float32 forward against the CPU's, inference at
-   batch 8 and 128 and the train step at batch 16 timed with peak memory,
+   batch 8 and the train step at batch 16 timed with peak memory,
    and the float32 step on the card against the CPU at batch 1 (same ReLU
    sides); then RegNet through the train CLI (``ZOO_STEPS`` steps from the
    JPEG ``train_pbr`` split, one eval), the test CLI (strict) on its
@@ -136,8 +136,9 @@ Run from the repository root, with one card:  python3 chip_smoke.py
    in a fresh process and run on the main path's images (launches counted
    per call, outputs held to the eager step, both timed);
    ``tools.eval_metric`` on the phase-5 test CLI's ``--out`` pickle (its
-   metrics equal to the CLI's); ``tools.profile_pipeline`` for the train
-   and test pipelines at 4 workers, threads and processes;
+   metrics equal to the CLI's); ``tools.profile_pipeline`` for the test
+   pipeline at 4 workers, threads and processes (the train pipeline's
+   loader is phase 7's);
 13. runs the int8 deploy family (``configs/bop/r50_ycbv_pbr_int8*.py``):
    builds ``csrc/int8_conv.cu`` with the other sources and holds it to its
    plain version (float64 on the card without cuDNN, exact) bit for bit,
@@ -227,7 +228,21 @@ Run from the repository root, with one card:  python3 chip_smoke.py
    uncompressed TIFF and a PNG of the same pixels; ``tools.test`` on
    ``configs/bop/r50_itodd_pbr.py`` (28 classes, full width, bf16, batch
    16, ``--eval bbox`` with the BOP json), its two vote-NMS launches at K
-   2048 held to the plain version.
+   2048 held to the plain version;
+20. runs the extra backbone families (``models/backbones_extra.py``), each
+   the flagship config with ``EXTRA_CONFIGS``' options: Darknet-53 + FPN
+   from C3, HRNet-W32 + FPN ``on_lateral`` with ReLUs before the extra
+   convs, DetectoRS R50 with SAC in layers 2-4 + the flagship's FPN, and
+   SSD300's VGG-16 + ChannelMapper on six levels (38² to 1²) at 300x300:
+   ``init_detector`` at full width (seeded random weights, bf16; DetectoRS's
+   SAC BatchNorms given statistics from a forward of random images), the
+   parameter count, trunk and neck widths and GFLOPs per image beside the
+   flagship's, ``inference_detector`` on 8 random images with the vote-NMS
+   launches counted, that run's NMS inputs through the kernel and the
+   plain version in float64, the float32 forward against the CPU's,
+   inference timed at batch 8 and 128 with peak memory, and for Darknet
+   and DetectoRS the ``--fuse-conv-bn`` fold's float32 forward against
+   the unfused one (SAC's BatchNorms left in place).
    Each phase prints its wall time.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
@@ -2277,22 +2292,74 @@ def zoo_step_checks(cfg, dataset, name: str, gpu: str) -> None:
     step_parity(cfg, dataset, name, gpu)
 
 
+def inference_checks(det, config, name: str, gpu: str, img_rng, timings=((8, 20), (128, 5))) -> int:
+    """The main path of ``det`` (its cls bias set to 0, so that scores clear
+    score_thr): ``inference_detector`` on 8 random images at its input size
+    with the vote-NMS launches counted (none fails the phase) and the
+    detections checked; that run's NMS inputs through the kernel and the
+    plain version in float64, and the float32 forward against the CPU's
+    (:func:`forward_checks`, the CPU model from ``config``: a path or a
+    Config); ms per batch, img/s and peak memory at each (batch, iterations)
+    of ``timings``.  Returns the launches."""
+    import radet_tpu_torch.ops.vote_nms_cuda as vnc
+    from radet_tpu_torch import inference_detector
+
+    dev = torch.device("cuda")
+    model = det.model
+    with torch.no_grad():
+        model.bbox_head.atss_cls.bias.zero_()
+    h, w = det.input_size
+    imgs = [img_rng.randint(0, 256, (h, w, 3), dtype=np.uint8) for _ in range(8)]
+    vnc.LAUNCHES = 0
+    results = inference_detector(det, imgs)
+    torch.cuda.synchronize()
+    launches = vnc.LAUNCHES
+    print(f"  inference_detector on 8 images {h}x{w}: vote_nms kernel launches {launches}, "
+          f"detections per image {[len(r['boxes']) for r in results]}")
+    if launches < 1:
+        fail(f"{name}: the main path did not launch the vote_nms kernel")
+    for r in results:
+        if not len(r["boxes"]) or r["boxes"].shape[1:] != (4,):
+            fail(f"{name}: an image has no detections, or misshapen ones")
+        if not (np.isfinite(r["boxes"]).all() and np.isfinite(r["scores"]).all()):
+            fail(f"{name}: non-finite detections")
+        if (r["labels"] < 0).any() or (r["labels"] >= 21).any():
+            fail(f"{name}: labels outside the 21 classes")
+    forward_checks(det, config, torch.from_numpy(np.stack(imgs)).to(dev), f"{name}: ")
+
+    for batch, iters in timings:
+        u8 = torch.randint(0, 256, (batch, h, w, 3), dtype=torch.uint8, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(SEED))
+        shp = torch.tensor([[h, w]] * batch, dtype=torch.float32, device=dev)
+        scl = torch.ones((batch, 4), dtype=torch.float32, device=dev)
+
+        def step():
+            det._infer(model, u8, shp, scl)
+
+        for _ in range(2):
+            step()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(step, iters)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"timing: {name} inference batch {batch} (uint8 on the card): {ms:.2f} ms/batch, "
+              f"{batch * 1000.0 / ms:.1f} img/s, peak memory {peak:.2f} GiB [{gpu}]")
+        del u8
+    return launches
+
+
 def zoo_phase(gpu: str, repo: Path) -> dict:
     """Each of ZOO_CONFIGS at full width: ``init_detector`` (seeded random
     weights, bf16, cls bias 0) with its parameter count and FPN input
-    widths; ``inference_detector`` on 8 random 480x640 images with the
-    vote-NMS launches counted; that run's NMS inputs through the kernel and
-    the plain version in float64, the float32 forward against the CPU's;
-    inference at batch 8 and 128 and the train step at batch 16 timed, and
-    the float32 step against the CPU (:func:`zoo_step_checks`).  Returns
-    {config name: vote_nms launches of its ``inference_detector`` run}."""
-    import radet_tpu_torch.ops.vote_nms_cuda as vnc
-    from radet_tpu_torch import inference_detector, init_detector
+    widths; :func:`inference_checks` (inference timed at batch 8 only: the
+    zoo's batch-128 times are in PERF.md); the train step at batch 16 timed,
+    and the float32 step against the CPU (:func:`zoo_step_checks`).
+    Returns {config name: vote_nms launches of its ``inference_detector``
+    run}."""
+    from radet_tpu_torch import init_detector
     from radet_tpu_torch.apis.common import assignment_cfg_from
     from radet_tpu_torch.data import InMemoryBOPDataset, train_transforms
     from synthetic_bop import synthetic_bop_records
 
-    dev = torch.device("cuda")
     img_rng = np.random.RandomState(SEED + 10)
     dataset = None
     launches_by = {}
@@ -2309,45 +2376,9 @@ def zoo_phase(gpu: str, repo: Path) -> dict:
             fail(f"{name}: the FPN takes {lateral} of a trunk giving {widths}")
         if model.dtype != torch.bfloat16:
             fail(f"{name}: compute dtype is {model.dtype}, the config asks for bfloat16")
-        with torch.no_grad():
-            model.bbox_head.atss_cls.bias.zero_()
+        launches_by[name] = inference_checks(det, str(repo / config), name, gpu, img_rng, timings=((8, 20),))
         h, w = det.input_size
-        imgs = [img_rng.randint(0, 256, (h, w, 3), dtype=np.uint8) for _ in range(8)]
-        vnc.LAUNCHES = 0
-        results = inference_detector(det, imgs)
-        torch.cuda.synchronize()
-        launches = launches_by[name] = vnc.LAUNCHES
-        print(f"  inference_detector on 8 images {h}x{w}: vote_nms kernel launches {launches}, "
-              f"detections per image {[len(r['boxes']) for r in results]}")
-        if launches < 1:
-            fail(f"{name}: the main path did not launch the vote_nms kernel")
-        for r in results:
-            if not len(r["boxes"]) or r["boxes"].shape[1:] != (4,):
-                fail(f"{name}: an image has no detections, or misshapen ones")
-            if not (np.isfinite(r["boxes"]).all() and np.isfinite(r["scores"]).all()):
-                fail(f"{name}: non-finite detections")
-            if (r["labels"] < 0).any() or (r["labels"] >= 21).any():
-                fail(f"{name}: labels outside the 21 classes")
-        forward_checks(det, str(repo / config), torch.from_numpy(np.stack(imgs)).to(dev), f"{name}: ")
-
-        for batch, iters in ((8, 20), (128, 5)):
-            u8 = torch.randint(0, 256, (batch, h, w, 3), dtype=torch.uint8, device=dev,
-                               generator=torch.Generator(device=dev).manual_seed(SEED))
-            shp = torch.tensor([[h, w]] * batch, dtype=torch.float32, device=dev)
-            scl = torch.ones((batch, 4), dtype=torch.float32, device=dev)
-
-            def step():
-                det._infer(model, u8, shp, scl)
-
-            for _ in range(2):
-                step()
-            torch.cuda.reset_peak_memory_stats()
-            ms = cuda_ms(step, iters)
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            print(f"timing: {name} inference batch {batch} (uint8 on the card): {ms:.2f} ms/batch, "
-                  f"{batch * 1000.0 / ms:.1f} img/s, peak memory {peak:.2f} GiB [{gpu}]")
-            del u8
-        del det, model, results
+        del det, model
         torch.cuda.empty_cache()
 
         if dataset is None:
@@ -2818,20 +2849,22 @@ def train_profile(gpu: str, repo: Path) -> dict:
 
 
 def pipeline_profile(gpu: str, repo: Path) -> None:
-    for pipeline in ("train", "test"):
-        out, _, wall = tool_run(repo, ["-m", "radet_tpu_torch.tools.profile_pipeline", "--pipeline", pipeline,
-                                       "--samples", 8, "--workers", 4, "--mode", "thread", "process",
-                                       "--batch", PIPELINE_BATCH],
-                                f"profile_pipeline --pipeline {pipeline}")
-        s = last_json(out)
-        print(f"tools: python -m radet_tpu_torch.tools.profile_pipeline --pipeline {pipeline} ({wall:.1f} s): "
-              f"{s['per_sample_ms']:.2f} ms per sample, {s['single_core_img_s']:.1f} img/s on one core, "
-              f"{s['cores_needed']:.2f} cores for {s['target_img_s']} img/s; loader img/s "
-              + ", ".join(f"{k} {v:.1f}" for k, v in s["loader_scaling"].items())
-              + f"; {s['host_cores']} host cores [host of {gpu}]")
-        print("  transforms, ms per sample: " + ", ".join(f"{k} {v:.2f}" for k, v in s["transforms"].items()))
-        if set(s["loader_scaling"]) != {"threadx4", "processx4"}:
-            fail(f"profile_pipeline --pipeline {pipeline}: loader runs missing")
+    """``profile_pipeline`` on the test pipeline, thread and process workers.
+    The train pipeline's per-transform ms and its loader at threads and
+    processes are phase 7's (``loader_phase``, ``contention_phase``): run
+    here too it cost ~45 s, half the tools phase."""
+    out, _, wall = tool_run(repo, ["-m", "radet_tpu_torch.tools.profile_pipeline", "--pipeline", "test",
+                                   "--samples", 8, "--workers", 4, "--mode", "thread", "process",
+                                   "--batch", PIPELINE_BATCH], "profile_pipeline --pipeline test")
+    s = last_json(out)
+    print(f"tools: python -m radet_tpu_torch.tools.profile_pipeline --pipeline test ({wall:.1f} s): "
+          f"{s['per_sample_ms']:.2f} ms per sample, {s['single_core_img_s']:.1f} img/s on one core, "
+          f"{s['cores_needed']:.2f} cores for {s['target_img_s']} img/s; loader img/s "
+          + ", ".join(f"{k} {v:.1f}" for k, v in s["loader_scaling"].items())
+          + f"; {s['host_cores']} host cores [host of {gpu}]")
+    print("  transforms, ms per sample: " + ", ".join(f"{k} {v:.2f}" for k, v in s["transforms"].items()))
+    if set(s["loader_scaling"]) != {"threadx4", "processx4"}:
+        fail("profile_pipeline --pipeline test: loader runs missing")
 
 
 def export_phase(config: str, gpu: str, repo: Path, work: str, images, name: str = "export") -> dict:
@@ -4057,37 +4090,51 @@ def fused_forward_check(config: str, ckpt: str, gpu: str) -> tuple:
     """The flagship's float32 forward on the card, TF32 off, with the
     checkpoint's weights and with them folded (``models/fuse.py``), on two
     random normalized 480x640 images: every head map within TTA_FUSE_RTOL
-    of its max.  Returns (the largest error, the folded BNs)."""
-    import copy
-
+    of its max (:func:`fused_vs_unfused`).  Returns (the largest error, the
+    folded BNs)."""
     from radet_tpu_torch.apis.common import build_model_and_anchors
     from radet_tpu_torch.engine import load_weights
-    from radet_tpu_torch.models.fuse import fuse_conv_bn
     from radet_tpu_torch.utils import Config
 
-    dev = torch.device("cuda")
-    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
-        fail("TF32 is on: the fused and unfused float32 forwards would differ by its rounding")
     cfg = Config.fromfile(config)
     model = build_model_and_anchors(cfg, dtype="float32")[0]
     model.load_state_dict(load_weights(ckpt), strict=True)
-    model.to(dev).eval()
+    dev = torch.device("cuda")
+    x = torch.randn((2, 3) + tuple(cfg.input_size), device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
+    err, report = fused_vs_unfused(model, x, gpu)
+    if report["fused"] != 53 or report["skipped"]:
+        fail(f"--fuse-conv-bn: {report} is not the ResNet-50's 53 BNs")
+    return err, report["fused"]
+
+
+def fused_vs_unfused(model, x, gpu: str, what: str = "") -> tuple:
+    """A float32 copy of ``model`` on the card, TF32 off, with its weights and
+    with them folded (``models/fuse.py``), on the normalized images ``x``
+    (float32 NCHW on the card): every head map within TTA_FUSE_RTOL of its
+    max.  Returns (the largest error, the fold's report)."""
+    import copy
+
+    from radet_tpu_torch.models.fuse import fuse_conv_bn
+
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on: the fused and unfused float32 forwards would differ by its rounding")
+    model = copy.deepcopy(model).to(x.device).eval()
+    model.dtype = torch.float32
     fused = copy.deepcopy(model)
     weights, report = fuse_conv_bn(model.state_dict())
     fused.load_state_dict(weights, strict=True)
-    x = torch.randn((2, 3) + tuple(cfg.input_size), device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
     with torch.no_grad():
         want = [m for maps in model(x) for m in maps]
         got = [m for maps in fused(x) for m in maps]
     err = max(float((g - w).abs().max() / max(float(w.abs().max()), 1e-30)) for g, w in zip(got, want))
-    print(f"  --fuse-conv-bn: {report['fused']} BNs folded ({report['skipped']} left), float32 forward on the card "
-          f"with TF32 off, fused vs unfused head maps: max error {err:.3g} of each map's max (limit "
+    print(f"  {what}--fuse-conv-bn: {report['fused']} BNs folded ({report['skipped']} left), float32 forward on the "
+          f"card with TF32 off, fused vs unfused head maps: max error {err:.3g} of each map's max (limit "
           f"{TTA_FUSE_RTOL}) [{gpu}]")
-    if err > TTA_FUSE_RTOL or report["fused"] != 53 or report["skipped"]:
-        fail(f"--fuse-conv-bn: fused forward off by {err:.3g}, or {report} is not the ResNet-50's 53 BNs")
+    if err > TTA_FUSE_RTOL:
+        fail(f"{what}--fuse-conv-bn: fused forward off by {err:.3g}")
     del model, fused
     torch.cuda.empty_cache()
-    return err, report["fused"]
+    return err, report
 
 
 def tta_phase(config: str, gpu: str, repo: Path, work: str) -> dict:
@@ -4448,6 +4495,134 @@ def itodd_phase(gpu: str, work: str) -> dict:
     return dict(launches=launches, max_abs_err=err, img_s=ips, wall_s=wall, decode_ms=decode, fixture_reads=fixtures)
 
 
+# 20. the extra backbone families (models/backbones_extra.py), each built from
+# the flagship config with these options: full width, bf16, random weights
+SSD_STRIDES = [8, 16, 32, 64, 100, 300]
+SSD_RANGES = [(-1, 32), (32, 64), (64, 128), (128, 256), (256, 512), (512, 100000000.0)]
+EXTRA_CONFIGS = {
+    "darknet53": ["model.backbone={'type': 'Darknet', 'depth': 53, 'out_indices': (3, 4, 5)}",
+                  "model.neck.start_level=0"],
+    "hrnet_w32": ["model.backbone={'type': 'HRNet', 'extra': 'hrnet_w32'}",
+                  "model.neck.add_extra_convs='on_lateral'", "model.neck.relu_before_extra_convs=True"],
+    "detectors_r50_sac": ["model.backbone={'type': 'DetectoRS_ResNet', 'depth': 50, 'sac': {'type': 'SAC'}, "
+                          "'stage_with_sac': (False, True, True, True), 'frozen_stages': 1, 'norm_eval': True}"],
+    "ssd300_vgg16": ["input_size=(300, 300)", "model.backbone={'type': 'SSDVGG', 'input_size': 300, 'depth': 16}",
+                     "model.neck={'type': 'ChannelMapper', 'out_channels': 256, 'kernel_size': 3}",
+                     f"model.bbox_head.strides={SSD_STRIDES}",
+                     f"model.bbox_head.anchor_generator.strides={SSD_STRIDES}",
+                     f"model.bbox_head.anchor_generator.regress_ranges={SSD_RANGES}"],
+}
+# each trunk's output widths, and the neck's input widths (the FPN from start_level)
+EXTRA_WIDTHS = {
+    "darknet53": ([256, 512, 1024], [256, 512, 1024]),
+    "hrnet_w32": ([32, 64, 128, 288], [64, 128, 288]),
+    "detectors_r50_sac": ([256, 512, 1024, 2048], [512, 1024, 2048]),
+    "ssd300_vgg16": ([512, 1024, 512, 256, 256, 256], [512, 1024, 512, 256, 256, 256]),
+}
+# BatchNorms --fuse-conv-bn leaves in place: none of Darknet's 52; SAC's bn2 in layers 2-4 of DetectoRS
+EXTRA_FUSE_SKIPPED = {"darknet53": 0, "detectors_r50_sac": 13}
+
+
+def calibrate_sac(det, images) -> int:
+    """Each SAC conv's BatchNorm (``bn2``) in ``det``'s trunk given, as its
+    running statistics, the batch statistics of one training-mode forward
+    of ``images`` (uint8 NHWC on the card), in which these BatchNorms
+    normalize with them.  SAC standardises its weight to unit variance per
+    element, and its switch (a 1x1 conv of its input's 5x5 mean) grows with
+    its input, so under the random init's identity BatchNorm each SAC conv
+    squares the scale of the activations and layer4's overflow float32
+    (the JAX package's init does the same).  A trained ``bn2`` keeps them
+    at unit scale, as these statistics do; the other BatchNorms keep the
+    init's identity.  Returns the BatchNorms set."""
+    from radet_tpu_torch.models.backbones_extra import SAConv
+    from radet_tpu_torch.models.detector import preprocess_images
+
+    trunk, norm = det.model.backbone, det.cfg.img_norm_cfg
+    bns = [m.bn2 for m in trunk.modules() if isinstance(getattr(m, "conv2", None), SAConv)]
+    stats = {}
+
+    def record(bn, inputs, _):
+        x = inputs[0].float()
+        stats[bn] = (x.mean((0, 2, 3)), x.var((0, 2, 3), unbiased=False))
+
+    hooks = [bn.register_forward_hook(record) for bn in bns]
+    for bn in bns:
+        bn.norm_eval = False
+    trunk.train()
+    with torch.no_grad():
+        trunk(preprocess_images(images, norm.mean, norm.std, det.model.dtype))
+        for bn in bns:
+            bn.running_mean.copy_(stats[bn][0])
+            bn.running_var.copy_(stats[bn][1])
+            bn.norm_eval = True
+    for h in hooks:
+        h.remove()
+    trunk.eval()
+    return len(stats)
+
+
+def extra_backbones_phase(gpu: str, repo: Path) -> dict:
+    """Phase 20: each of EXTRA_CONFIGS at full width through ``init_detector``
+    (seeded random weights, bf16) with its parameter count, its trunk's and
+    neck's input widths and its GFLOPs per image (FlopCounterMode, beside
+    the flagship's); DetectoRS's SAC BatchNorm statistics from its own
+    forward (:func:`calibrate_sac`); :func:`inference_checks` (8
+    images: vote-NMS launches,
+    kernel vs plain in float64, float32 forward vs the CPU's; ms at batch 8
+    and 128); for Darknet and DetectoRS the fused float32 forward against
+    the unfused one.  Returns {name: vote_nms launches of its
+    ``inference_detector`` run}."""
+    from radet_tpu_torch import init_detector
+    from radet_tpu_torch.models.detector import preprocess_images
+    from radet_tpu_torch.tools.get_flops import count_flops
+    from radet_tpu_torch.utils import Config
+
+    dev = torch.device("cuda")
+    img_rng = np.random.RandomState(SEED + 20)
+    flagship = init_detector(str(repo / CONFIG), device="cuda", seed=SEED).model
+    flagship_gflops = count_flops(flagship, torch.zeros((1, 3, 480, 640), dtype=flagship.dtype, device=dev)) / 1e9
+    del flagship
+    launches_by = {}
+    for name, options in EXTRA_CONFIGS.items():
+        cfg = Config.fromfile(str(repo / CONFIG), options)
+        det = init_detector(cfg, device="cuda", seed=SEED)
+        model = det.model
+        neck = model.neck
+        neck_in = [c.conv.weight.shape[1] for c in (neck.lateral_convs if hasattr(neck, "lateral_convs")
+                                                     else neck.convs)]
+        h, w = det.input_size
+        if name == "detectors_r50_sac":
+            calib = torch.from_numpy(img_rng.randint(0, 256, (8, h, w, 3), dtype=np.uint8)).to(dev)
+            print(f"  {calibrate_sac(det, calib)} SAC BatchNorms' running statistics set from a training-mode "
+                  "forward of 8 random images (at the init's identity, SAC's activations overflow)")
+        gflops = count_flops(model, torch.zeros((1, 3, h, w), dtype=model.dtype, device=dev)) / 1e9
+        print(f"extra backbones: init_detector({CONFIG!r} with {options}, device='cuda', seed={SEED}): "
+              f"{type(model.backbone).__name__}, {sum(p.numel() for p in model.parameters())} parameters, trunk "
+              f"widths {model.backbone.out_channels}, {type(neck).__name__} input widths {neck_in}, "
+              f"{len(det.level_counts)} levels {det.level_counts}, compute dtype {model.dtype}, input {h}x{w}, "
+              f"{gflops:.2f} GFLOPs per image (the flagship {flagship_gflops:.2f} at 480x640)")
+        if (list(model.backbone.out_channels), neck_in) != EXTRA_WIDTHS[name]:
+            fail(f"{name}: trunk widths {model.backbone.out_channels}, neck input widths {neck_in}")
+        if model.dtype != torch.bfloat16:
+            fail(f"{name}: compute dtype is {model.dtype}, the config asks for bfloat16")
+        if len(model.bbox_head.scales) != len(det.level_counts):
+            fail(f"{name}: the head has {len(model.bbox_head.scales)} levels, the anchors {len(det.level_counts)}")
+        launches_by[name] = inference_checks(det, cfg, name, gpu, img_rng)
+        if name in EXTRA_FUSE_SKIPPED:
+            # random images, as the main path's (SAC's switch grows with an input unlike them)
+            x = preprocess_images(torch.from_numpy(img_rng.randint(0, 256, (2, h, w, 3), dtype=np.uint8)).to(dev),
+                                  cfg.img_norm_cfg.mean, cfg.img_norm_cfg.std)
+            _, report = fused_vs_unfused(model, x, gpu, f"{name}: ")
+            print(f"  {name}: BatchNorms left unfused {report['skipped']} "
+                  f"(SAC convs: {sum(p.endswith('.bn2') for p in report['skipped_paths'])})")
+            if report["skipped"] != EXTRA_FUSE_SKIPPED[name] or not report["fused"]:
+                fail(f"{name}: --fuse-conv-bn folded {report['fused']} and left {report['skipped']} BatchNorms, "
+                     f"expected {EXTRA_FUSE_SKIPPED[name]} left")
+        del det, model
+        torch.cuda.empty_cache()
+    return launches_by
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -4659,6 +4834,9 @@ def main() -> None:
         # 18. mask-free distance maps; 19. the ITODD config's test split of gray TIFFs
         mask_free = phase("mask-free distance maps", mask_free_phase, files, gpu, eval_opts)
         itodd = phase("ITODD TIFF test split", itodd_phase, gpu, work)
+
+        # 20. the extra backbone families
+        extra_launches = phase("extra backbones", extra_backbones_phase, gpu, repo)
     nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by, _ = nms_times[ANCHOR_MAIN_SHAPE]
 
     print(f"card: {gpu}; smoke {time.perf_counter() - start:.1f} s wall")
@@ -4707,6 +4885,8 @@ def main() -> None:
         "mask_free_max_abs_err": mask_free["max_abs_err"],
         "itodd_launches": {"test_cli": itodd["launches"]},
         "itodd_max_abs_err": itodd["max_abs_err"],
+        # phase 20: each extra family's inference_detector run of 8 images (K 512)
+        "extra_backbone_launches": extra_launches,
     }, {
         "name": "batched_nms (vote_nms.cu, no-vote mode)",
         "route": "cuda",

@@ -9,9 +9,16 @@ nested dicts of numpy arrays and returns mmdet-named tensors
 backbone zoo: the deep stem (``stem.{0,1,3,4,6,7}``), the BasicBlock's
 ``conv1``/``conv2``, Res2Net's ``convs.i``/``bns.i``, ResNeSt's
 ``conv2.{conv,bn0,fc1,bn1,fc2}`` and the avg-down residual path
-(``downsample.{1,2}`` behind the pool).  The ATSSHead (``cls_convs``,
-``atss_cls``, ``atss_reg``, ``atss_centerness``, ``scales``) and
-AnchorHead (``conv_cls``, ``conv_reg``) names are mmdet's too.
+(``downsample.{1,2}`` behind the pool); and of ``convert_darknet``,
+``convert_hrnet``, ``convert_ssd_vgg`` and ``convert_detectors_resnet``
+over the extra families (``models/backbones_extra.py``: Darknet's
+ConvModules ``conv1.{conv,bn}``, HRNet's ``transition``/``stage``
+Sequentials, SSD-VGG's ``features.{i}``/``extra.{i}``/``l2_norm``,
+DetectoRS's SAC ``conv2`` and ``rfp_conv``).  The neck's names are the FPN's
+or the ChannelMapper's (``neck.convs.{i}.conv``).  The ATSSHead
+(``cls_convs``, ``atss_cls``, ``atss_reg``, ``atss_centerness``,
+``scales``) and AnchorHead (``conv_cls``, ``conv_reg``) names are mmdet's
+too.
 """
 
 from __future__ import annotations
@@ -70,26 +77,68 @@ def state_dict_from_flax(variables: Dict[str, Any], avg_down: Optional[bool] = N
 
     bb = ("backbone",)
     backbone = params.get("backbone", {})
-    if "stem_conv1" in backbone:  # deep stem: Sequential(conv, bn, relu) x 3
+    if "crb1_conv" in backbone:  # Darknet: mmcv ConvModules (conv, bn)
+        conv("backbone.conv1.conv", bb + ("conv1",))
+        bn("backbone.conv1.bn", bb + ("bn1",))
+        for name in backbone:
+            m = re.fullmatch(r"crb(\d+)(?:_res(\d+))?_conv(\d?)", name)
+            if m:
+                i, j, c = m.groups()
+                tp = f"backbone.conv_res_block{i}." + ("conv" if j is None else f"res{j}.conv{c}")
+                conv(tp + ".conv", bb + (name,))
+                bn(tp + ".bn", bb + (name[: -len("conv" + c)] + "bn" + c,))
+    elif "features_0" in backbone:  # SSD-VGG: biased convs, no BatchNorm
+        for name in backbone:
+            m = re.fullmatch(r"(features|extra)_(\d+)", name)
+            if m:
+                conv(f"backbone.{m.group(1)}.{m.group(2)}", bb + (name,), bias=True)
+        sd["backbone.l2_norm.weight"] = _t(take("params", bb + ("l2_norm_weight",)))
+    elif "stem_conv1" in backbone:  # deep stem: Sequential(conv, bn, relu) x 3
         for i, idx in enumerate((0, 3, 6), start=1):
             conv(f"backbone.stem.{idx}", bb + (f"stem_conv{i}",))
             bn(f"backbone.stem.{idx + 1}", bb + (f"stem_bn{i}",))
     elif "conv1" in backbone:
         conv("backbone.conv1", bb + ("conv1",))
         bn("backbone.bn1", bb + ("bn1",))
+        if "conv2" in backbone:  # HRNet's second stem conv
+            conv("backbone.conv2", bb + ("conv2",))
+            bn("backbone.bn2", bb + ("bn2",))
+    for name in backbone:  # HRNet's Sequential(conv, bn[, ReLU]) units, chains of them by index
+        m = (re.fullmatch(r"(transition\d+)_([\d_]+)_conv", name)
+             or re.fullmatch(r"s(\d+m\d+)_fuse([\d_]+)_conv", name))
+        if m:
+            unit, index = m.groups()
+            unit = unit if unit.startswith("transition") else "stage{}.{}.fuse_layers".format(*unit.split("m"))
+            conv(f"backbone.{unit}.{index.replace('_', '.')}.0", bb + (name,))
+            bn(f"backbone.{unit}.{index.replace('_', '.')}.1", bb + (name[: -len("conv")] + "bn",))
     if avg_down is None:
         avg_down = "stem_conv1" in backbone
     for name in sorted(backbone):
         m = re.fullmatch(r"layer(\d+)_(\d+)", name)
-        if not m:
+        branch = re.fullmatch(r"s(\d+)m(\d+)_branch(\d+)_block(\d+)", name)  # HRNet's BasicBlocks
+        if m:
+            tp = f"backbone.layer{m.group(1)}.{m.group(2)}."
+        elif branch:
+            tp = "backbone.stage{}.{}.branches.{}.{}.".format(*branch.groups())
+        else:
             continue
-        tp = f"backbone.layer{m.group(1)}.{m.group(2)}."
         fp = bb + (name,)
         block = backbone[name]
         for ci in (1, 2, 3):
             if "kernel" in block.get(f"conv{ci}", {}):
                 conv(tp + f"conv{ci}", fp + (f"conv{ci}",))
                 bn(tp + f"bn{ci}", fp + (f"bn{ci}",))
+        if "weight_diff" in block.get("conv2", {}):  # DetectoRS's SAC conv2
+            sac = fp + ("conv2",)
+            for w in ("weight", "weight_diff"):
+                sd[tp + f"conv2.{w}"] = _kernel(take("params", sac + (w,)))
+            for w in ("weight_gamma", "weight_beta"):
+                sd[tp + f"conv2.{w}"] = _t(take("params", sac + (w,))).reshape(-1, 1, 1, 1)
+            for sub in ("pre_context", "switch", "post_context"):
+                conv(tp + f"conv2.{sub}", sac + (sub,), bias=True)
+            bn(tp + "bn2", fp + ("bn2",))
+        if "rfp_conv" in block:
+            conv(tp + "rfp_conv", fp + ("rfp_conv",), bias=True)
         split_attention = "conv" in block.get("conv2", {})
         if split_attention:
             conv(tp + "conv2.conv", fp + ("conv2", "conv"))
@@ -110,7 +159,7 @@ def state_dict_from_flax(variables: Dict[str, Any], avg_down: Optional[bool] = N
     neck = params.get("neck", {})
     n_lateral = sum(1 for k in neck if re.fullmatch(r"fpn_\d+", k))
     for name in neck:
-        m = re.fullmatch(r"(lateral|fpn|fpn_extra)_(\d+)", name)
+        m = re.fullmatch(r"(lateral|fpn|fpn_extra|map)_(\d+)", name)
         if not m:
             continue
         kind, i = m.group(1), int(m.group(2))
@@ -118,6 +167,7 @@ def state_dict_from_flax(variables: Dict[str, Any], avg_down: Optional[bool] = N
             "lateral": f"neck.lateral_convs.{i}.conv",
             "fpn": f"neck.fpn_convs.{i}.conv",
             "fpn_extra": f"neck.fpn_convs.{n_lateral + i}.conv",
+            "map": f"neck.convs.{i}.conv",  # ChannelMapper
         }[kind]
         sd[prefix + ".weight"] = _kernel(take("params", ("neck", name, "kernel")))
         sd[prefix + ".bias"] = _t(take("params", ("neck", name, "bias")))

@@ -1,10 +1,12 @@
 """Build a detector module from a reference-style model config dict (port of
-``radet_tpu/models/builder.py`` for its backbone zoo + FPN subset): RADet
-with RADetHead, and SingleStageDetector with ATSSHead or AnchorHead, over
-ResNet (depths 18-152), ResNetV1d, ResNeXt, Res2Net, ResNeSt or RegNet;
-with the int8 deploy options ``backbone.quant`` and ``bbox_head.quant``
-and ``qat`` (quantization-aware training), and ``frozen_int8`` (the
-frozen stem and stages on the int8 deploy arithmetic in training)."""
+``radet_tpu/models/builder.py``): RADet with RADetHead, and
+SingleStageDetector with ATSSHead or AnchorHead, over ResNet (depths
+18-152), ResNetV1d, ResNeXt, Res2Net, ResNeSt or RegNet, or one of the
+extra families (Darknet, HRNet, SSDVGG, DetectoRS_ResNet,
+DetectoRS_ResNeXt), under an FPN or a ChannelMapper; with the int8 deploy
+options ``backbone.quant`` and ``bbox_head.quant`` and ``qat``
+(quantization-aware training), and ``frozen_int8`` (the frozen stem and
+stages on the int8 deploy arithmetic in training)."""
 
 from __future__ import annotations
 
@@ -14,8 +16,9 @@ import torch
 
 from ..core.anchor_generator import build_anchor_generator
 from .anchor_heads import AnchorHead, ATSSHead
+from .backbones_extra import make_backbone
 from .detector import RADet, SingleStageDetector
-from .fpn import FPN
+from .fpn import FPN, ChannelMapper
 from .radet_head import RADetHead
 from .resnet import QUANT_LEVELS, RegNet, ResNet
 
@@ -90,7 +93,10 @@ def _check_backbone_int8(backbone: Dict[str, Any]) -> None:
                                  "Bottleneck trunks only)")
         if backbone.get("frozen_stages", 1) < 0:
             raise AssertionError("backbone.frozen_int8 quantizes the frozen prefix: it needs frozen_stages >= 0")
+
+
 _EXTRA_BACKBONES = ("Darknet", "HRNet", "SSDVGG", "DetectoRS_ResNet", "DetectoRS_ResNeXt")
+_STANDALONE = ("HourglassNet", "TridentResNet")
 
 
 def build_backbone(backbone: Dict[str, Any]):
@@ -99,17 +105,26 @@ def build_backbone(backbone: Dict[str, Any]):
     ResNeSt; ``groups`` read for ResNeXt and ResNeSt only; ``base_width``
     26 for Res2Net, else 4; ``scales`` 4 (Res2Net) and ``radix`` 2
     (ResNeSt); RegNet's ``arch`` a named preset (its ``depth`` unread).
-    ``norm_eval`` and ``with_cp`` reach every trunk (the JAX package's
-    RegNet reads no ``with_cp``: checkpointing changes no number, only
-    memory and time); ``quant``, ``qat`` and ``frozen_int8`` the ResNet
-    family."""
+    ``norm_eval`` and ``with_cp`` reach every trunk of the zoo (the JAX
+    package's RegNet reads no ``with_cp``: checkpointing changes no number,
+    only memory and time); ``quant``, ``qat`` and ``frozen_int8`` the
+    ResNet family.  The extra families take their own keys
+    (``backbones_extra.make_backbone``), ``norm_eval``, and
+    ``frozen_stages`` with a default of -1, as the JAX builder gives them;
+    they read no ``with_cp``, as in the JAX package.  The standalone
+    HourglassNet and TridentResNet raise the JAX builder's AssertionError."""
     btype = backbone.get("type", "ResNet")
-    _require(btype not in _EXTRA_BACKBONES, f"backbone type {btype!r}", _OTHER_FAMILIES)
-    if btype not in _BACKBONES:
-        raise ValueError(f"unknown backbone type {btype!r} (the port builds {_BACKBONES})")
+    if btype in _STANDALONE:
+        raise AssertionError(f"unknown backbone type {btype} (standalone module only: no neck or head consumes "
+                             "its outputs; not ported, ROADMAP.md Queue 1 item 12e)")
+    if btype not in _BACKBONES + _EXTRA_BACKBONES:
+        raise ValueError(f"unknown backbone type {btype!r} (the port builds {_BACKBONES + _EXTRA_BACKBONES})")
     _require(not backbone.get("stem_s2d"), "backbone.stem_s2d", _OTHER_FAMILIES)
     _check_backbone_int8(backbone)
     quant = _backbone_quant(backbone, btype)
+    if btype in _EXTRA_BACKBONES:
+        opts = {k: v for k, v in backbone.items() if k != "type"}
+        return make_backbone(btype, opts, backbone.get("norm_eval", True), backbone.get("frozen_stages", -1))
     common = dict(
         out_indices=tuple(backbone.get("out_indices", (0, 1, 2, 3))),
         frozen_stages=backbone.get("frozen_stages", 1),
@@ -146,7 +161,8 @@ def build_detector(model_cfg: Dict[str, Any], dtype: Any = None) -> SingleStageD
     det_type = cfg.get("type", "RADet")
     ntype = neck.get("type", "FPN")
     _require(det_type in ("RADet", "SingleStageDetector"), f"detector type {det_type!r}", _OTHER_FAMILIES)
-    _require(ntype == "FPN", f"neck type {ntype!r}", _OTHER_FAMILIES)
+    if ntype not in ("FPN", "ChannelMapper"):
+        raise AssertionError(f"unknown neck type {ntype}")
     spec = head_spec_from_cfg(head)
     htype = spec["head_type"]
     if det_type == "RADet" and htype != "RADetHead":
@@ -154,8 +170,13 @@ def build_detector(model_cfg: Dict[str, Any], dtype: Any = None) -> SingleStageD
                          f"for {htype}")
     _require(spec["use_sigmoid"], f"{htype} with a softmax loss_cls (use_sigmoid=False)", _OTHER_FAMILIES)
     _check_head_qat(head, htype)
-    if neck.get("act_cfg") is not None or neck.get("norm_cfg") is not None:
-        raise ValueError("the FPN takes no act_cfg or norm_cfg")
+    # the JAX builder's checks: a ReLU or no activation (which only the
+    # ChannelMapper reads), and no norm layer
+    act_cfg = neck.get("act_cfg")
+    if act_cfg is not None and act_cfg.get("type", "ReLU") != "ReLU":
+        raise AssertionError(f"unsupported neck act_cfg {act_cfg!r} (only ReLU or None)")
+    if neck.get("norm_cfg") is not None:
+        raise AssertionError(f"unsupported neck norm_cfg {neck.get('norm_cfg')!r} (norm-free necks only)")
 
     if dtype is None:
         dtype = cfg.get("dtype", "float32")
@@ -164,7 +185,8 @@ def build_detector(model_cfg: Dict[str, Any], dtype: Any = None) -> SingleStageD
 
     trunk = build_backbone(backbone)
     fpn_out = neck.get("out_channels", 256)
-    num_outs = neck.get("num_outs", 5)
+    # the ChannelMapper maps each backbone output to one level
+    num_outs = neck.get("num_outs", 5) if ntype == "FPN" else len(trunk.out_channels)
     num_classes = head["num_classes"]
     if htype == "AnchorHead":
         # no tower to quantize: the JAX package's AnchorHead takes no quant either
@@ -181,19 +203,19 @@ def build_detector(model_cfg: Dict[str, Any], dtype: Any = None) -> SingleStageD
             quant=head.get("quant", None),
             qat=bool(head.get("qat", False)),
         )
-    return (RADet if det_type == "RADet" else SingleStageDetector)(
-        trunk,
-        # the backbone's widths, not neck.in_channels: the JAX package's FPN
-        # infers them, and configs/bop/regnetx32_ycbv_pbr.py inherits the
-        # flagship's [256, 512, 1024, 2048] beside a RegNet of [96, 192, 432, 1008]
-        FPN(
+    # the backbone's widths, not neck.in_channels: the JAX package's necks
+    # infer them, and configs/bop/regnetx32_ycbv_pbr.py inherits the
+    # flagship's [256, 512, 1024, 2048] beside a RegNet of [96, 192, 432, 1008]
+    if ntype == "FPN":
+        neck_module = FPN(
             in_channels=trunk.out_channels,
             out_channels=fpn_out,
             num_outs=num_outs,
             start_level=neck.get("start_level", 1),
             add_extra_convs=neck.get("add_extra_convs", "on_output"),
             relu_before_extra_convs=neck.get("relu_before_extra_convs", False),
-        ),
-        bbox_head,
-        dtype=dtype,
-    )
+        )
+    else:
+        neck_module = ChannelMapper(trunk.out_channels, fpn_out, neck.get("kernel_size", 3),
+                                    with_relu=neck.get("act_cfg", {"type": "ReLU"}) is not None)
+    return (RADet if det_type == "RADet" else SingleStageDetector)(trunk, neck_module, bbox_head, dtype=dtype)

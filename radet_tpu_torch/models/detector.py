@@ -1,4 +1,4 @@
-"""Single-stage detectors (backbone -> FPN -> head): RADet and the generic
+"""Single-stage detectors (backbone -> neck -> head): RADet and the generic
 anchor heads' ``SingleStageDetector``, port of ``radet_tpu/models/detector.py``.
 
 The model consumes normalized float NCHW images; uint8 -> float
@@ -10,8 +10,6 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
-
-from .fpn import FPN
 
 
 def preprocess_images(images_u8, mean, std, dtype=torch.float32):
@@ -32,11 +30,12 @@ def preprocess_images(images_u8, mean, std, dtype=torch.float32):
 
 
 class SingleStageDetector(nn.Module):
-    """Backbone (any of ``models/resnet.py``'s zoo) -> FPN -> dense head.
+    """Backbone (``models/resnet.py``'s zoo or ``models/backbones_extra.py``'s
+    families) -> neck (FPN or ChannelMapper) -> dense head.
     ``dtype`` is the compute dtype of the convolutions; parameters stay
     float32, GroupNorm and the head outputs run in float32."""
 
-    def __init__(self, backbone: nn.Module, neck: FPN, bbox_head: nn.Module, dtype=torch.float32):
+    def __init__(self, backbone: nn.Module, neck: nn.Module, bbox_head: nn.Module, dtype=torch.float32):
         super().__init__()
         self.backbone = backbone
         self.neck = neck

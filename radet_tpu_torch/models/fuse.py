@@ -13,13 +13,17 @@ weight 1, bias ``beta - s * mean``.  The module graph is unchanged, so the
 fused state dict loads with ``strict=True`` into the same model.
 
 Conv and BatchNorm pair by the mmdet names of the port's trunks: ``convN``
-/ ``bnN`` (ResNet, ResNeXt, RegNet, the stems' ``conv1``/``bn1``), the
+/ ``bnN`` (ResNet, ResNeXt, RegNet, HRNet, DetectoRS, the stems'
+``conv1``/``bn1``), a ConvModule's ``conv`` / ``bn`` (Darknet), the
 Sequentials' ``i - 1`` / ``i`` (the deep stem ``stem.{0,1,3,4,6,7}``, the
 downsample ``downsample.{0,1}`` or, behind the avg-down pool,
-``downsample.{1,2}``), Res2Net's ``convs.i`` / ``bns.i`` and ResNeSt's
-split-attention ``conv`` / ``bn0`` and ``fc1`` / ``bn1``.  A BatchNorm whose
-partner is not a plain conv (a 4-D ``weight`` and an optional ``bias``,
-nothing else) stays in place, as in the JAX package; leaving it is exact.
+``downsample.{1,2}``, HRNet's transition and fuse units), Res2Net's
+``convs.i`` / ``bns.i`` and ResNeSt's split-attention ``conv`` / ``bn0`` and
+``fc1`` / ``bn1``.  A BatchNorm whose partner is not a plain conv (a 4-D
+``weight`` and an optional ``bias``, nothing else) stays in place, as in
+the JAX package; leaving it is exact.  DetectoRS's SAC conv, which
+standardises its weight at every call, is such a partner: its ``bn2``
+stays.
 """
 
 from __future__ import annotations

@@ -451,6 +451,30 @@ class SplitAttentionBottleneck(nn.Module):
         return _residual(self, self.bn3(self.conv3(out)), x)
 
 
+def init_trunk_weights(trunk: nn.Module, generator: torch.Generator) -> None:
+    """The JAX package's trunk initialisers on every conv and BatchNorm of
+    ``trunk``: He normal (fan_out) bias-free convs; convs with a bias
+    (ResNeSt's gate convs ``fc1``/``fc2``, SSD-VGG's, SAC's context and
+    switch convs) flax's default LeCun normal (truncated at 2 std) and a
+    zero bias; identity BatchNorm."""
+    for m in trunk.modules():
+        if isinstance(m, Conv2d):
+            rf = m.kernel_size[0] * m.kernel_size[1]
+            if m.bias is None:
+                normal_(m.weight, math.sqrt(2.0 / (m.out_channels * rf)), generator)
+            else:
+                trunc_normal_(m.weight, math.sqrt(1.0 / (m.weight.shape[1] * rf)) / 0.87962566103423978,
+                              generator)
+                with torch.no_grad():
+                    m.bias.zero_()
+        elif isinstance(m, BatchNorm):
+            with torch.no_grad():
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
+
+
 class _Backbone(nn.Module):
     """Stages ``layer1..layer4`` after a stem; returns the maps selected by
     ``out_indices``: (0, 1, 2, 3) -> (C2, C3, C4, C5) at strides (4, 8, 16,
@@ -475,25 +499,8 @@ class _Backbone(nn.Module):
             m.requires_grad_(False)
 
     def init_weights(self, generator: torch.Generator) -> None:
-        """He normal (fan_out) convs; ResNeSt's gate convs ``fc1``/``fc2``,
-        the trunk's only convs with a bias, flax's default LeCun normal
-        (truncated at 2 std) and a zero bias; identity BatchNorm."""
-        for m in self.modules():
-            if isinstance(m, Conv2d):
-                rf = m.kernel_size[0] * m.kernel_size[1]
-                if m.bias is None:
-                    normal_(m.weight, math.sqrt(2.0 / (m.out_channels * rf)), generator)
-                else:
-                    trunc_normal_(m.weight, math.sqrt(1.0 / (m.weight.shape[1] * rf)) / 0.87962566103423978,
-                                  generator)
-                    with torch.no_grad():
-                        m.bias.zero_()
-            elif isinstance(m, BatchNorm):
-                with torch.no_grad():
-                    m.weight.fill_(1.0)
-                    m.bias.zero_()
-                    m.running_mean.zero_()
-                    m.running_var.fill_(1.0)
+        """:func:`init_trunk_weights`."""
+        init_trunk_weights(self, generator)
 
     def forward(self, x):
         return self.forward_stages(self.forward_stem(x))

@@ -18,8 +18,9 @@ carried across by ``state_dict_from_flax`` (``strict=True``).  Within
 - ``state_dict_from_flax`` then ``convert_mmdet_detector`` gives back each
   variant's flax tree, and the other way round; every builder type and
   depth maps onto the JAX package's variables;
-- what is still unported raises naming its ROADMAP item; ``with_cp``
-  builds with the plain build's parameter names.
+- what is still unported raises naming its ROADMAP item, the standalone
+  HourglassNet and TridentResNet as the JAX builder; ``with_cp`` builds
+  with the plain build's parameter names.
 """
 
 import os.path as osp
@@ -269,22 +270,22 @@ def test_builder_types_map_onto_jax_variables(backbone):
     assert widths == port.backbone.out_channels[1:]
 
 
-ITEM12 = "item 12"
-
-
-@pytest.mark.parametrize("change,item", [
-    (dict(backbone=dict(type="Darknet", depth=53)), ITEM12),
-    (dict(backbone=dict(type="HRNet")), ITEM12),
-    (dict(backbone=dict(type="SSDVGG")), ITEM12),
-    (dict(backbone=dict(type="DetectoRS_ResNet", depth=50)), ITEM12),
-    (dict(backbone=dict(type="DetectoRS_ResNeXt", depth=50)), ITEM12),
-    (dict(neck=dict(type="ChannelMapper", out_channels=32)), ITEM12),
-    (dict(neck=dict(type="FPN", out_channels=32, add_extra_convs="on_lateral")), ITEM12),
-])
-def test_unported_variants_raise_naming_their_item(change, item):
+@pytest.mark.parametrize("change,error,match", [
+    (dict(backbone=dict(type="ResNet", depth=50, stem_s2d=True)), NotImplementedError, "item 12"),
+    # standalone modules in the JAX package too: its builder's AssertionError
+    (dict(backbone=dict(type="HourglassNet")), AssertionError, "standalone"),
+    (dict(backbone=dict(type="TridentResNet")), AssertionError, "standalone"),
+], ids=["stem_s2d", "HourglassNet", "TridentResNet"])
+def test_unported_variants_raise_naming_their_item(change, error, match):
+    """What stays unported raises naming its ROADMAP item; the standalone
+    trunks raise as the JAX builder does.  (The extra families and necks
+    build: tests/test_torch_backbones_extra.py.)"""
     model_cfg = {**_small_model(dict(type="ResNet", depth=50)), **change}
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match):
         build_detector(model_cfg)
+    if error is AssertionError:
+        with pytest.raises(error, match=match):
+            jax_build_detector(model_cfg)
 
 
 @pytest.mark.parametrize("part,options", [
@@ -324,4 +325,4 @@ def test_regnet_arch_must_be_a_named_preset():
     with pytest.raises(ValueError, match="named preset"):
         build_detector(_small_model(dict(type="RegNet", arch="regnetx_2gf")))
     with pytest.raises(ValueError, match="unknown backbone type"):
-        build_detector(_small_model(dict(type="HourglassNet")))
+        build_detector(_small_model(dict(type="ResNet3D")))

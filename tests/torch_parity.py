@@ -5,7 +5,7 @@ weights through ``radet_tpu_torch.engine.convert.state_dict_from_flax``;
 the flagship narrowed (``NARROW``), the ATSS and RetinaNet configs
 narrowed (``ANCHOR_CONFIGS``, :func:`anchor_pair`), and the backbone zoo's
 configs with their neck and head narrowed (``ZOO_CONFIGS``,
-:func:`zoo_pair`)."""
+:func:`zoo_pair`), and any config with options (:func:`config_pair`)."""
 
 import os.path as osp
 
@@ -64,6 +64,8 @@ def randomize(tree, rng, path=()):
             v = rng.randn(*n) * 0.2 + 1
         elif p[-1] == "scales":
             v = 1.0 + 0.1 * np.arange(n[0])
+        elif p[-1] == "l2_norm_weight":  # SSD-VGG's L2Norm, 20 at init
+            v = rng.uniform(10, 30, n)
         elif p[-1] == "bias":
             v = rng.randn(*n) * (0.5 if "conv_cls" in p else 0.1)
         out[k] = np.asarray(v, np.float32)
@@ -197,16 +199,20 @@ ZOO_NARROW = NARROW + SERVE_TEST_CFG
 
 def zoo_pair(name, seed=0, options=()):
     """The zoo config ``name`` (a key of ``ZOO_CONFIGS``) in both packages
-    with ``ZOO_NARROW`` and ``options``, one seeded variable tree
-    (:func:`numpy_variables`), and the port's model on the CPU holding it.
-    Returns (jax_cfg, cfg, jax_model, variables, port model, anchors,
-    regress ranges, level counts)."""
+    with ``ZOO_NARROW`` and ``options``: :func:`config_pair`."""
+    return config_pair(ZOO_CONFIGS[name], ZOO_NARROW + list(options), seed)
+
+
+def config_pair(path, options, seed=0):
+    """The config at ``path`` with ``options`` in both packages, one seeded
+    variable tree (:func:`numpy_variables`), and the port's model on the
+    CPU holding it.  Returns (jax_cfg, cfg, jax_model, variables, port
+    model, anchors, regress ranges, level counts)."""
     from radet_tpu.apis.common import build_model_and_anchors as jax_build_model_and_anchors
     from radet_tpu.utils.config import Config as JaxConfig
     from radet_tpu_torch.apis.common import build_model_and_anchors
     from radet_tpu_torch.utils.config import Config
 
-    path, options = ZOO_CONFIGS[name], ZOO_NARROW + list(options)
     jax_cfg, cfg = JaxConfig.fromfile(path, options), Config.fromfile(path, options)
     jax_model, anchors, ranges, counts = jax_build_model_and_anchors(jax_cfg)
     port, p_anchors, p_ranges, p_counts = build_model_and_anchors(cfg)
