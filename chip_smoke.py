@@ -155,9 +155,9 @@ Run from the repository root, with one card:  python3 chip_smoke.py
    16 through ``BatchingDetector`` against ``inference_detector``: the
    head's dynamic absmax spans the batch); the test CLI on it over the
    eval phase's PNG set; ``profile_infer --quant int8_stream`` at batch
-   128; ``export_model`` of it, its program loaded in a fresh process
-   (int8 and vote-NMS launches per call, bit for bit against the eager
-   step); and times the flagship, int8, int8_full and int8_stream at batch
+   128; ``export_model`` of it, its program loaded in this process (phase
+   12 loads the flagship's in a fresh one; int8 and vote-NMS launches per
+   call, bit for bit against the eager step); and times the flagship, int8, int8_full and int8_stream at batch
    8 and 128;
 14. draws, each tool through its CLI's ``main`` in this process:
    ``radet_tpu_torch.tools.test --show-dir --show-score-thr 0`` (strict
@@ -242,7 +242,20 @@ Run from the repository root, with one card:  python3 chip_smoke.py
    plain version in float64, the float32 forward against the CPU's,
    inference timed at batch 8 and 128 with peak memory, and for Darknet
    and DetectoRS the ``--fuse-conv-bn`` fold's float32 forward against
-   the unfused one (SAC's BatchNorms left in place).
+   the unfused one (SAC's BatchNorms left in place);
+21. runs the dataset zoo (``data/datasets_extra.py``) on a VOC2007 split
+   of the JPEG fixtures (64 trainval, 32 test, XML annotations with
+   difficult and 6-pixel objects, one without ``<size>``): the host ms per
+   480x640 sample of each new transform and of the whole SSD-recipe VOC
+   train pipeline on one thread, and its loader at 4 threads; ``tools.train``
+   on the flagship config with ``voc_options`` (VOCDataset, 20 classes, the
+   SSD recipe, ``min_size``, ``save_best='mAP'``; full width, bf16, batch
+   16, ``VOC_STEPS`` steps, one periodic eval at K 512): ms per step,
+   the loader-wait share, ``best_weights.pth`` with ``mAP`` in its meta;
+   ``tools.test --eval mAP`` (strict, K 2048) with those weights: VOC's
+   AP50 and mAP; every vote-NMS call of both held to the plain version;
+   then the same detections evaluated on the host as a COCO-format
+   ``LVISV1Dataset`` (federated protocol) and as a ``CocoDataset``.
    Each phase prints its wall time.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
@@ -2705,37 +2718,42 @@ EXPORT_CALLS = 3  # calls of the loaded program, each counted
 EXPORT_SCORE_ATOL = 1e-5  # exported vs eager step on the card, float32 scores (boxes: BOX_ATOL, BOX_TAIL)
 DISPATCH_SHAPES = ((8, 512), (8, 1024), (8, 2048), (16, 2048))
 PIPELINE_BATCH = 4  # the loader runs 6 batches per worker count and mode
-# a fresh process: load the exported program (importing the package registers
-# its NMS operators), run it on the saved images, count the kernel's launches
-# per call, time it by CUDA events and save its outputs
-EXPORT_RUN = r"""
-import json, sys
-import numpy as np, torch
-import radet_tpu_torch.ops.int8_conv_cuda as icc
-import radet_tpu_torch.ops.vote_nms_cuda as vnc
-from radet_tpu_torch.tools.export_model import load
-program = load(sys.argv[1])
-images = torch.from_numpy(np.load(sys.argv[2])).cuda()
-b, h, w, _ = images.shape
-shapes = torch.tensor([[h, w]] * b, dtype=torch.float32, device="cuda")
-scales = torch.ones((b, 4), dtype=torch.float32, device="cuda")
-launches, int8_launches = [], []
-with torch.inference_mode():
-    for _ in range(int(sys.argv[4])):
-        before, before8 = vnc.LAUNCHES, icc.LAUNCHES
-        outs = program(images, shapes, scales)
+
+
+def run_exported(pt2: str, npy: str, npz: str, calls) -> dict:
+    """Load the exported program ``pt2`` (importing the package registers
+    its NMS operators), run it ``calls`` times on the images saved in
+    ``npy``, count its kernels' launches per call, time it by CUDA events
+    and save its outputs to ``npz``."""
+    import radet_tpu_torch.ops.int8_conv_cuda as icc
+    import radet_tpu_torch.ops.vote_nms_cuda as vnc
+    from radet_tpu_torch.tools.export_model import load
+
+    program = load(pt2)
+    images = torch.from_numpy(np.load(npy)).cuda()
+    b, h, w, _ = images.shape
+    shapes = torch.tensor([[h, w]] * b, dtype=torch.float32, device="cuda")
+    scales = torch.ones((b, 4), dtype=torch.float32, device="cuda")
+    launches, int8_launches = [], []
+    with torch.inference_mode():
+        for _ in range(int(calls)):
+            before, before8 = vnc.LAUNCHES, icc.LAUNCHES
+            outs = program(images, shapes, scales)
+            torch.cuda.synchronize()
+            launches.append(vnc.LAUNCHES - before)
+            int8_launches.append(icc.LAUNCHES - before8)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            program(images, shapes, scales)
+        end.record()
         torch.cuda.synchronize()
-        launches.append(vnc.LAUNCHES - before)
-        int8_launches.append(icc.LAUNCHES - before8)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(20):
-        program(images, shapes, scales)
-    end.record()
-    torch.cuda.synchronize()
-np.savez(sys.argv[3], *[t.cpu().numpy() for t in outs])
-print(json.dumps(dict(launches=launches, int8_launches=int8_launches, ms=start.elapsed_time(end) / 20)))
-"""
+    np.savez(npz, *[t.cpu().numpy() for t in outs])
+    return dict(launches=launches, int8_launches=int8_launches, ms=start.elapsed_time(end) / 20)
+
+
+# a fresh process: ``run_exported`` from the repository root, its result as the last line
+EXPORT_RUN = "import json, sys; import chip_smoke; print(json.dumps(chip_smoke.run_exported(*sys.argv[1:])))"
 
 
 def tool_run(repo: Path, args, what: str, fresh: bool = False):
@@ -2867,11 +2885,13 @@ def pipeline_profile(gpu: str, repo: Path) -> None:
         fail("profile_pipeline --pipeline test: loader runs missing")
 
 
-def export_phase(config: str, gpu: str, repo: Path, work: str, images, name: str = "export") -> dict:
+def export_phase(config: str, gpu: str, repo: Path, work: str, images, name: str = "export",
+                 fresh: bool = True) -> dict:
     """``export_model --verify`` of ``config`` at batch EXPORT_BATCH in bf16
-    (the eval phase's weights), the program loaded in a fresh process and
-    run on the main path's images, against the eager step in this process;
-    returns the loaded program's run (its kernels' launches per call)."""
+    (the eval phase's weights), the program loaded (with ``fresh`` in a
+    process of its own, else in this one) and run on the main path's
+    images, against the eager step in this process; returns the loaded
+    program's run (its kernels' launches per call)."""
     from radet_tpu_torch import init_detector
 
     ckpt = osp.join(work, "random_cls0.pth")
@@ -2884,8 +2904,14 @@ def export_phase(config: str, gpu: str, repo: Path, work: str, images, name: str
         if "exported" in ln or "roundtrip" in ln:
             print(f"  {ln.split(' - ')[-1]}")
     np.save(npy, images)
-    out, _, wall = tool_run(repo, ["-c", EXPORT_RUN, pt2, npy, npz, EXPORT_CALLS], "the exported program's run")
-    run = last_json(out)
+    t0 = time.perf_counter()
+    if fresh:
+        out, _, _ = tool_run(repo, ["-c", EXPORT_RUN, pt2, npy, npz, EXPORT_CALLS], "the exported program's run")
+        run = last_json(out)
+    else:
+        run = run_exported(pt2, npy, npz, EXPORT_CALLS)
+    wall = time.perf_counter() - t0
+    where = "a fresh process" if fresh else "this process"
     with np.load(npz) as f:
         got = [f[f"arr_{i}"] for i in range(4)]
     det = init_detector(config, ckpt, device="cuda")
@@ -2902,13 +2928,13 @@ def export_phase(config: str, gpu: str, repo: Path, work: str, images, name: str
     score_err = float(np.abs(got[1] - want[1]).max(initial=0.0))
     tail = float((box_err > BOX_ATOL).mean()) if box_err.size else 0.0
     bits = all(np.array_equal(g, w_) for g, w_ in zip(got, want))
-    print(f"  loaded in a fresh process ({wall:.1f} s) and run on the main path's {b} images: "
+    print(f"  loaded in {where} ({wall:.1f} s) and run on the main path's {b} images: "
           f"{int(valid.sum())} detections, vote_nms kernel launches per call {run['launches']}, int8_conv "
           f"{run['int8_launches']}; against the eager "
           f"step: valid and labels equal {np.array_equal(got[3], valid) and np.array_equal(got[2], want[2])}, "
           f"box max abs diff {box_err.max(initial=0.0):.3g} px, score max abs diff {score_err:.3g}, bit for bit "
           f"equal {bits}")
-    print(f"timing: exported program batch {b} {run['ms']:.3f} ms/batch (fresh process), eager step "
+    print(f"timing: exported program batch {b} {run['ms']:.3f} ms/batch ({where}), eager step "
           f"{eager_ms:.3f} ms/batch (this process), uint8 on the card [{gpu}]")
     if not np.array_equal(got[3], valid) or not np.array_equal(got[2], want[2]) or not valid.any():
         fail("the exported program's valid or labels differ from the eager step's, or nothing was detected")
@@ -3385,8 +3411,9 @@ def int8_phase(gpu: str, repo: Path, work: str, test_opts, imgs) -> dict:
     if s["int8_conv_launches_per_step"] != INT8_LAUNCHES[INT8_MAIN] or not int8_ms > 0:
         fail("profile_infer --quant int8_stream: the int8 kernel's launches per step or time are off")
 
-    # export the int8 config; its program, loaded in a fresh process, launches the kernel
-    run = export_phase(config, gpu, repo, work, np.stack(imgs), name="export_int8")
+    # export the int8 config; its program, loaded in this process (phase 12 proves a fresh process's
+    # load), launches the kernel
+    run = export_phase(config, gpu, repo, work, np.stack(imgs), name="export_int8", fresh=False)
     if run["int8_launches"] != [INT8_LAUNCHES[INT8_MAIN]] * EXPORT_CALLS:
         fail(f"the exported int8 program launched int8_conv {run['int8_launches']} times in {EXPORT_CALLS} calls")
 
@@ -4623,6 +4650,292 @@ def extra_backbones_phase(gpu: str, repo: Path) -> dict:
     return launches_by
 
 
+# 21. the dataset zoo: VOC through the train and test CLIs, the SSD recipe's transforms, LVIS and COCO
+VOC_TRAINVAL = 64  # VOC2007 trainval images (copies of the JPEG fixtures), 480x640
+VOC_TEST = 32  # its test images; the periodic eval's and the strict test CLI's, batches of 16
+VOC_STEPS = 10  # the VOC train CLI's steps (full width, bf16, batch 16), one periodic eval at the last
+VOC_MIN_SIZE = 7  # data.train.min_size: the split's 6-pixel objects become ignore regions
+VOC_SAMPLES = 8  # 480x640 samples timed per transform, one thread
+VOC_PIPELINE_SAMPLES = 16  # samples of the whole VOC train pipeline timed, one thread
+VOC_LOADER_BATCHES = 4  # batches of 16 timed from the VOC loader (FILES_WORKERS threads), after its first
+# VOC's classes by their COCO names (all 20 are COCO categories)
+VOC_TO_COCO = {"aeroplane": "airplane", "diningtable": "dining table", "motorbike": "motorcycle",
+               "pottedplant": "potted plant", "sofa": "couch", "tvmonitor": "tv"}
+# each timed transform of this slice, as a pipeline entry, at 480x640
+VOC_TRANSFORMS = [
+    dict(type="PhotoMetricDistortion"),
+    dict(type="Expand", mean=[123.675, 116.28, 103.53], ratio_range=(1, 4)),
+    dict(type="MinIoURandomCrop", min_ious=(0.1, 0.3, 0.5, 0.7, 0.9), min_crop_size=0.3),
+    dict(type="RandomCrop", crop_size=(0.5, 0.5), crop_type="relative_range"),
+    dict(type="CutOut", n_holes=(1, 5), cutout_ratio=[(0.05, 0.05), (0.1, 0.1)]),
+    dict(type="RandomCenterCropPad", crop_size=(480, 640), ratios=(0.8, 1.0, 1.2), border=128, test_pad_mode=None),
+    dict(type="FilterAnnotations", min_gt_bbox_wh=(8, 8)),
+    dict(type="SegRescale", scale_factor=0.5),
+]
+
+
+def voc_transform_timing(prefix: str, files: str, gpu: str) -> dict:
+    """Phase 21a: host ms per 480x640 sample on one thread of each transform
+    of this slice (``VOC_TRANSFORMS`` on the VOC trainval split's loaded
+    images and boxes, a semantic map for ``SegRescale``; ``LoadMaskFromFile``
+    on phase 7's ``train_pbr`` JPEGs and their ``mask_visib`` PNGs), of the
+    whole VOC train pipeline (``build_dataset``), and the loader's ms per
+    batch of 16 at FILES_WORKERS threads."""
+    import copy
+
+    from radet_tpu_torch.apis.common import build_dataset
+    from radet_tpu_torch.data import color_aug
+    from radet_tpu_torch.data.bop import BOPDataset
+    from radet_tpu_torch.data.datasets_extra import VOCDataset
+    from radet_tpu_torch.data.loader import DataLoader
+    from radet_tpu_torch.data.pipeline import LoadAnnotations, LoadImageFromFile, LoadMaskFromFile, build_pipeline
+    from radet_tpu_torch.utils import Config
+    from synthetic_bop import voc_options
+
+    voc = VOCDataset(osp.join(prefix, "ImageSets", "Main", "trainval.txt"), img_prefix=prefix)
+    load, ann = LoadImageFromFile(), LoadAnnotations()
+    seg = np.random.RandomState(SEED).randint(0, 21, (480, 640)).astype(np.uint8)
+    base = [ann(load(dict(img_info=voc.data_infos[i], ann_info=voc.get_ann_info(i), img_prefix=prefix)))
+            for i in range(VOC_SAMPLES)]
+    out = {}
+    random.seed(SEED)
+    np.random.seed(SEED)
+    for entry in VOC_TRANSFORMS:
+        t = build_pipeline([entry]).transforms[0]
+        inputs = [dict(copy.deepcopy(r), gt_semantic_seg=seg) for r in base]
+        t0 = time.perf_counter()
+        for r in inputs:
+            t(r)
+        out[entry["type"]] = (time.perf_counter() - t0) * 1000 / VOC_SAMPLES
+    bop = BOPDataset(osp.join(files, "train_pbr.json"), img_prefix=osp.join(files, "train_pbr") + "/")
+    inputs = [dict(img_info=bop.data_infos[i], ann_info=bop.parse_ann_info(bop.data_infos[i]),
+                   img_prefix=bop.img_prefix, gt_bboxes=bop.parse_ann_info(bop.data_infos[i])["bboxes"])
+              for i in range(VOC_SAMPLES)]
+    t0 = time.perf_counter()
+    masks = [LoadMaskFromFile()(r)["gt_masks"].shape[0] for r in inputs]
+    out["LoadMaskFromFile"] = (time.perf_counter() - t0) * 1000 / VOC_SAMPLES
+    # PhotoMetricDistortion's RGB <-> HSV: the C++ functions against their numpy twins, each timed
+    hsv = {}
+    for name, fn, arg in (("rgb_to_hsv_f32", color_aug.rgb_to_hsv_f32, [r["img"].astype(np.float32) for r in base]),
+                          ("hsv_to_rgb_f32", color_aug.hsv_to_rgb_f32, None)):
+        if arg is None:  # the first conversion's output, its saturation and hue moved
+            arg = [np.stack([(h[..., 0] + np.float32(33.3)) % 360, (h[..., 1] * np.float32(1.3)).clip(0, 1),
+                             h[..., 2]], -1) for h in hsv["rgb_to_hsv_f32"][2]]
+        plain = getattr(color_aug, name + "_plain")
+        t0 = time.perf_counter()
+        got = [fn(x) for x in arg]
+        t1 = time.perf_counter()
+        want = [plain(x) for x in arg]
+        t2 = time.perf_counter()
+        hsv[name] = ((t1 - t0) * 1000 / len(arg), (t2 - t1) * 1000 / len(arg), got)
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            fail(f"color_aug.{name} (C++) differs from its numpy twin on the VOC images")
+    print(f"  PhotoMetricDistortion's conversions, csrc/color_aug.cpp against the numpy twins on {VOC_SAMPLES} VOC "
+          f"images 480x640, bit for bit: " + ", ".join(f"{k} {v[0]:.2f} ms (twin {v[1]:.2f})" for k, v in hsv.items())
+          + f" [host of {gpu}]")
+    out.update({f"{k}_ms": v[0] for k, v in hsv.items()}, **{f"{k}_plain_ms": v[1] for k, v in hsv.items()})
+    cfg = Config.fromfile(str(Path(__file__).resolve().parent / CONFIG), voc_options(prefix, min_size=VOC_MIN_SIZE))
+    dataset = build_dataset(cfg, "train")
+    dataset[0]
+    t0 = time.perf_counter()
+    for i in range(VOC_PIPELINE_SAMPLES):
+        dataset[i % len(dataset)]
+    out["voc_train_pipeline"] = (time.perf_counter() - t0) * 1000 / VOC_PIPELINE_SAMPLES
+    it = iter(DataLoader(dataset, batch_size=16, num_workers=FILES_WORKERS, seed=SEED, infinite=True))
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(VOC_LOADER_BATCHES):
+        next(it)
+    out["loader_ms_per_batch"] = (time.perf_counter() - t0) * 1000 / VOC_LOADER_BATCHES
+    it.close()
+    print(f"timing: this slice's transforms at 480x640, one thread, ms per sample (mean of {VOC_SAMPLES}; "
+          f"LoadMaskFromFile on phase 7's train_pbr, {sum(masks)} masks): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in out.items() if k[0].isupper())
+          + f"; the VOC train pipeline (SSD recipe, box maps by GDT) {out['voc_train_pipeline']:.2f} ms per sample "
+          f"(mean of {VOC_PIPELINE_SAMPLES}); its loader at {FILES_WORKERS} threads, batch 16: "
+          f"{out['loader_ms_per_batch']:.1f} ms/batch ({16000 / out['loader_ms_per_batch']:.1f} img/s; mean of "
+          f"{VOC_LOADER_BATCHES} after the first) [host of {gpu}]")
+    return out
+
+
+def voc_train_cli(config: str, opts, work: str, gpu: str) -> dict:
+    """Phase 21b: ``tools.train`` (its ``main``, in this process) on the
+    flagship config with ``voc_options``: RADet R50-FPN, 20 classes, full
+    width, bf16, batch 16, FILES_WORKERS loader threads, the SSD recipe,
+    VOC_STEPS steps and one periodic eval on the test split (K = 512) with
+    ``save_best='mAP'``: finite losses, VOC's metrics, ``best_weights.pth``
+    with ``mAP`` in its meta, every vote-NMS call held to the plain
+    version."""
+    import radet_tpu_torch.models.postprocess as postprocess
+    import radet_tpu_torch.ops.vote_nms_cuda as vnc
+
+    repo = Path(__file__).resolve().parent
+    work_dir = osp.join(work, "work_dir_voc")
+    calls = []
+    kernel_nms, postprocess.vote_nms = recorded_vote_nms(calls)
+    vnc.LAUNCHES = 0
+    try:
+        _, log, wall = tool_run(repo, ["-m", "radet_tpu_torch.tools.train", config, "--work-dir", work_dir,
+                                       "--max-iters", VOC_STEPS, "--cfg-options", *opts, "log_config.interval=1",
+                                       f"checkpoint_config.interval={VOC_STEPS}", f"evaluation.interval={VOC_STEPS}",
+                                       f"data.workers_per_gpu={FILES_WORKERS}"], "the VOC train CLI")
+    finally:
+        postprocess.vote_nms = kernel_nms
+    torch.cuda.synchronize()
+    launches = vnc.LAUNCHES
+    log = log.splitlines()
+    iters = [ln for ln in log if ln.startswith("iter ")]
+    evals = [ln for ln in log if ln.startswith("eval: ")]
+    history = [float(v) for ln in iters for v in re.findall(r" loss (\S+)", ln)]
+    ks = sorted({int(a[0].shape[1]) for a, _, _ in calls})
+    best = osp.join(work_dir, "best_weights.pth")
+    meta = torch.load(best, weights_only=True)["meta"] if osp.exists(best) else {}
+    print(f"VOC train CLI: radet_tpu_torch.tools.train.main on {CONFIG} with VOC's options (VOCDataset 2007, "
+          f"{VOC_TRAINVAL} trainval images, 20 classes, the SSD recipe; full width, bf16, batch 16, "
+          f"{FILES_WORKERS} loader threads), {VOC_STEPS} steps, one eval on {VOC_TEST} test images:")
+    for ln in iters[:1] + iters[-1:] + evals + [ln for ln in log if ln.startswith(("train dataset", "new best"))]:
+        print(f"  {ln}")
+    want = -(-VOC_TEST // 16)
+    if (len(iters) != VOC_STEPS or len(history) != VOC_STEPS or not all(math.isfinite(v) for v in history)
+            or len(evals) != 1 or " mAP " not in evals[0] or launches != want or len(calls) != want
+            or ks != [512] or "mAP" not in meta or meta.get("step") != VOC_STEPS):
+        fail(f"the VOC train CLI: {len(iters)} steps, losses {history}, evals {evals}, vote_nms launches "
+             f"{launches} ({len(calls)} recorded at K {ks}; expected {want} at 512), best_weights meta {meta}")
+    per_step = [float(m) for ln in iters for m in re.findall(r"\| (\S+) ms/iter", ln)]
+    waits = [float(m) for ln in iters for m in re.findall(r"data wait (\S+) ms/iter", ln)]
+    ms = float(np.median(per_step[1:]))
+    share = sum(waits[1:]) / sum(per_step[1:])
+    print(f"  {VOC_STEPS} steps, {ms:.1f} ms/step (median of steps 2-{VOC_STEPS}, {16000 / ms:.1f} img/s), loader "
+          f"wait {sum(waits[1:]):.1f} of {sum(per_step[1:]):.1f} ms over steps 2-{VOC_STEPS} ({share:.1%}); "
+          f"{wall:.1f} s in all (model build and eval included); vote_nms launches {launches} at K {ks}; "
+          f"best_weights.pth written with mAP {meta['mAP']:.4f} at step {meta['step']} [{gpu}]")
+    err = hold_to_plain(calls, "the VOC train CLI's eval")
+    return dict(launches=launches, max_abs_err=err, step_ms=ms, wait_share=share, wall_s=wall, best=best)
+
+
+def voc_test_cli(config: str, opts, best: str, work: str, gpu: str) -> dict:
+    """Phase 21c: ``tools.test --eval mAP`` (its ``main``, strict) on the
+    VOC2007 test split with the train CLI's best weights: one vote-NMS
+    launch per batch of 16 at K = 2048, each held to the plain version;
+    VOC's AP50 and mAP (11 points) printed.  Returns its numbers and
+    results."""
+    import radet_tpu_torch.models.postprocess as postprocess
+    import radet_tpu_torch.ops.vote_nms_cuda as vnc
+
+    repo = Path(__file__).resolve().parent
+    out = osp.join(work, "voc_results.pkl")
+    calls = []
+    kernel_nms, postprocess.vote_nms = recorded_vote_nms(calls)
+    vnc.LAUNCHES = 0
+    try:
+        stdout, log, wall = tool_run(repo, ["-m", "radet_tpu_torch.tools.test", config, best, "--eval", "mAP",
+                                            "--out", out, "--cfg-options", *opts, "data.samples_per_gpu=16"],
+                                     "tools.test --eval mAP on the VOC test split")
+    finally:
+        postprocess.vote_nms = kernel_nms
+    torch.cuda.synchronize()
+    launches = vnc.LAUNCHES
+    metrics = json.loads(stdout[stdout.index("{"):])
+    with open(out, "rb") as f:
+        results = pickle.load(f)
+    ks = [int(a[0].shape[1]) for a, _, _ in calls]
+    want = -(-VOC_TEST // 16)
+    done = [ln for ln in log.splitlines() if ln.startswith("inference done")]
+    print(f"VOC test CLI: radet_tpu_torch.tools.test --eval mAP (strict) on {VOC_TEST} VOC2007 test images with "
+          f"the train CLI's best_weights.pth: AP50 {metrics.get('AP50')}, mAP {metrics.get('mAP')} (VOC2007's 11 "
+          f"points); {done[0] if done else 'no inference line'}; {wall:.1f} s in all; vote_nms launches {launches} "
+          f"at K {sorted(set(ks))} [{gpu}]")
+    if (set(metrics) != {"AP50", "mAP"} or not all(math.isfinite(v) for v in metrics.values())
+            or launches != want or len(calls) != want or set(ks) != {2048} or len(results) != VOC_TEST
+            or not all(len(r["boxes"]) and np.isfinite(r["boxes"]).all() for r in results)):
+        fail(f"tools.test --eval mAP on the VOC split: metrics {metrics}, vote_nms launches {launches} "
+             f"({len(calls)} recorded at K {ks}; expected {want} at 2048), {len(results)} results")
+    err = hold_to_plain(calls, "tools.test --eval mAP on the VOC split")
+    return dict(launches=launches, max_abs_err=err, metrics=metrics, wall_s=wall, results=results)
+
+
+def voc_as_coco_and_lvis(prefix: str, results, work: str, gpu: str) -> dict:
+    """Phase 21d (host): the test CLI's detections evaluated again, without
+    a second inference, as a COCO-format ``LVISV1Dataset`` (``coco_url``
+    file names, ``neg_category_ids``, ``not_exhaustive_category_ids``,
+    ``frequency``: the federated protocol) and as a ``CocoDataset`` (VOC's
+    classes under their COCO names among the 80), each through
+    ``evaluate_results``; the ground truth as detections scores mAP 1 in
+    both."""
+    from radet_tpu_torch.apis.test import evaluate_results
+    from radet_tpu_torch.data.datasets_extra import CocoDataset, LVISV1Dataset, VOCDataset
+
+    t0 = time.perf_counter()
+    voc = VOCDataset(osp.join(prefix, "ImageSets", "Main", "test.txt"), img_prefix=prefix, test_mode=True)
+    coco = json.loads(json.dumps(voc.coco.dataset))
+    present = {}
+    for a in coco["annotations"]:
+        present.setdefault(a["image_id"], set()).add(a["category_id"])
+    for img in coco["images"]:
+        img["coco_url"] = f"http://images.cocodataset.org/{img.pop('filename')}"
+        img["neg_category_ids"] = [c for c in range(1, 21) if c not in present.get(img["id"], ()) and c % 3 == 0]
+        img["not_exhaustive_category_ids"] = sorted(present.get(img["id"], ()))[:1]
+    for c in coco["categories"]:
+        c["frequency"] = "rcf"[c["id"] % 3]
+    lvis_file = osp.join(work, "voc_as_lvis.json")
+    with open(lvis_file, "w") as f:
+        json.dump(coco, f)
+    lvis = LVISV1Dataset(lvis_file, img_prefix=prefix + "/", test_mode=True)
+    names = [VOC_TO_COCO.get(n, n) for n in voc.CLASSES]
+    cats = [dict(id=i + 1, name=n) for i, n in enumerate(CocoDataset.CLASSES)]
+    as_coco = dict(images=json.loads(json.dumps(voc.coco.dataset["images"])), categories=cats,
+                   annotations=[dict(a, category_id=CocoDataset.CLASSES.index(names[a["category_id"] - 1]) + 1)
+                                for a in voc.coco.dataset["annotations"]])
+    coco_file = osp.join(work, "voc_as_coco.json")
+    with open(coco_file, "w") as f:
+        json.dump(as_coco, f)
+    coco_ds = CocoDataset(coco_file, img_prefix=prefix, test_mode=True)
+    to_coco = np.array([CocoDataset.CLASSES.index(n) for n in names])
+    coco_results = [dict(r, labels=to_coco[r["labels"]]) for r in results]
+    gt = []  # every annotation, difficult and small ones included (both protocols count them)
+    for img_id in voc.img_ids:
+        anns = voc.coco.get_anns(img_id)
+        boxes = np.asarray([[x, y, x + w, y + h] for x, y, w, h in (a["bbox"] for a in anns)], np.float32)
+        gt.append(dict(img_id=img_id, boxes=boxes.reshape(-1, 4), scores=np.ones(len(anns), np.float32),
+                       labels=np.asarray([voc.cat2label[a["category_id"]] for a in anns], np.int64)))
+    out = dict(lvis=evaluate_results(lvis, results), coco=evaluate_results(coco_ds, coco_results),
+               lvis_gt=evaluate_results(lvis, gt)["bbox_mAP"],
+               coco_gt=evaluate_results(coco_ds, [dict(g, labels=to_coco[g["labels"]]) for g in gt])["bbox_mAP"])
+    wall = time.perf_counter() - t0
+    print(f"VOC's detections as LVIS v1 (coco_url names, negative and not-exhaustive sets, frequencies): bbox_mAP "
+          f"{out['lvis']['bbox_mAP']:.4f}, APr/APc/APf {out['lvis'].get('bbox_mAP_r', -1):.4f}/"
+          f"{out['lvis'].get('bbox_mAP_c', -1):.4f}/{out['lvis'].get('bbox_mAP_f', -1):.4f}; as COCO (CocoDataset, "
+          f"80 classes): bbox_mAP {out['coco']['bbox_mAP']:.4f}, bbox_mAP_50 {out['coco']['bbox_mAP_50']:.4f}; "
+          f"the ground truth as detections {out['lvis_gt']:.6f} and {out['coco_gt']:.6f} (expected 1); "
+          f"{wall:.2f} s on the host [host of {gpu}]")
+    if (abs(out["lvis_gt"] - 1) > 1e-9 or abs(out["coco_gt"] - 1) > 1e-9 or "bbox_mAP_r" not in out["lvis"]
+            or not all(math.isfinite(v) for m in (out["lvis"], out["coco"]) for v in m.values())
+            or lvis.data_infos[0]["filename"] != voc.data_infos[0]["filename"]):
+        fail(f"LVIS and COCO evaluation of the VOC detections: {out}")
+    return out
+
+
+def datasets_phase(gpu: str, work: str, files: str) -> dict:
+    """Phase 21: the dataset zoo (ROADMAP item 12f) on a VOC2007 split of the
+    JPEG fixtures (``tests/synthetic_bop.py::write_voc_split``: boxes of
+    their records, every fifth object difficult, a 6-pixel object on every
+    third image, the first XML without ``<size>``)."""
+    from synthetic_bop import jpeg_fixtures, voc_options, write_voc_split
+
+    jpegs, records = jpeg_fixtures()
+    t0 = time.perf_counter()
+    prefix = write_voc_split(osp.join(work, "voc"), records, jpegs, [("trainval", VOC_TRAINVAL), ("test", VOC_TEST)])
+    print(f"datasets: a VOC2007 split of {VOC_TRAINVAL} trainval and {VOC_TEST} test JPEGs 480x640 (copies of the "
+          f"{len(jpegs)} fixtures) with XML annotations written in {time.perf_counter() - t0:.2f} s")
+    timing = voc_transform_timing(prefix, files, gpu)
+    config = str(Path(__file__).resolve().parent / CONFIG)
+    opts = voc_options(prefix, min_size=VOC_MIN_SIZE) + ["test_cfg.score_thr=0.0"]
+    train = voc_train_cli(config, opts, work, gpu)
+    test = voc_test_cli(config, opts, train["best"], work, gpu)
+    evals = voc_as_coco_and_lvis(prefix, test.pop("results"), work, gpu)
+    return dict(timing=timing, train=train, test=test, evals=evals)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -4837,6 +5150,9 @@ def main() -> None:
 
         # 20. the extra backbone families
         extra_launches = phase("extra backbones", extra_backbones_phase, gpu, repo)
+
+        # 21. the dataset zoo: VOC through the train and test CLIs, the transforms, LVIS and COCO
+        voc = phase("dataset zoo", datasets_phase, gpu, work, files)
     nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by, _ = nms_times[ANCHOR_MAIN_SHAPE]
 
     print(f"card: {gpu}; smoke {time.perf_counter() - start:.1f} s wall")
@@ -4887,6 +5203,10 @@ def main() -> None:
         "itodd_max_abs_err": itodd["max_abs_err"],
         # phase 20: each extra family's inference_detector run of 8 images (K 512)
         "extra_backbone_launches": extra_launches,
+        # phase 21: the VOC train CLI's periodic eval (K 512) and the strict VOC test CLI (K 2048), 32 images in
+        # batches of 16; each call held to the plain version
+        "voc_launches": {"train_cli_eval": voc["train"]["launches"], "test_cli": voc["test"]["launches"]},
+        "voc_max_abs_err": {"train_cli_eval": voc["train"]["max_abs_err"], "test_cli": voc["test"]["max_abs_err"]},
     }, {
         "name": "batched_nms (vote_nms.cu, no-vote mode)",
         "route": "cuda",

@@ -11,11 +11,11 @@ from ..core.anchor_generator import build_anchor_generator, flat_anchors_for_inp
 from ..core.anchors import AnchorConfig, generate_anchors
 from ..core.box_coder import build_bbox_coder
 from ..data.bop import BOPDataset
+from ..data.datasets_extra import DATASET_TYPES, XMLDataset
 from ..data.dataset_wrappers import WRAPPERS, ClassBalancedDataset, ConcatDataset, MixDataset, RepeatDataset
 from ..engine.infer_step import InferenceModule, anchor_postprocess, infer_step_of, radet_postprocess
 from ..models.builder import build_detector
 
-_OTHER_DATASETS = "ROADMAP.md Queue 1 item 12, other dataset types"
 _SAMPLERS = "ROADMAP.md Queue 1 item 12, the sampler zoo"
 
 
@@ -242,8 +242,10 @@ def build_infer_module(cfg, model, anchors, counts, test_cfg=None) -> InferenceM
 
 def build_dataset(cfg, split: str, test_mode: bool | None = None):
     """The dataset of ``cfg.data[split]`` (test mode unless ``split`` is
-    'train'): a ``BOPDataset``, or a wrapper of ``data.dataset_wrappers``
-    over ``BOPDataset``s, whose sub-datasets take ``pipeline``,
+    'train'): one of ``data.datasets_extra.DATASET_TYPES`` (``BOPDataset``
+    by default), or a wrapper of ``data.dataset_wrappers`` over them (a
+    ``ConcatDataset`` of a VOC2007 and a VOC2012 ``VOCDataset`` is mmdet's
+    VOC0712 layout), whose sub-datasets take ``pipeline``,
     ``classes``, ``min_visib_frac`` and ``seg_prefix`` from the wrapper's
     section where they do not set them."""
     data_cfg = _to_dict(cfg.data[split])
@@ -270,14 +272,17 @@ def build_dataset(cfg, split: str, test_mode: bool | None = None):
 
 
 def _build_bop(cfg, data_cfg: Dict, test_mode: bool, input_size=None) -> BOPDataset:
-    """A ``BOPDataset`` from one data section; ``input_size`` overrides
+    """The dataset of one data section, of its ``type`` in ``DATASET_TYPES``
+    (an XML dataset also takes ``min_size``); ``input_size`` overrides
     ``cfg.input_size`` (the per-orientation views of ``apis.test``)."""
     ds_type = data_cfg.get("type", "BOPDataset")
-    if ds_type != "BOPDataset":
-        raise NotImplementedError(f"dataset type {ds_type!r} is not ported ({_OTHER_DATASETS})")
+    if ds_type not in DATASET_TYPES:
+        raise KeyError(f"unknown dataset type {ds_type!r}; available: {sorted(DATASET_TYPES)} plus the wrapper types")
+    ds_cls = DATASET_TYPES[ds_type]
+    extra = {"min_size": data_cfg["min_size"]} if issubclass(ds_cls, XMLDataset) and "min_size" in data_cfg else {}
     la_cfg = assignment_cfg_from(cfg)
     img_norm = cfg.get("img_norm_cfg")
-    return BOPDataset(
+    return ds_cls(
         ann_file=data_cfg["ann_file"],
         img_prefix=data_cfg.get("img_prefix", ""),
         seg_prefix=data_cfg.get("seg_prefix"),
@@ -291,4 +296,5 @@ def _build_bop(cfg, data_cfg: Dict, test_mode: bool, input_size=None) -> BOPData
         anchor_cfg=anchor_cfg_from_model(_to_dict(cfg.model), la_cfg),
         img_norm=_to_dict(img_norm) if img_norm is not None else None,
         orientation=data_cfg.get("orientation"),
+        **extra,
     )

@@ -216,7 +216,15 @@ def _run_views(model, datasets, infers, *, test_cfg: Dict, batch_size: int, num_
 
 def evaluate_results(dataset, results: List[dict], *, classwise: bool = False) -> Dict[str, float]:
     """COCO bbox metrics of ``results`` on ``dataset`` (keys ``bbox_mAP``,
-    ``bbox_mAP_50``, ...); ``classwise`` adds ``bbox_AP_<class>``."""
+    ``bbox_mAP_50``, ...); ``classwise`` adds ``bbox_AP_<class>``.
+
+    A dataset with a protocol of its own (``VOCDataset``'s mean AP, keys
+    ``AP50`` and ``mAP``; ``LVISV1Dataset``'s federated protocol) evaluates
+    through its ``evaluate``; a dataset's ``EVAL_DEFAULTS`` may force
+    ``classwise`` (``KittiDataset``)."""
+    if hasattr(type(dataset), "evaluate"):
+        return dataset.evaluate(results, classwise=classwise)
+    classwise = getattr(dataset, "EVAL_DEFAULTS", {}).get("classwise", classwise)
     evaluator = COCOEvaluator(dataset.coco, cat_ids=dataset.cat_ids, img_ids=dataset.img_ids)
     out = {f"bbox_{k}": v for k, v in evaluator.evaluate(dataset.det2json(results)).items()}
     if classwise:

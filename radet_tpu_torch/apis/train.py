@@ -185,6 +185,8 @@ def train_detector(
     eval_cfg = cfg.get("evaluation")
     eval_interval = int(eval_cfg.get("interval", 10000)) if eval_cfg else 0
     save_best = str(eval_cfg.get("save_best") or "") if eval_cfg else ""
+    # COCO-protocol metrics are bbox_-prefixed; a dataset's own protocol
+    # (VOC's mAP, AP50) names them bare: the bare name is the fallback
     best_key = save_best if save_best.startswith("bbox_") else f"bbox_{save_best}"
     best_score = float("-inf")
     eval_cache: dict = {}  # the val dataset and inference step, built once
@@ -217,13 +219,13 @@ def train_detector(
                 logger.info(f"checkpoint saved at step {step}")
             if eval_during_train and eval_interval and step % eval_interval == 0:
                 eval_metrics = _run_eval(cfg, model, anchors, counts, logger, eval_cache)
-                score = (eval_metrics or {}).get(best_key)
+                key = best_key if best_key in (eval_metrics or {}) else save_best
+                score = (eval_metrics or {}).get(key)
                 if save_best and score is not None and score > best_score:
                     best_score = score
                     path = osp.join(work_dir, "best_weights.pth")
-                    save_weights(path, model.state_dict(),
-                                 meta=dict(CLASSES=classes, step=step, **{best_key: score}))
-                    logger.info(f"new best {best_key}={score:.4f} at step {step}, saved to {path}")
+                    save_weights(path, model.state_dict(), meta=dict(CLASSES=classes, step=step, **{key: score}))
+                    logger.info(f"new best {key}={score:.4f} at step {step}, saved to {path}")
     except BaseException:
         # keep the last complete step before the error propagates
         if state.step > 0 and state.step != last_saved:

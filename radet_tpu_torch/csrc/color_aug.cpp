@@ -24,11 +24,17 @@
 //   fractional bits, (R * cR + G * cG + B * cB + 2^(shift-1)) >> shift with
 //   cR = round(0.299 * 2^shift), cG = round(0.587 * 2^shift) and
 //   cB = 2^shift - cR - cG: shift 15 is cv2.cvtColor(COLOR_RGB2GRAY) in
-//   cv2 5.0, shift 14 the gray cv2.imread makes of a colour TIFF.
+//   cv2 5.0, shift 14 the gray cv2.imread makes of a colour TIFF;
+// - radet_rgb_to_hsv_f32, radet_hsv_to_rgb_f32: cv2.cvtColor(COLOR_RGB2HSV)
+//   and (COLOR_HSV2RGB) on float32 images (PhotoMetricDistortion's), in
+//   OpenCV's float arithmetic: its 8-pixel vector code over the first
+//   w - w % 8 pixels of a row and its scalar code over the rest, with the
+//   multiply-adds its build fuses taken as fmaf (see each function).
 //
 // Images are contiguous HWC uint8.  ctypes releases the interpreter lock
 // around each call, so loader threads run them in parallel.
 
+#include <cfloat>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
@@ -140,6 +146,66 @@ void add_weighted_fma(const uint8_t* a, const uint8_t* b, uint8_t* dst, int64_t 
 }
 #endif
 
+// RGB -> HSV of one row of w pixels: V = max, S = (V - min) / (|V| + eps),
+// H = fmaf(d, 60 / (V - min + eps), base) with d and base by the maximum's
+// channel (R: g - b and 0, or 360 in the vector code where g < b; G: b - r
+// and 120; B: r - g and 240), the scalar tail adding 360 to a negative H.
+inline __attribute__((always_inline)) void rgb_to_hsv_row(const float* src, float* dst, int64_t w) {
+  const int64_t vector_end = w - w % 8;
+  for (int64_t x = 0; x < w; ++x) {
+    const float r = src[3 * x], g = src[3 * x + 1], b = src[3 * x + 2];
+    float v = r, lo = r;
+    if (v < g) v = g;
+    if (v < b) v = b;
+    if (lo > g) lo = g;
+    if (lo > b) lo = b;
+    const float diff = v - lo;
+    const bool r_max = r == v, g_max = !r_max && g == v, vector = x < vector_end;
+    const float d = r_max ? g - b : (g_max ? b - r : r - g);
+    const float base = r_max ? (vector && g < b ? 360.f : 0.f) : (g_max ? 120.f : 240.f);
+    float hue = std::fmaf(d, 60.f / (diff + FLT_EPSILON), base);
+    if (!vector && hue < 0.f) hue += 360.f;
+    dst[3 * x] = hue;
+    dst[3 * x + 1] = diff / (std::fabs(v) + FLT_EPSILON);
+    dst[3 * x + 2] = v;
+  }
+}
+
+// HSV (H in degrees) -> RGB of n pixels: h = H * (6 / 360), sector
+// trunc(h) mod 6, f = h - trunc(h), and the tab v, v (1 - s),
+// v fmaf(-s, f, 1), v fmaf(-s, 1 - f, 1) picked by sector.
+inline __attribute__((always_inline)) void hsv_to_rgb_body(const float* src, float* dst, int64_t n) {
+  // (b, g, r) entries of the tab per sector, OpenCV's table
+  static const int kSectors[6][3] = {{1, 3, 0}, {1, 0, 2}, {3, 0, 1}, {0, 2, 1}, {0, 1, 3}, {2, 1, 0}};
+  const float hscale = 6.f / 360.f, sixth = 1.f / 6.f;
+  for (int64_t i = 0; i < n; ++i) {
+    const float h = src[3 * i] * hscale, s = src[3 * i + 1], v = src[3 * i + 2];
+    const float whole = std::trunc(h), f = h - whole;
+    const float tab[4] = {v, v * (1.f - s), v * std::fmaf(-s, f, 1.f), v * std::fmaf(-s, 1.f - f, 1.f)};
+    int sector = static_cast<int>(whole - std::trunc(whole * sixth) * 6.f);
+    if (sector < 0 || sector >= 6) sector = 0;
+    dst[3 * i] = tab[kSectors[sector][2]];
+    dst[3 * i + 1] = tab[kSectors[sector][1]];
+    dst[3 * i + 2] = tab[kSectors[sector][0]];
+  }
+}
+
+void rgb_to_hsv(const float* src, float* dst, int64_t h, int64_t w) {
+  for (int64_t y = 0; y < h; ++y) rgb_to_hsv_row(src + 3 * y * w, dst + 3 * y * w, w);
+}
+
+void hsv_to_rgb(const float* src, float* dst, int64_t n) { hsv_to_rgb_body(src, dst, n); }
+
+#ifdef RADET_HAVE_FMA_CLONE
+RADET_FMA_TARGET
+void rgb_to_hsv_fma(const float* src, float* dst, int64_t h, int64_t w) {
+  for (int64_t y = 0; y < h; ++y) rgb_to_hsv_row(src + 3 * y * w, dst + 3 * y * w, w);
+}
+
+RADET_FMA_TARGET
+void hsv_to_rgb_fma(const float* src, float* dst, int64_t n) { hsv_to_rgb_body(src, dst, n); }
+#endif
+
 }  // namespace
 
 extern "C" {
@@ -223,6 +289,22 @@ void radet_rgb_to_gray(const uint8_t* rgb, uint8_t* gray, int64_t pixels, int64_
     const uint8_t* px = rgb + p * step;
     gray[p] = static_cast<uint8_t>((px[0] * cr + px[1] * cg + px[2] * cb + half) >> shift);
   }
+}
+
+// cv2.cvtColor(src, COLOR_RGB2HSV) of an (h, w, 3) float32 image.
+void radet_rgb_to_hsv_f32(const float* src, float* dst, int64_t h, int64_t w) {
+#ifdef RADET_HAVE_FMA_CLONE
+  if (have_avx2_fma()) return rgb_to_hsv_fma(src, dst, h, w);
+#endif
+  rgb_to_hsv(src, dst, h, w);
+}
+
+// cv2.cvtColor(src, COLOR_HSV2RGB) of `pixels` float32 HSV pixels.
+void radet_hsv_to_rgb_f32(const float* src, float* dst, int64_t pixels) {
+#ifdef RADET_HAVE_FMA_CLONE
+  if (have_avx2_fma()) return hsv_to_rgb_fma(src, dst, pixels);
+#endif
+  hsv_to_rgb(src, dst, pixels);
 }
 
 }  // extern "C"

@@ -25,7 +25,11 @@ cv2's byte for byte:
 Beside the CosyPose ops, ``rgb_to_gray`` is cv2's fixed-point gray: of
 ``cv2.cvtColor(img, COLOR_RGB2GRAY)`` (15 fractional bits in cv2 5.0; the
 mask-free maps' Sobel cost) and of ``cv2.imread`` reading a colour TIFF as
-gray (14 bits; ``data/image_io.py``).
+gray (14 bits; ``data/image_io.py``); ``rgb_to_hsv_f32`` and
+``hsv_to_rgb_f32`` are ``cv2.cvtColor``'s float32 RGB<->HSV
+(``PhotoMetricDistortion``'s), in OpenCV's arithmetic: its AVX2 code takes
+8 pixels a vector and fuses the multiply-adds named in the twins'
+docstrings, its scalar code the last W % 8 pixels of a row.
 
 The ``*_plain`` functions are the numpy twins of the C++ functions, which
 the tests hold equal to them and to cv2; the training path calls the C++
@@ -66,8 +70,16 @@ _API = {
     "radet_lut": ([_P, _P, _I64, _P], None),
     "radet_pil_gray": ([_P, _P, _I64], None),
     "radet_rgb_to_gray": ([_P, _P, _I64, _I64, ctypes.c_int], None),
+    "radet_rgb_to_hsv_f32": ([_P, _P, _I64, _I64], None),
+    "radet_hsv_to_rgb_f32": ([_P, _P, _I64], None),
 }
 GRAY_SHIFTS = (14, 15)  # imread's gray of a colour TIFF, cvtColor's COLOR_RGB2GRAY
+
+_F32 = np.float32
+_FLT_EPSILON = np.finfo(np.float32).eps
+# cv2's float colour conversions run 8 pixels a vector (its AVX2 code); the
+# last W % 8 pixels of a row take its scalar code
+_HSV_LANES = 8
 
 
 def build() -> ctypes.CDLL:
@@ -172,6 +184,30 @@ def rgb_to_gray(img: np.ndarray, shift: int = 15) -> np.ndarray:
     return out
 
 
+def _hwc3_f32(img: np.ndarray) -> np.ndarray:
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"expected an (H, W, 3) image, got {img.shape}")
+    return np.ascontiguousarray(img, np.float32)
+
+
+def rgb_to_hsv_f32(img: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(img, cv2.COLOR_RGB2HSV)`` of an (H, W, 3) float32
+    image, bit for bit: H in degrees, S in [0, 1], V the input's max."""
+    img = _hwc3_f32(img)
+    out = np.empty_like(img)
+    build().radet_rgb_to_hsv_f32(img.ctypes.data, out.ctypes.data, img.shape[0], img.shape[1])
+    return out
+
+
+def hsv_to_rgb_f32(hsv: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(hsv, cv2.COLOR_HSV2RGB)`` of an (H, W, 3) float32
+    image (H in degrees), bit for bit."""
+    hsv = _hwc3_f32(hsv)
+    out = np.empty_like(hsv)
+    build().radet_hsv_to_rgb_f32(hsv.ctypes.data, out.ctypes.data, hsv.shape[0] * hsv.shape[1])
+    return out
+
+
 # -------------------------------------------------------------- numpy twins
 
 
@@ -226,6 +262,69 @@ def rgb_to_gray_plain(img: np.ndarray, shift: int = 15) -> np.ndarray:
 
 NATIVE = SimpleNamespace(blur=gaussian_blur, smooth=smooth, add_weighted=add_weighted, lut=apply_lut,
                          gray=pil_gray)
+
+
+def _fma32(a, b, c) -> np.ndarray:
+    """float32 ``fma(a, b, c)``, rounded once: the product is exact in
+    float64; where the float64 sum lies on a tie between two float32s, its
+    rounding error (TwoSum) sends it to the side of the exact value."""
+    a, b, c = (np.asarray(x, np.float64) for x in (a, b, c))
+    p = a * b
+    s = p + c
+    out = s.astype(np.float32)
+    # a tie: the 29 bits that float32 drops are 1 << 28
+    tie = np.flatnonzero((s.view(np.uint64) & np.uint64((1 << 29) - 1)) == np.uint64(1 << 28))
+    if tie.size:
+        pt, ct, st = (np.broadcast_to(x, s.shape).ravel()[tie] for x in (p, c, s))
+        v = st - pt
+        err = (pt - (st - v)) + (ct - v)
+        fixed = np.where(err != 0, np.nextafter(st, np.where(err > 0, np.inf, -np.inf)), st)
+        out.ravel()[tie] = fixed.astype(np.float32)
+    return out
+
+
+def rgb_to_hsv_f32_plain(img: np.ndarray) -> np.ndarray:
+    """numpy twin of :func:`rgb_to_hsv_f32`: V = max, S = (V - min) / (|V|
+    + FLT_EPSILON), and H = fma(d, 60 / (V - min + FLT_EPSILON), base), d
+    and base by the maximum's channel (R: g - b and 0, or 360 in cv2's
+    vector code where g < b; G: b - r and 120; B: r - g and 240), cv2's
+    scalar tail adding 360 after a negative result."""
+    r, g, b = (np.ascontiguousarray(img[..., i], np.float32) for i in range(3))
+    v = np.maximum(np.maximum(r, g), b)
+    diff = v - np.minimum(np.minimum(r, g), b)
+    s = diff / (np.abs(v) + _FLT_EPSILON)
+    r_max = r == v
+    g_max = (g == v) & ~r_max
+    d = np.where(r_max, g - b, np.where(g_max, b - r, r - g))
+    base = np.where(g_max, _F32(120), _F32(240))
+    base[r_max] = 0
+    vector = np.arange(img.shape[1]) < img.shape[1] // _HSV_LANES * _HSV_LANES
+    base[vector & r_max & (g < b)] = 360
+    h = _fma32(d, _F32(60) / (diff + _FLT_EPSILON), base)
+    h[~vector & (h < 0)] += _F32(360)
+    return np.stack([h, s, v], -1)
+
+
+# (b, g, r) entries of the tab per sector, OpenCV's HSV2RGB table
+_HSV_SECTORS = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3], [2, 1, 0]])
+
+
+def hsv_to_rgb_f32_plain(hsv: np.ndarray) -> np.ndarray:
+    """numpy twin of :func:`hsv_to_rgb_f32`: h = H * float32(6 / 360), sector
+    trunc(h) mod 6, f = h - trunc(h), and the tab v, v(1 - s), v * fma(-s,
+    f, 1), v * fma(-s, 1 - f, 1) picked by sector (cv2's build contracts
+    ``1 - s * f`` into a fused multiply-add)."""
+    h = hsv[..., 0].astype(np.float32) * (_F32(6) / _F32(360))
+    s, v = hsv[..., 1].astype(np.float32), hsv[..., 2].astype(np.float32)
+    whole = np.trunc(h)
+    f = h - whole
+    one = _F32(1)
+    tab = np.stack([v, v * (one - s), v * _fma32(-s, f, one), v * _fma32(-s, one - f, one)], -1)
+    sector = (whole - np.trunc(whole * (_F32(1) / _F32(6))) * _F32(6)).astype(np.int64)
+    sector[(sector < 0) | (sector >= 6)] = 0
+    return np.take_along_axis(tab, _HSV_SECTORS[sector][..., ::-1], -1)
+
+
 PLAIN = SimpleNamespace(blur=gaussian_blur_plain, smooth=smooth_plain, add_weighted=add_weighted_plain,
                         lut=apply_lut_plain, gray=pil_gray_plain)
 

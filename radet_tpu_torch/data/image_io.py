@@ -338,6 +338,23 @@ def _decode(data: bytes, flags: int, where: str) -> np.ndarray:
     return np.ascontiguousarray(samples[..., :3])
 
 
+def image_size(path: str) -> tuple:
+    """(width, height) of a PNG, JPEG or TIFF file: a JPEG's frame header
+    or a PNG's IHDR chunk (the stored size, before any EXIF turn), a TIFF
+    decoded."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data.startswith(b"\xff\xd8\xff"):
+        return jpeg_info(data)[:2]
+    if data.startswith(_PNG_SIGNATURE):
+        kind, body = next(_chunks(data))
+        if kind != b"IHDR":
+            raise ValueError(f"{path}: corrupt PNG: no IHDR chunk first")
+        return struct.unpack(">II", body[:8])
+    h, w = _decode(data, IMREAD_UNCHANGED, path).shape[:2]
+    return w, h
+
+
 def imread_rgb(path: str) -> np.ndarray:
     """(H, W, 3) uint8 RGB of an image file (``radet_tpu``'s ``imread_rgb``)."""
     return imread(path, IMREAD_COLOR)

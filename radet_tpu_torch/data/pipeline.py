@@ -11,9 +11,12 @@ value of every GT at every anchor center; the assignment itself runs in the
 train step.
 
 The random transforms draw as the JAX package's do, from Python's
-``random`` (``RandomBackground``, ``CosyPoseAug``, ``RandomFlip``), so that
-both packages take the same decisions from the same seed; a ``seed`` gives
-a transform a generator of its own.
+``random`` (``RandomBackground``, ``CosyPoseAug``, ``RandomFlip``, the
+crops, ``Expand``, ``PhotoMetricDistortion``, ``CutOut``,
+``RandomCenterCropPad``), so that both packages take the same decisions
+from the same seed; a ``seed`` gives a transform a generator of its own.
+``PhotoMetricDistortion`` converts RGB<->HSV in cv2's float32 arithmetic
+(``color_aug.rgb_to_hsv_f32``, ``color_aug.hsv_to_rgb_f32``: host C++).
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ from . import color_aug
 from .image_io import IMREAD_GRAYSCALE, IMREAD_UNCHANGED, imread, imread_rgb
 from .poly import fill_poly
 
-_OTHER = "ROADMAP.md Queue 1 item 12, other transforms and dataset types"
+_OTHER = ("ROADMAP.md Queue 1 item 12g: RandomHSV, RandomNoise, RandomSmooth, Albu, Corrupt, "
+          "the AutoAugment family and InstaBoost")
 
 
 def _generator(seed: Optional[int]) -> Optional[random.Random]:
@@ -344,6 +348,308 @@ class Pad:
         return results
 
 
+class LoadMaskFromFile:
+    """Per-instance visible masks from the image path rewritten by
+    ``replace_path`` (``{prefix}/rgb/x.png`` -> ``{prefix}/mask_visib/
+    x_{i:06d}.png``), read as gray and divided by 255 into 0/1.  ``i`` is each
+    GT's original annotation index where ``ann_info['masks']`` names one mask
+    per GT (annotations may have been dropped), else 0, 1, ....  Runs after
+    ``gt_bboxes`` are loaded."""
+
+    def __init__(self, replace_path: Tuple[str, str] = ("rgb", "mask_visib")):
+        self.replace_path = tuple(replace_path)
+
+    def __call__(self, results: Dict[str, Any]) -> Dict[str, Any]:
+        filename = osp.join(results.get("img_prefix", ""), results["img_info"]["filename"]).replace(
+            self.replace_path[0], self.replace_path[1])
+        base = filename.rpartition(".")[0]
+        h, w = results["img_info"]["height"], results["img_info"]["width"]
+        ann_masks = (results.get("ann_info") or {}).get("masks")
+        if ann_masks is not None and len(ann_masks) == len(results["gt_bboxes"]):
+            orig_idx = [int(p.rpartition("_")[2].split(".")[0]) for p in ann_masks]
+        else:
+            orig_idx = list(range(len(results["gt_bboxes"])))
+        masks = [(imread(f"{base}_{i:06d}.png", IMREAD_GRAYSCALE) // 255).astype(np.uint8) for i in orig_idx]
+        results["gt_masks"] = np.stack(masks, 0) if masks else np.zeros((0, h, w), np.uint8)
+        return results
+
+
+class FilterAnnotations:
+    """Drop the GT boxes not wider and taller than ``min_gt_bbox_wh``; None
+    (the loader draws another sample) when none is left."""
+
+    def __init__(self, min_gt_bbox_wh: Tuple[float, float]):
+        self.min_gt_bbox_wh = tuple(min_gt_bbox_wh)
+
+    def __call__(self, results: Dict[str, Any]):
+        b = results["gt_bboxes"]
+        keep = ((b[:, 2] - b[:, 0]) > self.min_gt_bbox_wh[0]) & ((b[:, 3] - b[:, 1]) > self.min_gt_bbox_wh[1])
+        if not keep.any():
+            return None
+        for key in ("gt_bboxes", "gt_labels", "gt_masks", "distance_maps"):
+            if key in results and len(results[key]):
+                results[key] = results[key][keep]
+        return results
+
+
+def _filter_cropped_gt(results: Dict[str, Any], x1: int, y1: int, x2: int, y2: int, clip: bool,
+                       require_gt: bool):
+    """A crop's GT bookkeeping: boxes shifted into the patch (clipped to it
+    with ``clip``), degenerate ones dropped with their labels and masks,
+    masks cut to the patch.  None when no GT is left and ``require_gt``."""
+    if "gt_bboxes" in results and len(results["gt_bboxes"]):
+        b = results["gt_bboxes"] - np.array([x1, y1, x1, y1], np.float32)
+        if clip:
+            b[:, 0::2] = b[:, 0::2].clip(0, x2 - x1)
+            b[:, 1::2] = b[:, 1::2].clip(0, y2 - y1)
+        keep = (b[:, 2] > b[:, 0]) & (b[:, 3] > b[:, 1])
+        if not keep.any() and require_gt:
+            return None
+        results["gt_bboxes"] = b[keep]
+        if "gt_labels" in results:
+            results["gt_labels"] = results["gt_labels"][keep]
+        if "gt_masks" in results and len(results["gt_masks"]):
+            results["gt_masks"] = np.ascontiguousarray(results["gt_masks"][keep.nonzero()[0]][:, y1:y2, x1:x2])
+    elif require_gt:
+        return None
+    return results
+
+
+class RandomCrop:
+    """A random crop of image, boxes and masks (mmdet's four ``crop_type``s:
+    'absolute', 'absolute_range', 'relative', 'relative_range'; ``crop_size``
+    is (h, w)).  A crop without GT gives None (the loader draws another
+    sample) unless ``allow_negative_crop``."""
+
+    def __init__(self, crop_size, crop_type: str = "absolute", allow_negative_crop: bool = False,
+                 bbox_clip_border: bool = True, seed: Optional[int] = None):
+        if crop_type not in ("relative_range", "relative", "absolute", "absolute_range"):
+            raise ValueError(f"invalid crop_type {crop_type!r}")
+        if crop_type in ("absolute", "absolute_range"):
+            if not (crop_size[0] > 0 and crop_size[1] > 0):
+                raise ValueError(f"crop_size {crop_size} must be positive for crop_type {crop_type!r}")
+            if crop_type == "absolute_range" and crop_size[0] > crop_size[1]:
+                raise ValueError(f"absolute_range crop_size {crop_size} must be (min, max)")
+        elif not (0 < crop_size[0] <= 1 and 0 < crop_size[1] <= 1):
+            raise ValueError(f"crop_size {crop_size} must lie in (0, 1] for crop_type {crop_type!r}")
+        self.crop_size = tuple(crop_size)
+        self.crop_type = crop_type
+        self.allow_negative_crop = allow_negative_crop
+        self.bbox_clip_border = bbox_clip_border
+        self.rng = _generator(seed)
+
+    def _sample_size(self, rng, h: int, w: int) -> Tuple[int, int]:
+        ch, cw = self.crop_size
+        if self.crop_type == "absolute":
+            return min(int(ch), h), min(int(cw), w)
+        if self.crop_type == "absolute_range":
+            return (rng.randint(min(h, int(ch)), min(h, int(cw))),
+                    rng.randint(min(w, int(ch)), min(w, int(cw))))
+        if self.crop_type == "relative":
+            return int(h * ch + 0.5), int(w * cw + 0.5)
+        fh = ch + rng.random() * (1 - ch)
+        fw = cw + rng.random() * (1 - cw)
+        return int(h * fh + 0.5), int(w * fw + 0.5)
+
+    def __call__(self, results: Dict[str, Any]):
+        rng = self.rng or random
+        img = results["img"]
+        h, w = img.shape[:2]
+        ch, cw = self._sample_size(rng, h, w)
+        y1 = rng.randint(0, max(h - ch, 0))
+        x1 = rng.randint(0, max(w - cw, 0))
+        y2, x2 = y1 + ch, x1 + cw
+        results["img"] = np.ascontiguousarray(img[y1:y2, x1:x2])
+        results["img_shape"] = results["img"].shape[:2]
+        return _filter_cropped_gt(results, x1, y1, x2, y2, clip=self.bbox_clip_border,
+                                  require_gt=not self.allow_negative_crop)
+
+
+class MinIoURandomCrop:
+    """SSD's min-IoU random crop: draw a mode from (1, *min_ious, 0) (1 keeps
+    the image), then up to 50 crops of each side at least ``min_crop_size``
+    of the image's and aspect within [0.5, 2], until one has IoU at least
+    the mode with every GT and holds a GT's center; the GTs whose centers
+    lie outside it are dropped.  Draws a new mode after 50 failures."""
+
+    def __init__(self, min_ious=(0.1, 0.3, 0.5, 0.7, 0.9), min_crop_size: float = 0.3,
+                 bbox_clip_border: bool = True, seed: Optional[int] = None):
+        self.sample_modes = (1, *min_ious, 0)
+        self.min_crop_size = float(min_crop_size)
+        self.bbox_clip_border = bbox_clip_border
+        self.rng = _generator(seed)
+
+    @staticmethod
+    def _iou_with_patch(patch: np.ndarray, boxes: np.ndarray) -> np.ndarray:
+        ix1 = np.maximum(patch[0], boxes[:, 0])
+        iy1 = np.maximum(patch[1], boxes[:, 1])
+        ix2 = np.minimum(patch[2], boxes[:, 2])
+        iy2 = np.minimum(patch[3], boxes[:, 3])
+        inter = np.clip(ix2 - ix1, 0, None) * np.clip(iy2 - iy1, 0, None)
+        area_b = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+        area_p = (patch[2] - patch[0]) * (patch[3] - patch[1])
+        return inter / np.maximum(area_b + area_p - inter, 1e-12)
+
+    def __call__(self, results: Dict[str, Any]):
+        rng = self.rng or random
+        img = results["img"]
+        h, w = img.shape[:2]
+        boxes = results.get("gt_bboxes", np.zeros((0, 4), np.float32))
+        while True:
+            mode = rng.choice(self.sample_modes)
+            if mode == 1:
+                return results
+            for _ in range(50):
+                cw = rng.uniform(self.min_crop_size * w, w)
+                ch = rng.uniform(self.min_crop_size * h, h)
+                if not 0.5 <= ch / cw <= 2:
+                    continue
+                x1 = int(rng.uniform(0, w - cw))
+                y1 = int(rng.uniform(0, h - ch))
+                x2, y2 = int(x1 + cw), int(y1 + ch)
+                if x2 == x1 or y2 == y1:
+                    continue
+                patch = np.array([x1, y1, x2, y2], np.float32)
+                if len(boxes):
+                    if self._iou_with_patch(patch, boxes).min() < mode:
+                        continue
+                    centers = (boxes[:, :2] + boxes[:, 2:]) / 2
+                    inside = ((centers[:, 0] > x1) & (centers[:, 1] > y1)
+                              & (centers[:, 0] < x2) & (centers[:, 1] < y2))
+                    if not inside.any():
+                        continue
+                    if "gt_labels" in results:
+                        results["gt_labels"] = results["gt_labels"][inside]
+                    if "gt_masks" in results and len(results["gt_masks"]):
+                        results["gt_masks"] = np.ascontiguousarray(
+                            results["gt_masks"][inside.nonzero()[0]][:, y1:y2, x1:x2])
+                    b = boxes[inside].copy()
+                    if self.bbox_clip_border:
+                        b[:, 0::2] = b[:, 0::2].clip(x1, x2)
+                        b[:, 1::2] = b[:, 1::2].clip(y1, y2)
+                    results["gt_bboxes"] = b - np.array([x1, y1, x1, y1], np.float32)
+                results["img"] = np.ascontiguousarray(img[y1:y2, x1:x2])
+                results["img_shape"] = results["img"].shape[:2]
+                return results
+
+
+class Expand:
+    """With probability ``prob``, the image on a ``mean``-filled canvas
+    ``ratio`` (uniform in ``ratio_range``) times its size, at a random
+    offset; boxes shift, masks are zero-padded."""
+
+    def __init__(self, mean=(0, 0, 0), ratio_range=(1, 4), prob: float = 0.5, seed: Optional[int] = None):
+        self.mean = tuple(float(m) for m in mean)
+        self.min_ratio, self.max_ratio = ratio_range
+        self.prob = prob
+        self.rng = _generator(seed)
+
+    def __call__(self, results: Dict[str, Any]) -> Dict[str, Any]:
+        rng = self.rng or random
+        if rng.random() > self.prob:
+            return results
+        img = results["img"]
+        h, w, c = img.shape
+        ratio = rng.uniform(self.min_ratio, self.max_ratio)
+        eh, ew = int(h * ratio), int(w * ratio)
+        canvas = np.empty((eh, ew, c), img.dtype)
+        canvas[...] = np.asarray(self.mean, img.dtype)
+        top = int(rng.uniform(0, eh - h))
+        left = int(rng.uniform(0, ew - w))
+        canvas[top:top + h, left:left + w] = img
+        results["img"] = canvas
+        results["img_shape"] = (eh, ew)
+        if "gt_bboxes" in results and len(results["gt_bboxes"]):
+            results["gt_bboxes"] = results["gt_bboxes"] + np.array([left, top, left, top], np.float32)
+        if "gt_masks" in results and len(results["gt_masks"]):
+            g = results["gt_masks"]
+            out = np.zeros((g.shape[0], eh, ew), g.dtype)
+            out[:, top:top + h, left:left + w] = g
+            results["gt_masks"] = out
+        return results
+
+
+class PhotoMetricDistortion:
+    """SSD's photometric distortion, each step with probability 0.5:
+    brightness, contrast (before or after the HSV steps), saturation, hue,
+    channel swap; in float32 on the uint8 RGB image, clipped back to uint8.
+    The HSV steps convert as ``cv2.cvtColor`` does in float32
+    (``color_aug.rgb_to_hsv_f32``, ``color_aug.hsv_to_rgb_f32``), and only
+    when one of them fires.  The draws are the JAX package's: ``random`` (see
+    :func:`_generator`), the swap's order from ``np.random.permutation`` (a
+    ``RandomState(seed)`` of its own with ``seed``)."""
+
+    def __init__(self, brightness_delta: int = 32, contrast_range=(0.5, 1.5), saturation_range=(0.5, 1.5),
+                 hue_delta: int = 18, seed: Optional[int] = None):
+        self.brightness_delta = brightness_delta
+        self.contrast_lower, self.contrast_upper = contrast_range
+        self.saturation_lower, self.saturation_upper = saturation_range
+        self.hue_delta = hue_delta
+        self.rng = _generator(seed)
+        self.np_rng = None if seed is None else np.random.RandomState(seed)
+
+    def __call__(self, results: Dict[str, Any]) -> Dict[str, Any]:
+        rng = self.rng or random
+        img = results["img"].astype(np.float32)
+        if rng.random() < 0.5:
+            img += rng.uniform(-self.brightness_delta, self.brightness_delta)
+        contrast_last = rng.random() < 0.5
+        if not contrast_last and rng.random() < 0.5:
+            img *= rng.uniform(self.contrast_lower, self.contrast_upper)
+        sat = rng.uniform(self.saturation_lower, self.saturation_upper) if rng.random() < 0.5 else None
+        hue = rng.uniform(-self.hue_delta, self.hue_delta) if rng.random() < 0.5 else None
+        if sat is not None or hue is not None:
+            hsv = color_aug.rgb_to_hsv_f32(img.clip(0, 255))
+            if sat is not None:
+                hsv[..., 1] *= sat
+            if hue is not None:
+                hsv[..., 0] += hue
+                hsv[..., 0] %= 360
+            hsv[..., 1] = hsv[..., 1].clip(0, 1)
+            img = color_aug.hsv_to_rgb_f32(hsv)
+        if contrast_last and rng.random() < 0.5:
+            img *= rng.uniform(self.contrast_lower, self.contrast_upper)
+        if rng.random() < 0.5:
+            img = img[..., (self.np_rng or np.random).permutation(3)]
+        results["img"] = img.clip(0, 255).astype(np.uint8)
+        return results
+
+
+class CutOut:
+    """Fill ``n_holes`` (a count or a (min, max) range) random rectangles
+    with ``fill_in``; each hole's (w, h) is drawn from ``cutout_shape``, or
+    from ``cutout_ratio`` times the image's (exactly one of them given)."""
+
+    def __init__(self, n_holes, cutout_shape=None, cutout_ratio=None, fill_in=(0, 0, 0),
+                 seed: Optional[int] = None):
+        if (cutout_shape is None) == (cutout_ratio is None):
+            raise ValueError("exactly one of cutout_shape / cutout_ratio required")
+        if not isinstance(n_holes, (tuple, list)):
+            n_holes = (n_holes, n_holes)
+        if not 0 <= n_holes[0] <= n_holes[1]:
+            raise ValueError(f"n_holes {n_holes} must be 0 <= min <= max")
+        self.n_holes = tuple(n_holes)
+        self.fill_in = tuple(fill_in)
+        self.with_ratio = cutout_ratio is not None
+        cands = cutout_ratio if self.with_ratio else cutout_shape
+        self.candidates = list(cands) if isinstance(cands, list) else [cands]
+        self.rng = _generator(seed)
+
+    def __call__(self, results: Dict[str, Any]) -> Dict[str, Any]:
+        rng = self.rng or random
+        img = results["img"]
+        h, w = img.shape[:2]
+        for _ in range(rng.randint(*self.n_holes)):
+            x1 = rng.randrange(w)
+            y1 = rng.randrange(h)
+            cw, ch = rng.choice(self.candidates)
+            if self.with_ratio:
+                cw, ch = int(cw * w), int(ch * h)
+            img[y1:min(y1 + ch, h), x1:min(x1 + cw, w)] = self.fill_in
+        results["img"] = img
+        return results
+
+
 class GenerateDistanceMap:
     """With GT masks the binary visible mask is the distance map; without
     (``with_gt_mask=False``), each GT's map is estimated from its box by
@@ -396,6 +702,139 @@ class SampleDistanceAtAnchors:
         return results
 
 
+class SegRescale:
+    """Rescale ``gt_semantic_seg`` by ``scale_factor`` (new size int(dim *
+    f + 0.5), ``cv2.resize``'s INTER_NEAREST: :func:`resize_nearest`); a
+    no-op without that key, as on the BOP pipelines."""
+
+    def __init__(self, scale_factor: float = 1.0, backend: str = "cv2"):
+        if backend != "cv2":
+            raise ValueError(f"SegRescale backend {backend!r}: cv2 only")
+        self.scale_factor = float(scale_factor)
+
+    def __call__(self, results: Dict[str, Any]) -> Dict[str, Any]:
+        seg = results.get("gt_semantic_seg")
+        if seg is not None and self.scale_factor != 1:
+            h, w = seg.shape[:2]
+            size = (int(w * self.scale_factor + 0.5), int(h * self.scale_factor + 0.5))
+            results["gt_semantic_seg"] = resize_nearest(seg, size)
+        return results
+
+
+class RandomCenterCropPad:
+    """CenterNet's center crop and pad, boxes only.
+
+    Training: up to 50 draws of a ratio of ``crop_size`` (h, w) for the
+    output and a center inside the image shrunk by ``border``; the part of
+    the image around that center is pasted onto a ``mean``-filled canvas
+    with the two centers aligned, and the boxes whose centers fall inside it
+    are kept (None when no draw keeps one: the loader draws another sample).
+    Test (``test_mode``): the image padded around its center to
+    ``test_pad_mode`` ('logical_or' with a mask, or 'size_divisor'), the
+    border recorded.  ``mean`` is in 0-255 units (the images are uint8 RGB;
+    the fill is the rounded mean) and ``to_rgb`` must be left off."""
+
+    def __init__(self, crop_size=None, ratios=(0.9, 1.0, 1.1), border: int = 128, mean=None, std=None,
+                 to_rgb=None, test_mode: bool = False, test_pad_mode=("logical_or", 127),
+                 bbox_clip_border: bool = True, seed: Optional[int] = None):
+        if test_mode:
+            if crop_size is not None or ratios is not None or border is not None:
+                raise ValueError("test_mode takes no crop_size, ratios or border (pass them as None)")
+            if test_pad_mode[0] not in ("logical_or", "size_divisor"):
+                raise ValueError(f"test_pad_mode {test_pad_mode[0]!r}: 'logical_or' or 'size_divisor'")
+        else:
+            if crop_size is None or not (crop_size[0] > 0 and crop_size[1] > 0):
+                raise ValueError(f"crop_size {crop_size} must be positive in training mode")
+            if test_pad_mode is not None:
+                raise ValueError("test_pad_mode is test-only (pass None in training mode)")
+        if to_rgb:
+            raise ValueError("RandomCenterCropPad(to_rgb=True): images are RGB here; mmdet's BGR mean "
+                             "reversal does not apply")
+        self.crop_size = crop_size
+        self.ratios = ratios
+        self.border = border
+        self.mean = np.asarray(mean if mean is not None else (0, 0, 0), np.float32)
+        self.test_mode = test_mode
+        self.test_pad_mode = test_pad_mode
+        self.bbox_clip_border = bbox_clip_border
+        self.rng = _generator(seed)
+
+    @staticmethod
+    def _get_border(border, size):
+        """``border`` halved until the center range is not empty."""
+        k = 2 * border / size
+        i = pow(2, np.ceil(np.log2(np.ceil(k))) + (k == int(k)))
+        return int(border // i)
+
+    def _paste(self, img, center, size):
+        """A ``mean``-filled canvas of ``size`` with the image's ``center``
+        at the canvas's center: (canvas, border, patch)."""
+        cy, cx = center
+        th, tw = size
+        h, w = img.shape[:2]
+        x0, x1 = max(0, cx - tw // 2), min(cx + tw // 2, w)
+        y0, y1 = max(0, cy - th // 2), min(cy + th // 2, h)
+        patch = np.array((x0, y0, x1, y1))
+        left, right = cx - x0, x1 - cx
+        top, bottom = cy - y0, y1 - cy
+        ccy, ccx = th // 2, tw // 2
+        out = np.empty((th, tw, img.shape[2]), img.dtype)
+        out[:] = np.round(self.mean).astype(img.dtype)
+        out[ccy - top:ccy + bottom, ccx - left:ccx + right] = img[y0:y1, x0:x1]
+        border = np.array([ccy - top, ccy + bottom, ccx - left, ccx + right], np.float32)
+        return out, border, patch
+
+    def __call__(self, results: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+        img = results["img"]
+        h, w = img.shape[:2]
+        if self.test_mode:
+            if self.test_pad_mode[0] == "logical_or":
+                th, tw = h | self.test_pad_mode[1], w | self.test_pad_mode[1]
+            else:
+                d = self.test_pad_mode[1]
+                th, tw = (h + d - 1) // d * d, (w + d - 1) // d * d
+            out, border, _ = self._paste(img, (h // 2, w // 2), (th, tw))
+            results["img"] = out
+            results["img_shape"] = (h, w)
+            results["pad_shape"] = (th, tw)
+            results["border"] = border
+            return results
+        rng = self.rng or random
+        boxes = results.get("gt_bboxes", np.zeros((0, 4), np.float32))
+        for _ in range(50):
+            scale = rng.choice(self.ratios)
+            new_h = int(self.crop_size[0] * scale)
+            new_w = int(self.crop_size[1] * scale)
+            h_border = self._get_border(self.border, h)
+            w_border = self._get_border(self.border, w)
+            cx = rng.randint(w_border, max(w - w_border - 1, w_border))
+            cy = rng.randint(h_border, max(h - h_border - 1, h_border))
+            out, border, patch = self._paste(img, (cy, cx), (new_h, new_w))
+            centers = (boxes[:, :2] + boxes[:, 2:]) / 2
+            mask = ((centers[:, 0] > patch[0]) & (centers[:, 1] > patch[1])
+                    & (centers[:, 0] < patch[2]) & (centers[:, 1] < patch[3]))
+            if not mask.any() and len(boxes) > 0:
+                continue
+            results["img"] = out
+            results["img_shape"] = (new_h, new_w)
+            results["pad_shape"] = (new_h, new_w)
+            x0, y0 = patch[0], patch[1]
+            shift_x = new_w // 2 - (cx - x0) - x0
+            shift_y = new_h // 2 - (cy - y0) - y0
+            b = boxes[mask] + np.array([shift_x, shift_y, shift_x, shift_y], np.float32)
+            if self.bbox_clip_border:
+                b[:, 0::2] = b[:, 0::2].clip(0, new_w)
+                b[:, 1::2] = b[:, 1::2].clip(0, new_h)
+            keep = (b[:, 2] > b[:, 0]) & (b[:, 3] > b[:, 1])
+            results["gt_bboxes"] = b[keep]
+            if "gt_labels" in results:
+                results["gt_labels"] = results["gt_labels"][mask][keep]
+            if "gt_masks" in results and len(results["gt_masks"]):  # the JAX package's assertion
+                raise AssertionError("RandomCenterCropPad only supports bbox (mmdet raises the same)")
+            return results
+        return None
+
+
 class Compose:
     def __init__(self, transforms: Sequence):
         self.transforms = list(transforms)
@@ -411,11 +850,20 @@ class Compose:
 _TRANSFORMS = {
     "LoadImageFromFile": LoadImageFromFile,
     "LoadAnnotations": LoadAnnotations,
+    "LoadMaskFromFile": LoadMaskFromFile,
+    "FilterAnnotations": FilterAnnotations,
     "Resize": Resize,
+    "RandomFlip": RandomFlip,
+    "RandomCrop": RandomCrop,
+    "MinIoURandomCrop": MinIoURandomCrop,
+    "Expand": Expand,
+    "PhotoMetricDistortion": PhotoMetricDistortion,
+    "CutOut": CutOut,
     "RandomBackground": RandomBackground,
     "CosyPoseAug": color_aug.CosyPoseAug,
-    "RandomFlip": RandomFlip,
     "GenerateDistanceMap": GenerateDistanceMap,
+    "SegRescale": SegRescale,
+    "RandomCenterCropPad": RandomCenterCropPad,
 }
 # formatting entries of reference pipelines: the static numpy collate does their job
 _FORMATTING = ("DefaultFormatBundle", "Collect", "ImageToTensor", "ToTensor")

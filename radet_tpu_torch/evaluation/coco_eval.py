@@ -84,7 +84,8 @@ class COCOEvaluator:
         xywh, score). Returns the reference summary keys (bop.py:284-299)."""
         dt_by_img_cat: Dict = defaultdict(list)
         for r in results:
-            dt_by_img_cat[(r["image_id"], r["category_id"])].append(r)
+            if self._use_detection(r):
+                dt_by_img_cat[(r["image_id"], r["category_id"])].append(r)
 
         T = len(self.iou_thrs)
         R = len(self.rec_thrs)
@@ -159,6 +160,16 @@ class COCOEvaluator:
             out[name] = float(p.mean()) if p.size else -1.0
         return out
 
+    # the protocol's hooks, which the LVIS federated protocol overrides
+    # (evaluation/lvis_eval.py)
+    def _use_detection(self, r: dict) -> bool:
+        return True
+
+    def _dt_unmatched_ignore(self, img_id: int, cat_id: int, num_dt: int) -> np.ndarray:
+        """(D,) mask of the unmatched detections to ignore besides those
+        outside the area range."""
+        return np.zeros(num_dt, bool)
+
     # ------------------------------------------------------------------
     def _match_img(self, img_id: int, cat_id: int, dt_by_img_cat) -> dict:
         gts = self._gt_by_img_cat.get((img_id, cat_id), [])
@@ -180,6 +191,7 @@ class COCOEvaluator:
         dt_area = dt_boxes[:, 2] * dt_boxes[:, 3] if len(dts) else np.zeros(0)
 
         ious = iou_xywh(dt_boxes, gt_boxes, gt_crowd)
+        extra_ig = self._dt_unmatched_ignore(img_id, cat_id, len(dts))
         T = len(self.iou_thrs)
 
         per_area = {}
@@ -215,9 +227,10 @@ class COCOEvaluator:
                     dt_ig[t, d] = gt_ig_sorted[match]
                     dtm[t, d] = match
                     gtm[t, match] = d
-                # unmatched dts outside the area range are ignored
+                # unmatched dts outside the area range are ignored, and those
+                # the protocol ignores (LVIS: not-exhaustive categories)
                 out_rng = (dt_area < lo) | (dt_area > hi)
-                dt_ig[t] |= (dtm[t] == -1) & out_rng
+                dt_ig[t] |= (dtm[t] == -1) & (out_rng | extra_ig)
             per_area[area] = dict(
                 dtm=dtm,
                 dt_ig=dt_ig,

@@ -10,7 +10,9 @@ or ``best_weights.pth``; without one the weights are random.  Outputs:
 ``--out results.pkl`` (pickled per-image results); ``--format-only`` /
 ``--json-prefix p`` writes ``p.bbox.json`` (COCO results) and, for a dataset
 with ``bop_submission=True``, ``p.bop.json`` (BOP submission format).
-``--eval bbox`` prints the metrics as JSON on stdout; logs go to stderr.
+``--eval bbox`` prints the metrics as JSON on stdout (a VOC dataset
+prints VOC's ``AP50`` and ``mAP`` for ``--eval mAP``, as for any name);
+logs go to stderr.
 ``--show-dir D`` draws each image's detections at or above
 ``--show-score-thr`` (``utils/visualization.py::imshow_det_bboxes``) into
 ``D/<file name with "/" as "_">``, in the format of its extension (PNG for
@@ -53,7 +55,9 @@ def parse_args(argv=None):
     p.add_argument("--out", help="output results pickle")
     p.add_argument("--format-only", action="store_true")
     p.add_argument("--json-prefix", default=None)
-    p.add_argument("--eval", nargs="+", default=None, choices=["bbox"], help="metrics: bbox")
+    p.add_argument("--eval", nargs="+", default=None,
+                   help="evaluate: bbox (COCO protocol), or any name for a dataset with a protocol of its own "
+                        "(VOC: mAP, with its AP50)")
     p.add_argument("--split", default="test", choices=["test", "val"])
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--fast", action="store_true",

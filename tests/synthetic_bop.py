@@ -4,8 +4,9 @@ training records of filled rectangles, the package's 8-bit PNG writer
 (rows cycling through all five PNG filters), a small TIFF writer of its own
 (``tiff_bytes``), a BOP test split written with either (PNG, or gray TIFF
 as BOP ITODD's), a BOP training split of given JPEG files with
-``mask_visib`` PNGs, and a config that trains the flagship (or its mixpbr
-fine-tune, or its mask-free variant) from such splits."""
+``mask_visib`` PNGs, a config that trains the flagship (or its mixpbr
+fine-tune, or its mask-free variant) from such splits, and a PASCAL VOC
+split of given JPEG files (``write_voc_split``)."""
 
 import json
 import os
@@ -22,6 +23,19 @@ from radet_tpu_torch.utils.image_write import write_png  # noqa: F401  (the test
 # at 480x640, and the SHA-256 of cv2's decode of each (hashes.json)
 JPEG_FIXTURES = osp.join(osp.dirname(osp.abspath(__file__)), "data", "jpeg")
 JPEG_FIXTURE_SEED = 7
+
+
+def jpeg_fixtures():
+    """(the committed 480x640 JPEG fixtures' bytes, their records' boxes and
+    labels): fixture ``i`` shows record ``i`` of
+    ``synthetic_bop_records(RandomState(JPEG_FIXTURE_SEED), ...)``."""
+    with open(osp.join(JPEG_FIXTURES, "hashes.json")) as f:
+        names = sorted(json.load(f).items(), key=lambda kv: kv[1]["record"])
+    jpegs = []
+    for name, _ in names:
+        with open(osp.join(JPEG_FIXTURES, name), "rb") as f:
+            jpegs.append(f.read())
+    return jpegs, synthetic_bop_records(np.random.RandomState(JPEG_FIXTURE_SEED), len(jpegs), (480, 640))
 
 
 def synthetic_bop_records(rng, n, hw, num_classes=21, max_objects=6):
@@ -256,3 +270,97 @@ def write_train_config(path: str, base: str, ann_file: str, img_prefix: str, bac
                 f"train_pipeline = {pipeline!r}\n"
                 f"data = dict(train={train})\n")
     return path
+
+
+VOC_CLASSES = ('aeroplane', 'bicycle', 'bird', 'boat', 'bottle', 'bus', 'car', 'cat', 'chair', 'cow', 'diningtable',
+               'dog', 'horse', 'motorbike', 'person', 'pottedplant', 'sheep', 'sofa', 'train', 'tvmonitor')
+
+
+def _voc_xml(img_id: str, hw, objects, with_size: bool = True) -> str:
+    size = f"<size><width>{hw[1]}</width><height>{hw[0]}</height><depth>3</depth></size>" if with_size else ""
+    objs = "".join(
+        f"<object><name>{name}</name><pose>Unspecified</pose><truncated>0</truncated><difficult>{diff}</difficult>"
+        f"<bndbox><xmin>{b[0]}</xmin><ymin>{b[1]}</ymin><xmax>{b[2]}</xmax><ymax>{b[3]}</ymax></bndbox></object>"
+        for name, diff, b in objects)
+    return (f"<annotation><folder>VOC</folder><filename>{img_id}.jpg</filename>{size}{objs}"
+            f"<segmented>0</segmented></annotation>\n")
+
+
+def write_voc_split(root: str, records, jpegs, splits, year: int = 2007, difficult_every: int = 5,
+                    small_every: int = 3, small_side: int = 6, no_size=(0,)) -> str:
+    """A PASCAL VOC{year} layout under ``root/VOC{year}`` (returned: the
+    datasets' ``img_prefix``): image ``i`` is ``JPEGImages/{i + 1:06d}.jpg``,
+    the bytes of ``jpegs[i % len(jpegs)]``, annotated in
+    ``Annotations/{i + 1:06d}.xml`` with record ``i % len(records)``'s boxes
+    (1-based VOC coordinates, class ``VOC_CLASSES[label % 20]``); every
+    ``difficult_every``-th object is ``difficult``, every ``small_every``-th
+    image gets one more object of ``small_side`` pixels (below a
+    ``min_size`` of ``small_side + 1``), and the XMLs of the images in
+    ``no_size`` have no ``<size>``.  ``splits`` is [(name, count), ...]:
+    consecutive images, listed in ``ImageSets/Main/{name}.txt``."""
+    base = osp.join(root, f"VOC{year}")
+    for sub in ("Annotations", "JPEGImages", osp.join("ImageSets", "Main")):
+        os.makedirs(osp.join(base, sub), exist_ok=True)
+    i, n_obj = 0, 0
+    for name, count in splits:
+        ids = []
+        for _ in range(count):
+            img_id = f"{i + 1:06d}"
+            rec = records[i % len(records)]
+            h, w = rec["img"].shape[:2]
+            with open(osp.join(base, "JPEGImages", f"{img_id}.jpg"), "wb") as f:
+                f.write(jpegs[i % len(jpegs)])
+            objects = []
+            for (x1, y1, x2, y2), c in zip(rec["gt_bboxes"].astype(int).tolist(), rec["gt_labels"].tolist()):
+                objects.append((VOC_CLASSES[c % 20], int(n_obj % difficult_every == difficult_every - 1),
+                                (x1 + 1, y1 + 1, x2 + 1, y2 + 1)))
+                n_obj += 1
+            if small_every and i % small_every == small_every - 1:
+                x, y = 2 + (7 * i) % (w - small_side - 4), 2 + (5 * i) % (h - small_side - 4)
+                objects.append((VOC_CLASSES[i % 20], 0, (x + 1, y + 1, x + 1 + small_side, y + 1 + small_side)))
+            with open(osp.join(base, "Annotations", f"{img_id}.xml"), "w") as f:
+                f.write(_voc_xml(img_id, (h, w), objects, with_size=i not in no_size))
+            ids.append(img_id)
+            i += 1
+        with open(osp.join(base, "ImageSets", "Main", f"{name}.txt"), "w") as f:
+            f.write("\n".join(ids) + "\n")
+    return base
+
+
+# mmdet's SSD recipe for VOC (ssd300_voc0712) on the flagship's static
+# 480x640 input: photometric distortion, zoom out, min-IoU crop, a resize
+# to the input (keep_ratio=False, as SSD's), the flip, and distance maps
+# from the boxes (VOC has no masks)
+SSD_VOC_PIPELINE = [
+    dict(type="LoadImageFromFile"),
+    dict(type="LoadAnnotations", with_bbox=True),
+    dict(type="PhotoMetricDistortion", brightness_delta=32, contrast_range=(0.5, 1.5),
+         saturation_range=(0.5, 1.5), hue_delta=18),
+    dict(type="Expand", mean=[123.675, 116.28, 103.53], ratio_range=(1, 4)),
+    dict(type="MinIoURandomCrop", min_ious=(0.1, 0.3, 0.5, 0.7, 0.9), min_crop_size=0.3),
+    dict(type="Resize", img_scale=(640, 480), keep_ratio=False),
+    dict(type="RandomFlip", flip_ratio=0.5),
+    dict(type="GenerateDistanceMap", with_gt_mask=False),
+    dict(type="SampleDistanceAtAnchors"),
+    dict(type="Pad", size_divisor=16),
+]
+
+
+def voc_options(img_prefix: str, train: str = "trainval", test: str = "test", min_size=None,
+                img_scale=(640, 480)) -> list:
+    """``--cfg-options`` that turn the flagship config into RADet on a VOC
+    split (``write_voc_split``'s ``img_prefix``): 20 classes, ``data.train``
+    the ``VOCDataset`` of the list ``train`` through ``SSD_VOC_PIPELINE``
+    (its resize to ``img_scale``, (w, h)), ``data.val`` and ``data.test``
+    that of ``test`` through the flagship's test pipeline, and
+    ``evaluation.save_best='mAP'`` (VOC's mean AP)."""
+    main = osp.join(img_prefix, "ImageSets", "Main")
+    pipeline = [dict(t, img_scale=tuple(img_scale)) if t["type"] == "Resize" else t for t in SSD_VOC_PIPELINE]
+    opts = ["model.bbox_head.num_classes=20", "evaluation.save_best='mAP'", f"data.train.pipeline={pipeline!r}",
+            "data.test.bop_submission=False"]
+    for split, name in (("train", train), ("val", test), ("test", test)):
+        opts += [f"data.{split}.type='VOCDataset'", f"data.{split}.ann_file={osp.join(main, name + '.txt')!r}",
+                 f"data.{split}.img_prefix={img_prefix!r}", f"data.{split}.classes=None"]
+    if min_size is not None:
+        opts.append(f"data.train.min_size={min_size!r}")
+    return opts

@@ -182,9 +182,13 @@ def test_unported_dataset_paths_raise(png_set):
         with pytest.raises(error) as got:
             build_dataset(Config.fromfile(FLAGSHIP, opts + [opt]), "test", test_mode=test_mode)
         assert got.value.args == ref.value.args
-    bad = Config.fromfile(FLAGSHIP, opts + ["data.test.type='CocoDataset'"])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        build_dataset(bad, "test")
+    # an unknown dataset type: the JAX package's KeyError (the dataset zoo is ported, item 12f)
+    bad = "data.test.type='NoSuchDataset'"
+    with pytest.raises(KeyError) as ref:
+        jax_build_dataset(JaxConfig.fromfile(FLAGSHIP, opts + [bad]), "test")
+    with pytest.raises(KeyError) as got:
+        build_dataset(Config.fromfile(FLAGSHIP, opts + [bad]), "test")
+    assert got.value.args == ref.value.args
     # test-time augmentation in the pipeline: the JAX package's ValueError, pointing to test_cfg.tta
     for opt in ("data.test.pipeline.1.flip=True", "data.test.pipeline.1.img_scale=[(96, 64), (128, 96)]"):
         tta = opts + ["data.test.pipeline.1.type='MultiScaleFlipAug'", opt,

@@ -267,7 +267,7 @@ def test_random_draws_and_pipeline_entries(tmp_path):
         with pytest.raises(KeyError, match="unknown transform"):
             build_pipeline([dict(type=t_type)])
     with pytest.raises(NotImplementedError, match="item 12"):
-        build_pipeline([dict(type="PhotoMetricDistortion")])
+        build_pipeline([dict(type="RandomHSV", h_ratio=0.1, s_ratio=0.1, v_ratio=0.1)])
 
 
 def test_background_cache_under_loader_threads(tmp_path):
