@@ -94,7 +94,7 @@ Run from the repository root, with one card:  python3 chip_smoke.py
    one no-vote launch per batch, the run's NMS inputs through the plain
    version, the float32 forward against the CPU's; ATSS inference timed at
    batch 8 and 128; the train CLI on each config from the JPEG
-   ``train_pbr`` split through its own pipeline (10 steps ATSS, 10
+   ``train_pbr`` split through its own pipeline (6 steps ATSS, 6
    RetinaNet, batch 16, bf16, one eval on the PNG set): finite losses,
    checkpoint, frozen stages kept, head moved, and the test CLI (``--eval
    bbox``) on that checkpoint; each train step's time with
@@ -118,8 +118,8 @@ Run from the repository root, with one card:  python3 chip_smoke.py
    the float32 step at batch 1 against the CPU (same ReLU sides: losses,
    gradients, every running mean and variance); ``with_cp`` against the
    plain float32 step on the card; then ``python -m
-   radet_tpu_torch.tools.validate_learning --qat`` at its defaults (mAP50
-   at least 0.5, or the smoke fails; then its QAT loop: the PTQ eval, 200
+   radet_tpu_torch.tools.validate_learning --qat --qat-iters 100`` (mAP50
+   at least 0.5, or the smoke fails; then its QAT loop: the PTQ eval, 100
    QAT steps and the deploy eval, with both RESULT lines) and ``python -m
    radet_tpu_torch.tools.run_bop_sweep --mode test`` over the seven BOP
    datasets' synthetic PNG sets (each BOP submission's category ids that
@@ -199,7 +199,8 @@ Run from the repository root, with one card:  python3 chip_smoke.py
    path, without an int8 launch, its vote-NMS calls held to the plain
    version); ``tools.profile_train --frozen-int8``; ``python -m
    radet_tpu_torch.tools.validate_learning --depth 50 --frozen-int8``
-   (ResNet-50 from scratch, mAP50 at least 0.5; then two 100-step frozen
+   ``--frozen-int8-iters 50`` (ResNet-50 from scratch, mAP50 at least 0.5;
+   then two 50-step frozen
    fine-tunes of its weights, one with ``frozen_int8`` at 10 int8 launches
    a step, each evaluated on the float path, with their RESULT lines);
 17. runs the eval path's test-time variants, each through
@@ -255,7 +256,22 @@ Run from the repository root, with one card:  python3 chip_smoke.py
    ``tools.test --eval mAP`` (strict, K 2048) with those weights: VOC's
    AP50 and mAP; every vote-NMS call of both held to the plain version;
    then the same detections evaluated on the host as a COCO-format
-   ``LVISV1Dataset`` (federated protocol) and as a ``CocoDataset``.
+   ``LVISV1Dataset`` (federated protocol) and as a ``CocoDataset``;
+22. runs the AnchorHead's sampling recipes (ROADMAP item 12h) on the
+   RetinaNet config from the JPEG ``train_pbr`` split: ``tools.train``
+   with mmdet's RPN recipe (``synthetic_bop.RPN_RECIPE``: 3 anchors a
+   cell, sigmoid CE + L1, MaxIoU 0.7/0.3/0.3, RandomSampler(256, 0.5);
+   full width, bf16, batch 16, ``RPN_STEPS`` steps, one periodic eval) and
+   ``tools.test --eval bbox`` on its checkpoint: frozen stages kept, head
+   moved, finite metrics, every no-vote call of both held to the plain
+   version bit for bit; one step's sampled masks within the quota; one
+   full-width step of each sampler (focal PseudoSampler, Random, OHEM,
+   IoUBalancedNeg, InstanceBalancedPos, Combined; Random and ScoreHLR on a
+   one-anchor grid of 6400 anchors) with its ms; the float32 step of
+   IoUBalancedNeg and OHEM on the card against the CPU on shared draws;
+   the config with ``LegacyAnchorGenerator`` + ``LegacyDeltaXYWHBBoxCoder``
+   and with ``TBLRBBoxCoder``: ``inference_detector`` on 8 images, its
+   no-vote call held to the plain version, and one train step.
    Each phase prints its wall time.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
@@ -307,13 +323,13 @@ EVAL_INTERVAL = 10  # trainer steps between evaluations
 # COCO's common 427x640 (decoded and resized); FILES_STEPS steps, one eval
 FILES_IMAGES = 64
 BACKGROUNDS = 48
-FILES_STEPS = 20
+FILES_STEPS = 12
 FILES_WORKERS = 4
 # the mixpbr fine-tune: a train_real split of REAL_IMAGES fixture copies
 # beside train_pbr, MIX_CONFIG (configs/bop) over both, MIX_STEPS steps
 REAL_IMAGES = 32
 MIX_CONFIG = "r50_ycbv_mixpbr.py"
-MIX_STEPS = 10
+MIX_STEPS = 6
 # the bound of a vote-NMS call: H100 SXM peaks (NVIDIA's data sheet) and
 # float32 operations per unit of work
 F32_PEAK = 67e12  # FLOP/s, float32 outside the tensor cores
@@ -328,7 +344,7 @@ KERNEL_SHAPES = ((8, 512), (16, 512), (128, 512), (8, 2048), (16, 2048), (8, 442
 # kernel's (B, K): interactive and deploy inference at nms_topk 1024, the
 # train CLI's periodic eval (B = 16), and the strict eval (K = 2048)
 ANCHOR_CONFIGS = ("configs/atss/atss_r50_fpn_ycbv_pbr.py", "configs/atss/retina_r50_fpn_ycbv_pbr.py")
-ANCHOR_STEPS = {"atss_r50_fpn_ycbv_pbr": 10, "retina_r50_fpn_ycbv_pbr": 10}
+ANCHOR_STEPS = {"atss_r50_fpn_ycbv_pbr": 6, "retina_r50_fpn_ycbv_pbr": 6}
 NMS_SHAPES = ((8, 1024), (16, 1024), (128, 1024), (16, 2048))
 NMS_LABELS = 21
 ANCHOR_MAIN_SHAPE = (8, 1024)  # the kernels line's times: the main path's call (inference_detector, 8 images)
@@ -2613,18 +2629,25 @@ def validate_learning_run(argv):
     return metrics, iters, calls, vnc.LAUNCHES, icc.LAUNCHES, dict(icc.PATH_LAUNCHES), eval_int8, wall
 
 
+QAT_LEARN_ARGS = ["--qat", "--qat-iters", "100"]  # half the default QAT fine-tune: the smoke's time limit
+
+
 def learning_phase(gpu: str):
-    """Phase 11c: ``python -m radet_tpu_torch.tools.validate_learning --qat``
-    at its defaults (RADet-R18 from scratch, live BN, 400 steps at batch 4,
+    """Phase 11c: ``python -m radet_tpu_torch.tools.validate_learning`` with
+    QAT_LEARN_ARGS (RADet-R18 from scratch, live BN, 400 steps at batch 4,
     128x160, then the strict eval; then the QAT loop: the PTQ eval through
-    the int8 deploy config, 200 QAT steps from the float weights, the
+    the int8 deploy config, 100 QAT steps from the float weights, the
     deploy eval, each printing its RESULT line), in this process: mAP50 at
     least LEARN_MIN_MAP50, its eval's first vote-NMS call held to the plain
     version.  Returns (the kernel's launches, its max abs box error there,
     the int8 kernel's launches)."""
-    metrics, iters, calls, launches, int8_launches, int8_paths, _, wall = validate_learning_run(["--qat"])
-    print(f"learning: python -m radet_tpu_torch.tools.validate_learning --qat (defaults: 400 steps, batch 4, "
-          f"128x160, RADet-R18 from scratch, norm_eval=False, float32; then PTQ eval, 200 QAT steps, deploy eval): "
+    from radet_tpu_torch.tools import validate_learning
+
+    metrics, iters, calls, launches, int8_launches, int8_paths, _, wall = validate_learning_run(QAT_LEARN_ARGS)
+    args = validate_learning.parse_args(QAT_LEARN_ARGS)
+    print(f"learning: python -m radet_tpu_torch.tools.validate_learning {' '.join(QAT_LEARN_ARGS)} ({args.iters} "
+          f"steps, batch {args.batch}, {args.img_size[0]}x{args.img_size[1]}, RADet-R{args.depth} from scratch, "
+          f"norm_eval=False, {args.dtype}; then PTQ eval, {args.qat_iters} QAT steps, deploy eval): "
           f"mAP50 {metrics['bbox_mAP_50']:.4f}, mAP {metrics['bbox_mAP']:.4f}; "
           + ", ".join(f"{k} mAP50 {m['bbox_mAP_50']:.4f} mAP {m['bbox_mAP']:.4f}" for k, m in metrics["qat"].items())
           + f"; {wall:.1f} s wall (scenes, both trainings and three evals); vote_nms kernel launches {launches}, "
@@ -3767,8 +3790,9 @@ FI8_CLI_STEPS = 4
 FI8_LAUNCHES = 10
 FI8_TIMED_STEPS = 13  # step_ms: 3 warm-up steps, 10 timed
 FI8_FROZEN = ("backbone.conv1.", "backbone.bn1.", "backbone.layer1.")
-# --frozen-int8 needs a Bottleneck trunk; 100 steps a side keep the A/B near half a minute
-FI8_LEARN_ARGS = ["--depth", "50", "--frozen-int8", "--frozen-int8-iters", "100"]
+# --frozen-int8 needs a Bottleneck trunk; 50 steps a side for the smoke's time limit (the 400 from scratch
+# stay: 200 read mAP50 0.54 against the 0.5 gate on the H100)
+FI8_LEARN_ARGS = ["--depth", "50", "--frozen-int8", "--frozen-int8-iters", "50"]
 
 
 def fi8_launch_checks(cfg, dataset, gpu: str) -> dict:
@@ -4210,7 +4234,7 @@ def tta_phase(config: str, gpu: str, repo: Path, work: str) -> dict:
     return dict(runs=runs, fuse_err=fuse_err, folded=folded, timing=timing)
 
 
-MF_STEPS = 12  # the mask-free train CLI's steps (full width, batch 16), one periodic eval at the last
+MF_STEPS = 8  # the mask-free train CLI's steps (full width, batch 16), one periodic eval at the last
 MF_LOADER_BATCHES = 4  # batches timed from the mask-free loader alone, after its first
 MF_TWIN_IMAGES = 2  # training images whose large boxes' crops hold the C++ transforms to their numpy twins
 MF_SAMPLES = 16  # samples timed per pipeline, one thread
@@ -4653,7 +4677,7 @@ def extra_backbones_phase(gpu: str, repo: Path) -> dict:
 # 21. the dataset zoo: VOC through the train and test CLIs, the SSD recipe's transforms, LVIS and COCO
 VOC_TRAINVAL = 64  # VOC2007 trainval images (copies of the JPEG fixtures), 480x640
 VOC_TEST = 32  # its test images; the periodic eval's and the strict test CLI's, batches of 16
-VOC_STEPS = 10  # the VOC train CLI's steps (full width, bf16, batch 16), one periodic eval at the last
+VOC_STEPS = 6  # the VOC train CLI's steps (full width, bf16, batch 16), one periodic eval at the last
 VOC_MIN_SIZE = 7  # data.train.min_size: the split's 6-pixel objects become ignore regions
 VOC_SAMPLES = 8  # 480x640 samples timed per transform, one thread
 VOC_PIPELINE_SAMPLES = 16  # samples of the whole VOC train pipeline timed, one thread
@@ -4936,6 +4960,340 @@ def datasets_phase(gpu: str, work: str, files: str) -> dict:
     return dict(timing=timing, train=train, test=test, evals=evals)
 
 
+# 22. the AnchorHead's sampling recipes: the RPN recipe through the CLIs, the other samplers, coders and generators
+SAMPLING_CONFIG = "configs/atss/retina_r50_fpn_ycbv_pbr.py"
+RPN_STEPS = 4  # the RPN recipe's train CLI steps (full width, bf16, batch 16), one periodic eval at the last
+SAMPLER_STEPS = 3  # each sampler's in-process train steps timed (batch 16, bf16), after one untimed; ScoreHLR 1
+SAMPLER_PARITY = ("IoUBalancedNegSampler", "OHEMSampler")  # float32 steps held card vs CPU on shared draws
+CODER_OPTIONS = {  # the RetinaNet config (focal loss, PseudoSampler) with another generator or coder
+    "legacy": ["model.bbox_head.anchor_generator={'type': 'LegacyAnchorGenerator', 'ratios': [0.5, 1.0, 2.0], "
+               "'octave_base_scale': 4, 'scales_per_octave': 3, 'strides': [8, 16, 32, 64, 128], "
+               "'center_offset': 0.5}",
+               "model.bbox_head.bbox_coder={'type': 'LegacyDeltaXYWHBBoxCoder'}"],
+    "tblr": ["model.bbox_head.bbox_coder={'type': 'TBLRBBoxCoder', 'normalizer': 0.125}"],
+}
+DRAW_ROLES = ("pos", "neg", "groups", "extra", "down", "bin0", "bin1", "bin2", "topup", "floor", "rest", "rand", "inv")
+
+
+def recorded_batched_nms(calls):
+    """A stand-in for ``postprocess.batched_nms`` that launches the no-vote
+    kernel and keeps a copy of each call's inputs, options and outputs."""
+    import radet_tpu_torch.models.postprocess as postprocess
+
+    kernel_nms = postprocess.batched_nms
+
+    def run(*args, **kw):
+        out = kernel_nms(*args, **kw)
+        calls.append(([a.clone() for a in args], kw, [t.clone() for t in out]))
+        return out
+
+    return kernel_nms, run
+
+
+def hold_batched_to_plain(calls, what: str) -> float:
+    """Each recorded no-vote call against ``batched_nms_plain`` in float64,
+    bit for bit; returns the max abs box error (0)."""
+    if not calls:
+        fail(f"{what}: no batched_nms call was recorded")
+    err = 0.0
+    for i, (args, kw, out) in enumerate(calls):
+        err = max(err, compare_exact(out, nms_plain_reference(args, **kw),
+                                     f"{what}, call {i + 1} of {len(calls)} (B={args[0].shape[0]}, "
+                                     f"K={args[0].shape[1]}, {int(args[3].sum())} valid)"))
+    return err
+
+
+def rpn_cli_phase(train_config: str, gpu: str, eval_opts, test_opts, repo: Path) -> dict:
+    """The RPN recipe (``synthetic_bop.RPN_RECIPE``) on the RetinaNet config
+    through ``tools.train`` (JPEG ``train_pbr``, its own pipeline, full
+    width, bf16, batch 16, RPN_STEPS steps, one periodic eval) and
+    ``tools.test --eval bbox`` on the checkpoint: finite losses and
+    metrics, the frozen stem and layer1 kept, the head moved, the no-vote
+    kernel launched in both and every call held to the plain version."""
+    import radet_tpu_torch.models.postprocess as postprocess
+    from radet_tpu_torch.apis.common import build_model_and_anchors
+    from radet_tpu_torch.engine import load_weights
+    from radet_tpu_torch.utils import Config
+    from synthetic_bop import RPN_RECIPE
+
+    cfg = Config.fromfile(train_config, RPN_RECIPE)
+    work_dir = osp.join(osp.dirname(train_config), "work_dir_rpn")
+    print(f"sampling recipes: python -m radet_tpu_torch.tools.train {SAMPLING_CONFIG} with the RPN recipe "
+          f"(sigmoid CE + L1, MaxIoU 0.7/0.3/0.3, RandomSampler(256, 0.5), 3 anchors a cell) from train_pbr (full "
+          f"width, bf16, batch {cfg.data.samples_per_gpu}, {FILES_WORKERS} loader thread workers, {RPN_STEPS} steps, "
+          f"one eval):")
+    out = {}
+    for what in ("train_cli_eval", "test_cli"):
+        calls = []
+        kernel_nms, postprocess.batched_nms = recorded_batched_nms(calls)
+        try:
+            if what == "train_cli_eval":
+                iters, line, launches, run_s, _ = train_cli(train_config, work_dir, RPN_STEPS, "thread", eval_opts,
+                                                            *RPN_RECIPE, nms="batched_nms")
+            else:
+                stdout, stderr, run_s = tool_run(repo, [
+                    "-m", "radet_tpu_torch.tools.test", train_config, osp.join(work_dir, "checkpoints"),
+                    "--device", "cuda", "--eval", "bbox", "--cfg-options", *RPN_RECIPE, *test_opts],
+                    "the test CLI on the RPN recipe's checkpoint")
+                metrics = json.loads(stdout[stdout.index("{"):])
+                launches = sum(int(n) for n in re.findall(r"batched_nms kernel launches (\d+)", stderr))
+        finally:
+            postprocess.batched_nms = kernel_nms
+        if launches < 1 or launches != len(calls):
+            fail(f"the RPN recipe's {what}: {launches} no-vote launches, {len(calls)} recorded")
+        out[what] = dict(launches=launches, max_abs_err=hold_batched_to_plain(calls, f"the RPN recipe's {what}"),
+                         s=run_s)
+        del calls
+    model = build_model_and_anchors(cfg)[0]
+    model.init_weights(torch.Generator().manual_seed(int(cfg.get("seed", 0))))
+    init, after = model.state_dict(), load_weights(osp.join(work_dir, "checkpoints"))
+    frozen = [k for k in init if k.startswith(("backbone.conv1.", "backbone.bn1.", "backbone.layer1."))]
+    kept = all(torch.equal(after[k], init[k]) for k in frozen)
+    moved = max(float((after[k] - init[k]).abs().max()) for k in init if k.startswith("bbox_head."))
+    ms, wait = median_iter(iters, skip=2)
+    print(f"  {len(frozen)} frozen tensors equal the seeded init: {kept}; the head's largest move {moved:.3g}; "
+          f"{RPN_STEPS} steps in {out['train_cli_eval']['s']:.1f} s (build and eval included), {ms:.1f} ms/step "
+          f"(median of steps 3-{RPN_STEPS}), loader wait {wait:.1f} ms/step; {line} [{gpu}]")
+    print(f"  python -m radet_tpu_torch.tools.test (strict) on the checkpoint, {out['test_cli']['s']:.1f} s: "
+          f"bbox_mAP {metrics['bbox_mAP']:.4f}, bbox_mAP_50 {metrics['bbox_mAP_50']:.4f}; no-vote launches "
+          f"{out['test_cli']['launches']}")
+    if not frozen or not kept or moved <= 0:
+        fail("the RPN recipe's run moved its frozen stages or did not train its head")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        fail("the RPN recipe's test CLI gave non-finite metrics")
+    return out
+
+
+def sampler_step(cfg, model, anchors, counts):
+    """(train step of ``cfg``'s sampler on ``model``, its state: the
+    config's AdamW and clip, seed SEED)."""
+    from radet_tpu_torch.apis.common import anchor_head_spec
+    from radet_tpu_torch.engine import build_optimizer
+    from radet_tpu_torch.engine.train_step import TrainState, build_train_step_anchor
+
+    tx, _ = build_optimizer(cfg.optimizer.to_dict(), cfg.lr_config.to_dict(), cfg.grad_clip.to_dict(), model)
+    step = build_train_step_anchor(model, anchors, counts, img_norm=cfg.img_norm_cfg.to_dict(),
+                                   num_classes=int(cfg.model.bbox_head.num_classes), spec=anchor_head_spec(cfg))
+    return step, TrainState(model, tx, seed=SEED)
+
+
+def sampler_steps(train_config: str, batch_cpu, gpu: str) -> dict:
+    """One full-width train step (bf16, batch 16, the batch on the card) of
+    each sampler, then SAMPLER_STEPS timed by CUDA events: the focal-loss
+    PseudoSampler, the RPN recipe's RandomSampler (its sampled counts per
+    image checked against the quota: the step's own draws, from the state's
+    generator), OHEM, IoUBalancedNeg, InstanceBalancedPos and Combined on
+    one model (3 anchors a cell); RandomSampler and ScoreHLR on a one-anchor
+    model whose cls bias is 0 (every negative scores above score_thr, so
+    ScoreHLR groups them all).  Returns {sampler: ms}."""
+    from radet_tpu_torch.apis.common import build_model_and_anchors
+    from radet_tpu_torch.core.anchor_assign import assigned_to_dense_targets
+    from radet_tpu_torch.core.sampler_cores import generator_draws
+    from radet_tpu_torch.models.anchor_loss import random_sample_masks
+    from radet_tpu_torch.utils import Config
+    from synthetic_bop import ONE_ANCHOR, RPN_RECIPE, sampler_options
+
+    batch = {k: v.to("cuda") for k, v in batch_cpu.items()}
+    runs = [("PseudoSampler", [o for o in RPN_RECIPE if not o.startswith("model.bbox_head.loss_cls")])]
+    runs += [(name, sampler_options(name)) for name in ("RandomSampler", "OHEMSampler", "IoUBalancedNegSampler",
+                                                         "InstanceBalancedPosSampler", "CombinedSampler")]
+    runs += [("RandomSampler, one anchor", sampler_options("RandomSampler") + ONE_ANCHOR),
+             ("ScoreHLRSampler", sampler_options("ScoreHLRSampler"))]
+    out, model = {}, None
+    for name, options in runs:
+        cfg = Config.fromfile(train_config, options)
+        if model is None or name == "RandomSampler, one anchor":
+            del model
+            model, anchors, _, counts = build_model_and_anchors(cfg)
+            model.init_weights(torch.Generator().manual_seed(SEED))
+            model.to("cuda").train()
+            if name == "RandomSampler, one anchor":
+                with torch.no_grad():
+                    model.bbox_head.conv_cls.bias.zero_()
+        step, state = sampler_step(cfg, model, anchors, counts)
+        kw = step.spec["loss_kwargs"]
+        if name == "RandomSampler":  # the masks the next step draws: its generator's first draws
+            assigned = step.assign(batch)
+            pos = assigned_to_dense_targets(assigned, batch["gt_boxes"], batch["gt_labels"],
+                                            int(cfg.model.bbox_head.num_classes))[2]
+            pos_s, neg_s = random_sample_masks(generator_draws(state.step_generator()), pos, assigned == 0,
+                                               num=kw["sampler_num"], pos_fraction=kw["sampler_pos_fraction"])
+        metrics = step(state, batch)
+        if name == "RandomSampler":
+            n_pos, n_all = pos_s.sum(-1), pos_s.sum(-1) + neg_s.sum(-1)
+            print(f"  RandomSampler(256, 0.5) on the step's draws: positives per image {n_pos.tolist()} (of "
+                  f"{pos.sum(-1).tolist()} assigned), sampled per image {n_all.tolist()}; the step's num_pos "
+                  f"{float(metrics['num_pos']):.0f}")
+            if int(n_pos.max()) > 128 or int(n_all.max()) > 256 or float(metrics["num_pos"]) != float(n_pos.sum()):
+                fail("the RPN recipe's step sampled beyond RandomSampler(256, 0.5)'s quota, or not these masks")
+        last = []
+        ms = cuda_ms(lambda: last.append(step(state, batch)), 1 if name == "ScoreHLRSampler" else SAMPLER_STEPS)
+        metrics = last[-1]
+        losses = {k: float(v) for k, v in metrics.items() if k.startswith("loss")}
+        out[name] = ms
+        print(f"timing: {name} train step batch {batch['image'].shape[0]} {str(model.dtype)[6:]} ({anchors.shape[0]} "
+              f"anchors, {'focal' if name == 'PseudoSampler' else 'sigmoid CE'}): {ms:.2f} ms/step; num_pos "
+              f"{float(metrics['num_pos']):.0f}, " + ", ".join(f"{k} {v:.4f}" for k, v in losses.items()) + f" [{gpu}]")
+        if not all(math.isfinite(v) for v in losses.values()):
+            fail(f"{name}: non-finite losses {losses}")
+    print(f"  ms per step beside RandomSampler's {out['RandomSampler']:.2f} and the focal PseudoSampler's "
+          f"{out['PseudoSampler']:.2f} (3 anchors a cell): " + ", ".join(
+              f"{k} {v / out['RandomSampler']:.2f}x / {v / out['PseudoSampler']:.2f}x" for k, v in out.items())
+          + f"; ScoreHLR {out['ScoreHLRSampler'] / out['RandomSampler, one anchor']:.2f}x RandomSampler's on its "
+          f"one-anchor model")
+    del model, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def sampler_parity(train_config: str, one_cpu, gpu: str) -> dict:
+    """One float32 step at batch 1 of each SAMPLER_PARITY sampler, card vs
+    CPU (TF32 off): the same weights, batch, ReLU sides and draws (a table
+    of uniforms for every role, from a seeded CPU generator), and OHEM's
+    picks shared (the card's replayed on the CPU, the CPU's own flips
+    counted: a float32 loss near a tie ranks either way).  Returns
+    {sampler: (loss rel err, gradient err)}."""
+    import radet_tpu_torch.core.sampler_cores as sc
+    from radet_tpu_torch.apis.common import anchors_from_cfg, build_model_and_anchors
+    from radet_tpu_torch.engine import build_optimizer
+    from radet_tpu_torch.engine.train_step import TrainState
+    from radet_tpu_torch.utils import Config
+    from synthetic_bop import sampler_options
+
+    out = {}
+    for name in SAMPLER_PARITY:
+        cfg = Config.fromfile(train_config, sampler_options(name))
+        picks, flips = [], []
+        ohem = sc.ohem_sample_masks
+
+        def shared_ohem(*args, **kw):
+            got = ohem(*args, **kw)
+            if not picks or picks[0][0].device == got[0].device:
+                picks.append(got)
+                return got
+            want = tuple(t.to(got[0].device) for t in picks[0])
+            flips.append(sum(int((a != b).sum()) for a, b in zip(got, want)))
+            return want
+
+        def run(device, table):
+            model, anchors, _, counts = build_model_and_anchors(cfg, dtype="float32")
+            model.init_weights(torch.Generator().manual_seed(SEED))
+            model.to(device).train()
+            step = sampler_step(cfg, model, anchors, counts)[0]
+            batch = {k: v.to(device) for k, v in one_cpu.items()}
+            sgd0, _ = build_optimizer(dict(type="SGD", lr=0.0), dict(policy="fixed"), None, model)
+            metrics = step(TrainState(model, sgd0), batch, draws=sc.injected_draws(table))
+            return ({k: float(v) for k, v in metrics.items()},
+                    {k: p.grad.cpu() for k, p in model.named_parameters() if p.requires_grad})
+
+        masks = []
+        sc.ohem_sample_masks = shared_ohem
+        try:
+            gen = torch.Generator().manual_seed(SEED + 22)
+            n = anchors_from_cfg(cfg)[0].shape[0]
+            table = {role: torch.rand((1, n), generator=gen) for role in DRAW_ROLES}
+            with relu_decisions(masks, replay=False):
+                mg, gg = run(torch.device("cuda"), table)
+            with relu_decisions(masks, replay=True) as relu_flips:
+                mc, gc = run(torch.device("cpu"), table)
+        finally:
+            sc.ohem_sample_masks = ohem
+        loss_err = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in mc)
+        errs = grad_errors(gg, gc)
+        flip_max = max((r for _, r in relu_flips), default=0.0)
+        print(f"sampler parity, {name} float32 batch 1, {n} anchors, card vs CPU (TF32 off, same draws and ReLU "
+              f"sides{', the card OHEM picks' if picks else ''}): losses max rel err {loss_err:.3g} (loss "
+              f"{mg['loss']:.6f} vs {mc['loss']:.6f}, num_pos {mg['num_pos']:.0f} vs {mc['num_pos']:.0f}); gradients "
+              f"max err {errs[0][0]:.3g} of the tensor's max abs ({errs[0][1]}); the CPU's own OHEM picks differ in "
+              f"{sum(flips)} anchors [{gpu}]")
+        if flip_max > FLIP_RTOL:
+            fail(f"{name}: a ReLU input differs in sign by more than rounding ({flip_max:.3g} > {FLIP_RTOL})")
+        if loss_err > LOSS_RTOL or errs[0][0] > GRAD_RTOL or mg["num_pos"] != mc["num_pos"]:
+            fail(f"{name}: card vs CPU step beyond tolerance (losses {LOSS_RTOL}, gradients {GRAD_RTOL})")
+        out[name] = (loss_err, errs[0][0])
+    torch.cuda.empty_cache()
+    return out
+
+
+def coder_phase(train_config: str, batch_cpu, gpu: str, repo: Path) -> dict:
+    """The RetinaNet config with CODER_OPTIONS' generator and coder:
+    ``init_detector`` (full width, bf16, seeded, cls bias 0 so that scores
+    clear score_thr), ``inference_detector`` on 8 random 480x640 images
+    with its no-vote call held to the plain version, then one train step
+    of that model (batch 16): finite losses.  Returns {name: (launches,
+    max abs err)}."""
+    import radet_tpu_torch.models.postprocess as postprocess
+    import radet_tpu_torch.ops.vote_nms_cuda as vnc
+    from radet_tpu_torch import inference_detector, init_detector
+    from radet_tpu_torch.apis.common import anchors_from_cfg
+    from radet_tpu_torch.utils import Config
+
+    img_rng = np.random.RandomState(SEED + 22)
+    batch = {k: v.to("cuda") for k, v in batch_cpu.items()}
+    out = {}
+    for name, opts in CODER_OPTIONS.items():
+        det = init_detector(str(repo / SAMPLING_CONFIG), cfg_options=opts, device="cuda", seed=SEED)
+        head = det.cfg.model.bbox_head
+        with torch.no_grad():
+            det.model.bbox_head.conv_cls.bias.zero_()
+        imgs = [img_rng.randint(0, 256, (*det.input_size, 3), dtype=np.uint8) for _ in range(8)]
+        calls = []
+        kernel_nms, postprocess.batched_nms = recorded_batched_nms(calls)
+        try:
+            vnc.NMS_LAUNCHES = 0
+            results = inference_detector(det, imgs)
+            torch.cuda.synchronize()
+            launches = vnc.NMS_LAUNCHES
+        finally:
+            postprocess.batched_nms = kernel_nms
+        print(f"coders and generators: {name}: {head.anchor_generator.type} + {head.bbox_coder.type}, "
+              f"{det.anchors.shape[0]} anchors; inference_detector on 8 images: no-vote launches {launches}, "
+              f"detections per image {[len(r['boxes']) for r in results]}")
+        if launches != 1 or len(calls) != 1:
+            fail(f"{name}: {launches} no-vote launches ({len(calls)} recorded) for one batch")
+        if not all(len(r["boxes"]) and np.isfinite(r["boxes"]).all() and np.isfinite(r["scores"]).all()
+                   for r in results):
+            fail(f"{name}: an image without detections, or non-finite ones")
+        err = hold_batched_to_plain(calls, f"{name}'s inference")
+        cfg = Config.fromfile(train_config, opts)
+        model = det.model.train()
+        anchors, _, counts = anchors_from_cfg(cfg)
+        step, state = sampler_step(cfg, model, anchors, counts)
+        metrics = {k: float(v) for k, v in step(state, batch).items()}
+        print(f"  one train step, batch {batch['image'].shape[0]} {str(model.dtype)[6:]}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in metrics.items()) + f" [{gpu}]")
+        if not all(math.isfinite(v) for v in metrics.values()):
+            fail(f"{name}: non-finite losses in its train step")
+        out[name] = (launches, err)
+        del det, model, step, state, calls
+    del batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def sampling_phase(gpu: str, repo: Path, files: str, eval_opts, test_opts) -> dict:
+    """Phase 22: the AnchorHead's sampling recipes (ROADMAP item 12h) on the
+    RetinaNet config from the JPEG ``train_pbr`` split of ``files``."""
+    from radet_tpu_torch.apis.common import build_dataset
+    from radet_tpu_torch.data import collate
+    from radet_tpu_torch.engine.train_step import ANCHOR_BATCH_KEYS
+    from radet_tpu_torch.utils import Config
+    from synthetic_bop import write_train_config
+
+    train_config = write_train_config(osp.join(files, "rpn_retina.py"), str(repo / SAMPLING_CONFIG),
+                                      osp.join(files, "train_pbr.json"), osp.join(files, "train_pbr") + "/",
+                                      osp.join(files, "backgrounds"))
+    out = dict(cli=rpn_cli_phase(train_config, gpu, eval_opts, test_opts, repo))
+    cfg = Config.fromfile(train_config)
+    dataset = build_dataset(cfg, "train")
+    batch = collate([dataset[i] for i in range(int(cfg.data.samples_per_gpu))])
+    batch = {k: torch.as_tensor(batch[k]) for k in ANCHOR_BATCH_KEYS}
+    out["steps_ms"] = sampler_steps(train_config, batch, gpu)
+    out["parity"] = sampler_parity(train_config, {k: v[:1] for k, v in batch.items()}, gpu)
+    out["coders"] = coder_phase(train_config, batch, gpu, repo)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -5153,6 +5511,9 @@ def main() -> None:
 
         # 21. the dataset zoo: VOC through the train and test CLIs, the transforms, LVIS and COCO
         voc = phase("dataset zoo", datasets_phase, gpu, work, files)
+
+        # 22. the AnchorHead's sampling recipes: the RPN recipe, the other samplers, coders and generators
+        sampling = phase("sampling recipes", sampling_phase, gpu, repo, files, eval_opts, test_opts)
     nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by, _ = nms_times[ANCHOR_MAIN_SHAPE]
 
     print(f"card: {gpu}; smoke {time.perf_counter() - start:.1f} s wall")
@@ -5219,6 +5580,13 @@ def main() -> None:
         "bound_ms": nms_bound_ms,
         "bound_by": nms_bound_by,
         "library_ms": None,  # no PyTorch call computes class-aware greedy NMS
+        # phase 22: the RPN recipe's train CLI eval and its strict test CLI; inference_detector (8 images) of the
+        # RetinaNet config with the legacy generator and coder and with the TBLR coder; each call held to the plain
+        # version bit for bit
+        "sampler_launches": dict({k: v["launches"] for k, v in sampling["cli"].items()},
+                                 **{f"{k}_inference": v[0] for k, v in sampling["coders"].items()}),
+        "sampler_max_abs_err": dict({k: v["max_abs_err"] for k, v in sampling["cli"].items()},
+                                    **{f"{k}_inference": v[1] for k, v in sampling["coders"].items()}),
     }, {
         "name": "int8_conv",
         "route": "cuda",

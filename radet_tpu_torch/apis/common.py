@@ -14,9 +14,15 @@ from ..data.bop import BOPDataset
 from ..data.datasets_extra import DATASET_TYPES, XMLDataset
 from ..data.dataset_wrappers import WRAPPERS, ClassBalancedDataset, ConcatDataset, MixDataset, RepeatDataset
 from ..engine.infer_step import InferenceModule, anchor_postprocess, infer_step_of, radet_postprocess
+from ..models.anchor_loss import NON_SAMPLING_LOSSES
 from ..models.builder import build_detector
 
-_SAMPLERS = "ROADMAP.md Queue 1 item 12, the sampler zoo"
+SAMPLERS = ("PseudoSampler", "RandomSampler", "OHEMSampler", "IoUBalancedNegSampler", "InstanceBalancedPosSampler",
+            "ScoreHLRSampler", "CombinedSampler")
+# CombinedSampler's component dicts, by the names core.sampler_cores takes
+_COMPONENTS = {"RandomSampler": "random", "InstanceBalancedPosSampler": "instance_balanced",
+               "IoUBalancedNegSampler": "iou_balanced", "OHEMSampler": "ohem"}
+_SAMPLER_OPTIONS = ("floor_thr", "floor_fraction", "num_bins", "score_thr", "iou_thr", "k", "bias")
 
 
 def _to_dict(x) -> Dict:
@@ -104,10 +110,9 @@ def anchor_head_spec(cfg) -> Dict[str, Any]:
     ``loss_kwargs`` (assigner and losses) and ``valid_mask`` (None, or the
     (N,) anchors inside the image by ``train_cfg.allowed_border``).
 
-    The coder and loss dicts are ``bbox_head``'s; the assigner,
-    ``allowed_border`` and ``pos_weight`` are ``train_cfg``'s.  Only the
-    PseudoSampler is ported: mmdet forces it under a focal loss, and a
-    sampler under a sampling loss raises."""
+    The coder and loss dicts are ``bbox_head``'s; the assigner, the
+    sampler, ``allowed_border`` and ``pos_weight`` are ``train_cfg``'s
+    (:func:`sampler_kwargs`)."""
     from ..ops.losses import BBOX_LOSS_FNS
 
     model_cfg = _to_dict(cfg.model)
@@ -147,11 +152,9 @@ def anchor_head_spec(cfg) -> Dict[str, Any]:
         if float(assigner.get("ignore_iof_thr", -1)) >= 0:
             raise ValueError("MaxIoUAssigner ignore_iof_thr >= 0 (crowd-ignore regions) is not implemented")
         cls_type = lcls.get("type", "FocalLoss")
-        sampler = _to_dict(train_cfg.get("sampler")).get("type", "PseudoSampler")
-        if cls_type not in ("FocalLoss", "GHMC", "QualityFocalLoss") and sampler != "PseudoSampler":
-            raise NotImplementedError(f"sampler {sampler!r} is not ported ({_SAMPLERS})")
+        loss_kwargs = sampler_kwargs(_to_dict(train_cfg.get("sampler")), cls_type)
         neg_iou_thr = assigner.get("neg_iou_thr", 0.4)
-        loss_kwargs = dict(
+        loss_kwargs.update(
             pos_iou_thr=float(assigner.get("pos_iou_thr", 0.5)),
             neg_iou_thr=tuple(neg_iou_thr) if isinstance(neg_iou_thr, (list, tuple)) else float(neg_iou_thr),
             min_pos_iou=float(assigner.get("min_pos_iou", 0.0)),
@@ -177,6 +180,36 @@ def anchor_head_spec(cfg) -> Dict[str, Any]:
                       & (anchors[:, 2] < w + allowed_border) & (anchors[:, 3] < h + allowed_border))
     return dict(head_type=head_type, encode_fn=encode_fn, decode_fn=decode_fn, loss_kwargs=loss_kwargs,
                 valid_mask=valid_mask)
+
+
+def sampler_kwargs(sampler: Dict, cls_type: str) -> Dict[str, Any]:
+    """``anchor_head_loss``'s sampler kwargs of a ``train_cfg.sampler``
+    dict, with the JAX package's checks (AssertionError): one of
+    :data:`SAMPLERS`, PseudoSampler under a focal-family loss whatever the
+    config says (mmdet's AnchorHead ignores the sampler there), no
+    ``add_gt_as_proposals``; CombinedSampler's ``pos_sampler`` and
+    ``neg_sampler`` dicts become component names, their options joining
+    the sampler's own.  {} for the PseudoSampler."""
+    stype = sampler.get("type", "PseudoSampler")
+    if cls_type in NON_SAMPLING_LOSSES:
+        stype = "PseudoSampler"
+    if stype not in SAMPLERS:
+        raise AssertionError(f"sampler {stype!r}: the full reference sampler zoo is implemented "
+                             f"({', '.join(SAMPLERS)}) - core/sampler_cores.py")
+    if stype == "PseudoSampler":
+        return {}
+    if sampler.get("add_gt_as_proposals", False):
+        raise AssertionError("add_gt_as_proposals injects GT boxes into an RoI proposal list - meaningless for a "
+                             "dense anchor head")
+    extra = {k: sampler[k] for k in _SAMPLER_OPTIONS if k in sampler}
+    for side in ("pos_sampler", "neg_sampler"):
+        if side in sampler:
+            sub = _to_dict(sampler[side])
+            extra[side] = _COMPONENTS[sub.pop("type")]
+            extra.update(sub)
+    return dict(sampler_num=int(sampler.get("num", 256)), sampler_pos_fraction=float(sampler.get("pos_fraction", 0.5)),
+                sampler_neg_pos_ub=float(sampler.get("neg_pos_ub", -1)), sampler_type=stype,
+                sampler_extra=tuple(sorted(extra.items())))
 
 
 def loss_cfg_from(cfg) -> Dict[str, Any]:

@@ -183,11 +183,12 @@ def build_train_step_anchor(
     num_classes: int,
     spec: Dict[str, Any],
 ) -> "AnchorTrainStep":
-    """Returns ``train_step(state, batch) -> metrics`` for ATSSHead and
-    AnchorHead models.  ``spec``: ``apis.common.anchor_head_spec`` of the
-    config.  ``batch``: device tensors under :data:`ANCHOR_BATCH_KEYS`.
-    The assignment is deterministic (IoU-based): the step draws no random
-    numbers."""
+    """Returns ``train_step(state, batch, draws=None) -> metrics`` for
+    ATSSHead and AnchorHead models.  ``spec``: ``apis.common.anchor_head_spec``
+    of the config.  ``batch``: device tensors under :data:`ANCHOR_BATCH_KEYS`.
+    The assignment is deterministic (IoU-based); an AnchorHead's sampler
+    draws its uniforms from ``draws`` (a ``core.sampler_cores`` draw
+    source), else from the state's generator seeded by (seed, step)."""
     return AnchorTrainStep(model, anchors, num_level_anchors, img_norm=img_norm, num_classes=num_classes,
                            spec=spec)
 
@@ -223,8 +224,9 @@ class AnchorTrainStep:
             gt_max_assign_all=kw["gt_max_assign_all"], match_low_quality=kw["match_low_quality"],
         )[0]
 
-    def loss(self, model, batch) -> Dict[str, torch.Tensor]:
-        """The head's losses of ``model``'s forward on ``batch``, with autograd."""
+    def loss(self, model, batch, rng=None) -> Dict[str, torch.Tensor]:
+        """The head's losses of ``model``'s forward on ``batch``, with
+        autograd; ``rng``: an AnchorHead sampler's generator or draw source."""
         x = preprocess_images(batch["image"], self.mean, self.std, model.dtype)
         outs = model(x)
         common = dict(num_classes=self.num_classes, encode_fn=self.spec["encode_fn"],
@@ -235,9 +237,10 @@ class AnchorTrainStep:
         if self.head_type == "ATSSHead":
             ctr_flat = flatten_anchor_outputs(outs[2], 1)[..., 0]
             return atss_loss(cls_flat, reg_flat, ctr_flat, self.anchors, self.counts, *gts, **common)
-        return anchor_head_loss(cls_flat, reg_flat, self.anchors, *gts, **common)
+        return anchor_head_loss(cls_flat, reg_flat, self.anchors, *gts, rng=rng, **common)
 
-    def __call__(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
+    def __call__(self, state: TrainState, batch, draws=None) -> Dict[str, torch.Tensor]:
+        rng = draws if draws is not None else state.step_generator()
         state.tx.zero_grad()
         with self.precision():
-            return _update(state, self.loss(state.model, batch))
+            return _update(state, self.loss(state.model, batch, rng))

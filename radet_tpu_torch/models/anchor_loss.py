@@ -6,10 +6,11 @@
   over ``sum_i max(num_pos_i, 1)``, a quality-weighted box loss on decoded
   boxes over the sum of the quality weights, and BCE of the centerness
   logits against the quality.
-- :func:`anchor_head_loss` (AnchorHead): MaxIoU assignment with mmdet's
-  PseudoSampler, focal or sigmoid-CE classification loss and SmoothL1 / L1
-  on the encoded deltas (or an IoU-family loss on decoded boxes with
-  ``reg_decoded_bbox``).
+- :func:`anchor_head_loss` (AnchorHead): MaxIoU assignment, mmdet's
+  PseudoSampler or, under a sampling loss (sigmoid CE), one of its
+  samplers (:func:`random_sample_masks`, ``core.sampler_cores``), focal or
+  sigmoid-CE classification loss and SmoothL1 / L1 on the encoded deltas
+  (or an IoU-family loss on decoded boxes with ``reg_decoded_bbox``).
 
 The normalisers are sums over the whole batch, which is what mmdet's
 per-replica ``reduce_mean`` followed by data-parallel averaging computes.
@@ -24,10 +25,11 @@ import torch.nn.functional as F
 
 from ..core.anchor_assign import assigned_to_dense_targets, atss_assign, max_iou_assign
 from ..core.box_ops import bbox_iou_aligned
+from ..core.sampler_cores import as_draws, neg_quota, random_side, sample_with
 from ..ops.losses import BBOX_LOSS_FNS, bce_with_logits, l1_loss, sigmoid_focal_loss, smooth_l1_loss
 
 EPS = 1e-12
-_SAMPLERS = "ROADMAP.md Queue 1 item 12, the sampler zoo"
+NON_SAMPLING_LOSSES = ("FocalLoss", "GHMC", "QualityFocalLoss")
 
 
 def centerness_target(anchors, target_boxes, pos):
@@ -107,6 +109,35 @@ def atss_loss(
                 num_pos=num_pos_img.sum().float())
 
 
+def random_sample_masks(draws, pos, neg, *, num: int, pos_fraction: float, neg_pos_ub: float = -1.0):
+    """mmdet's RandomSampler on (B, N) masks: up to ``int(num *
+    pos_fraction)`` positives uniformly without replacement ('pos'), then up
+    to ``num`` less the sampled positives of the negatives ('neg'), at most
+    ``neg_pos_ub * max(sampled positives, 1)`` when ``neg_pos_ub >= 0``.
+    ``draws``: a ``core.sampler_cores`` draw source."""
+    pos_s = random_side(draws, "pos", pos, int(num * pos_fraction))
+    return pos_s, random_side(draws, "neg", neg, neg_quota(pos_s, num, neg_pos_ub))
+
+
+def _sampler_signals(sampler_type, extra, cls_flat, reg_flat, labels, anchors, decode_fn) -> Dict:
+    """What a sampler ranks by, without a gradient: the per-anchor sigmoid-CE
+    loss summed over the classes (OHEM, ScoreHLR's renormalisation, an OHEM
+    component), and for ScoreHLR the largest class score and the decoded
+    boxes.  Only the sampler's own are computed."""
+    out = {}
+    components = dict(extra)
+    if sampler_type in ("OHEMSampler", "ScoreHLRSampler") or (
+            sampler_type == "CombinedSampler" and "ohem" in (components.get("pos_sampler"),
+                                                              components.get("neg_sampler"))):
+        x = cls_flat.float()
+        tgt = F.one_hot(labels, x.shape[-1] + 1)[..., :-1].to(x.dtype)  # background: all zero
+        out["per_loss"] = (x.clamp(min=0) - x * tgt + torch.log1p(torch.exp(-x.abs()))).sum(-1)
+    if sampler_type == "ScoreHLRSampler":
+        out["max_fg_score"] = torch.sigmoid(cls_flat.float()).amax(-1)
+        out["decoded_boxes"] = decode_fn(anchors[None], reg_flat)
+    return out
+
+
 def anchor_head_loss(
     cls_flat,  # (B, N, C) logits
     reg_flat,  # (B, N, 4) encoded deltas
@@ -133,19 +164,26 @@ def anchor_head_loss(
     reg_decoded_bbox: bool = False,
     pos_weight: float = -1.0,
     valid_mask=None,
+    # train_cfg.sampler (num 0: PseudoSampler, every anchor kept); mmdet
+    # samples only under a sampling loss (apis.common.anchor_head_spec)
     sampler_num: int = 0,
+    sampler_pos_fraction: float = 0.5,
+    sampler_neg_pos_ub: float = -1.0,
+    sampler_type: str = "RandomSampler",
+    sampler_extra: tuple = (),
+    rng=None,  # the samplers' uniforms: a torch.Generator or a draw source (core.sampler_cores)
 ) -> Dict[str, torch.Tensor]:
     """AnchorHead's losses (loss_cls, loss_bbox) and the number of positives.
 
     With a focal loss the normaliser is the positive count; with sigmoid
     CE (a sampling loss) positives plus negatives, each as
-    ``sum_i max(count_i, 1)``.  ``sampler_num > 0`` (a RandomSampler or
-    another of mmdet's samplers) raises."""
-    if sampler_num > 0:
-        raise NotImplementedError(f"train_cfg.sampler with num > 0 is not ported ({_SAMPLERS})")
+    ``sum_i max(count_i, 1)``.  With ``sampler_num > 0`` the positives,
+    negatives and every count are the sampled sets' (unsampled anchors keep
+    their targets at weight 0); ScoreHLR's weights become the negatives'
+    label weights."""
     b, n, c = cls_flat.shape
     with torch.no_grad():
-        assigned, _ = max_iou_assign(
+        assigned, max_overlaps = max_iou_assign(
             anchors, gt_boxes, gt_valid, pos_iou_thr=pos_iou_thr, neg_iou_thr=neg_iou_thr,
             min_pos_iou=min_pos_iou, gt_max_assign_all=gt_max_assign_all,
             match_low_quality=match_low_quality,
@@ -155,11 +193,29 @@ def anchor_head_loss(
     if valid_mask is not None:
         pos = pos & valid_mask[None]
         neg = neg & valid_mask[None]
-    sampling = cls_loss not in ("FocalLoss", "GHMC", "QualityFocalLoss")
+    sampling = cls_loss not in NON_SAMPLING_LOSSES
+    neg_weights = None
+    if sampler_num > 0:
+        if not sampling:
+            raise AssertionError("samplers are only active for sampling losses (mmdet anchor_head.py:62-70 "
+                                 "ignores train_cfg.sampler under FocalLoss)")
+        if rng is None:
+            raise AssertionError("samplers need the step's random source (rng)")
+        draws = as_draws(rng)
+        with torch.no_grad():
+            if sampler_type == "RandomSampler":
+                pos, neg = random_sample_masks(draws, pos, neg, num=sampler_num, pos_fraction=sampler_pos_fraction,
+                                               neg_pos_ub=sampler_neg_pos_ub)
+            else:
+                pos, neg, neg_weights = sample_with(
+                    sampler_type, draws, pos, neg, num=sampler_num, pos_fraction=sampler_pos_fraction,
+                    neg_pos_ub=sampler_neg_pos_ub, max_overlaps=max_overlaps, assigned=assigned,
+                    max_gt=gt_boxes.shape[1], extra=sampler_extra,
+                    **_sampler_signals(sampler_type, sampler_extra, cls_flat, reg_flat, labels, anchors, decode_fn))
     pw = 1.0 if pos_weight <= 0 else float(pos_weight)
     zero = torch.zeros((), device=cls_flat.device)
-    label_weights = torch.where(pos, torch.full((), pw, device=cls_flat.device),
-                                torch.where(neg, torch.ones((), device=cls_flat.device), zero))
+    nw = torch.ones((), device=cls_flat.device) if neg_weights is None else neg_weights
+    label_weights = torch.where(pos, torch.full((), pw, device=cls_flat.device), torch.where(neg, nw, zero))
     num_pos_img = pos.sum(dim=1)
     num_total_samples = num_pos_img.clamp(min=1).sum().float()
     if sampling:

@@ -36,7 +36,9 @@ def head_spec_from_cfg(head: Dict[str, Any]) -> Dict[str, Any]:
     """(head_type, num_base_anchors, use_sigmoid) of a bbox_head config.
 
     The generic heads carry their anchor generator in the config, with the
-    same number of base anchors on every level."""
+    same number of base anchors on every level (mmdet's AnchorHead reads
+    the first level's): the JAX builder's AssertionError refuses another
+    generator (an SSD one) there."""
     head_type = head.get("type", "RADetHead")
     if head_type == "RADetHead":
         return dict(head_type=head_type, num_base_anchors=1, use_sigmoid=True)
@@ -45,7 +47,8 @@ def head_spec_from_cfg(head: Dict[str, Any]) -> Dict[str, Any]:
         raise ValueError(f"{head_type} requires bbox_head.anchor_generator")
     nba = build_anchor_generator(dict(head["anchor_generator"])).num_base_anchors
     if len(set(nba)) != 1:
-        raise ValueError(f"per-level anchor counts must be uniform for {head_type}, got {nba}")
+        raise AssertionError(f"per-level anchor counts must be uniform for {head_type} (got {nba}; SSD-style heads "
+                             "are not in the reference surface)")
     use_sigmoid = bool(dict(head.get("loss_cls") or {}).get("use_sigmoid", True))
     return dict(head_type=head_type, num_base_anchors=nba[0], use_sigmoid=use_sigmoid)
 

@@ -364,3 +364,43 @@ def voc_options(img_prefix: str, train: str = "trainval", test: str = "test", mi
     if min_size is not None:
         opts.append(f"data.train.min_size={min_size!r}")
     return opts
+
+
+# mmdet's RPN recipe on an AnchorHead config (configs/atss/retina_r50_fpn_ycbv_pbr.py): three ratios at
+# scale 8, sigmoid CE and L1, MaxIoU at 0.7 / 0.3 / 0.3 and RandomSampler(256, 0.5)
+RPN_ANCHORS = dict(type="AnchorGenerator", ratios=[0.5, 1.0, 2.0], scales=[8], strides=[8, 16, 32, 64, 128])
+RPN_SAMPLER = dict(type="RandomSampler", num=256, pos_fraction=0.5, neg_pos_ub=-1, add_gt_as_proposals=False)
+RPN_RECIPE = [
+    f"model.bbox_head.anchor_generator={RPN_ANCHORS!r}",
+    "model.bbox_head.bbox_coder={'type': 'DeltaXYWHBBoxCoder'}",
+    "model.bbox_head.loss_cls={'type': 'CrossEntropyLoss', 'use_sigmoid': True, 'loss_weight': 1.0}",
+    "model.bbox_head.loss_bbox={'type': 'L1Loss', 'loss_weight': 1.0}",
+    "train_cfg.assigner={'type': 'MaxIoUAssigner', 'pos_iou_thr': 0.7, 'neg_iou_thr': 0.3, 'min_pos_iou': 0.3, "
+    "'ignore_iof_thr': -1}",
+    f"train_cfg.sampler={RPN_SAMPLER!r}",
+]
+# the other samplers of mmdet, each in place of RPN_SAMPLER
+SAMPLERS = {
+    "OHEMSampler": dict(type="OHEMSampler", num=256, pos_fraction=0.5, neg_pos_ub=-1),
+    "IoUBalancedNegSampler": dict(type="IoUBalancedNegSampler", num=256, pos_fraction=0.5, floor_thr=-1,
+                                  floor_fraction=0, num_bins=3),
+    "InstanceBalancedPosSampler": dict(type="InstanceBalancedPosSampler", num=256, pos_fraction=0.5),
+    "CombinedSampler": dict(type="CombinedSampler", num=256, pos_fraction=0.5,
+                            pos_sampler=dict(type="InstanceBalancedPosSampler"),
+                            neg_sampler=dict(type="IoUBalancedNegSampler", floor_thr=-1, floor_fraction=0,
+                                             num_bins=3)),
+    "ScoreHLRSampler": dict(type="ScoreHLRSampler", num=256, pos_fraction=0.5, neg_pos_ub=-1, k=0.5, bias=0.0,
+                            score_thr=0.05, iou_thr=0.5),
+}
+# ScoreHLR's grouping is quadratic in the anchor count (at most 8192): one anchor a cell
+ONE_ANCHOR = ["model.bbox_head.anchor_generator={'type': 'AnchorGenerator', 'ratios': [1.0], "
+              "'octave_base_scale': 8, 'scales_per_octave': 1, 'strides': [8, 16, 32, 64, 128]}"]
+
+
+def sampler_options(name: str):
+    """RPN_RECIPE with the sampler ``name`` (``RandomSampler`` or a key of
+    SAMPLERS); ScoreHLR on ONE_ANCHOR's grid."""
+    if name == "RandomSampler":
+        return list(RPN_RECIPE)
+    return RPN_RECIPE[:-1] + [f"train_cfg.sampler={SAMPLERS[name]!r}"] + (ONE_ANCHOR if name == "ScoreHLRSampler"
+                                                                          else [])

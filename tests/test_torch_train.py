@@ -530,9 +530,10 @@ def test_unported_training_options_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="item 12"):
         train_detector(eval_cfg, work_dir=str(tmp_path), dataset=ds, device="cpu", max_iters=2)
     assert CheckpointManager(str(tmp_path / "checkpoints")).latest_step() == 1  # kept on the way out
-    # the anchor heads train (tests/test_torch_anchor_slice.py); mmdet's sampler zoo under a sampling loss does not
+    # the anchor heads train (tests/test_torch_anchor_slice.py), under mmdet's samplers too
+    # (tests/test_torch_anchor_sampling_slice.py); a softmax AnchorHead does not
     retina = Config.fromfile(osp.join(REPO, "configs/atss/retina_r50_fpn_ycbv_pbr.py"), [
-        "model.bbox_head.loss_cls.type='CrossEntropyLoss'", "train_cfg.sampler.type='RandomSampler'"])
+        "model.bbox_head.loss_cls.type='CrossEntropyLoss'", "model.bbox_head.loss_cls.use_sigmoid=False"])
     with pytest.raises(NotImplementedError, match="item 12"):
         train_detector(retina, work_dir=str(tmp_path), dataset=ds, device="cpu")
 

@@ -225,3 +225,24 @@ def config_pair(path, options, seed=0):
     port.load_state_dict(state_dict_from_flax(variables), strict=True)
     port.eval()
     return jax_cfg, cfg, jax_model, variables, port, anchors, ranges, counts
+
+
+def jax_sampler_draws(key, b, n, num_bins=3):
+    """The uniforms ``radet_tpu``'s samplers draw for a batch of ``b``
+    images of ``n`` anchors under ``key``, by the port's roles
+    (``radet_tpu_torch.core.sampler_cores``), as (b, n) numpy arrays.  Per
+    image ``split(key, b)``, then ``kp, kn = split(image_key)``: 'pos' and
+    'neg' are ``uniform(kp)``, ``uniform(kn)``; 'groups', 'extra' and
+    'down' the three keys of ``split(kp, 3)``; 'bin<b>' ``fold_in(k1, b)``
+    and 'topup', 'floor', 'rest' k2, k3, k4 of ``split(kn, 4)``; 'rand' and
+    'inv' the two of ``split(kn)``."""
+    def image(k):
+        kp, kn = jax.random.split(k)
+        k1, k2, k3, k4 = jax.random.split(kn, 4)
+        keys = dict(pos=kp, neg=kn, topup=k2, floor=k3, rest=k4)
+        keys.update(zip(("groups", "extra", "down"), jax.random.split(kp, 3)))
+        keys.update(zip(("rand", "inv"), jax.random.split(kn)))
+        keys.update({f"bin{i}": jax.random.fold_in(k1, i) for i in range(num_bins)})
+        return {role: jax.random.uniform(kk, (n,)) for role, kk in keys.items()}
+
+    return {role: np.array(v) for role, v in jax.vmap(image)(jax.random.split(key, b)).items()}
