@@ -5,8 +5,9 @@ Run from the repository root, with one card:  python3 chip_smoke.py
 
 1. prints the card and builds, in parallel, the vote-NMS and int8 conv
    kernels, the host PNG unfilter, the host JPEG decoder and encoder, the
-   host CosyPose ops, the host distance transforms and the host TIFF
-   decompressors from ``radet_tpu_torch/csrc``; holds the decoder to cv2's recorded SHA-256 of
+   host CosyPose ops, the host distance transforms, the host TIFF
+   decompressors, the host affine warp and the host Telea inpainting from
+   ``radet_tpu_torch/csrc``; holds the decoder to cv2's recorded SHA-256 of
    the committed fixtures (``tests/data/jpeg``; this machine has no cv2)
    and times JPEG decode beside PNG decode of the same pixels; holds
    ``csrc/color_aug.cpp`` and its numpy twins (every CosyPose op at fixed
@@ -69,11 +70,12 @@ Run from the repository root, with one card:  python3 chip_smoke.py
    ``train_pipeline`` (``RandomBackground`` and ``CosyPoseAug`` included);
    times each transform of that pipeline, and each of CosyPoseAug's ops,
    on one thread and the loader at 4 and 8 threads; times the train step
-   with that loader idle and busy in the background (thread and process
-   workers), in turns; runs ``python -m radet_tpu_torch.tools.train`` on
-   it (full width, bf16, batch 16, 4 loader workers, ``FILES_STEPS``
-   steps, one eval on the PNG set's landscape images), with thread workers
-   in a process of its own and then with process workers, checks each
+   with that loader idle and busy in the background (thread workers), in
+   turns; runs ``python -m radet_tpu_torch.tools.train`` on it (full
+   width, bf16, batch 16, 4 loader workers, one eval on the PNG set's
+   landscape images), with thread workers in a process of its own for
+   ``FILES_STEPS`` steps and then with process workers for
+   ``PROCESS_STEPS``, checks each
    run's checkpoint and its eval's vote-NMS launches, and prints its img/s
    beside the in-memory trainer's and the share of each step spent
    waiting on the loader;
@@ -271,7 +273,18 @@ Run from the repository root, with one card:  python3 chip_smoke.py
    IoUBalancedNeg and OHEM on the card against the CPU on shared draws;
    the config with ``LegacyAnchorGenerator`` + ``LegacyDeltaXYWHBBoxCoder``
    and with ``TBLRBBoxCoder``: ``inference_detector`` on 8 images, its
-   no-vote call held to the plain version, and one train step.
+   no-vote call held to the plain version, and one train step;
+23. runs the pipeline transforms (the AutoAugment family, InstaBoost,
+   ``RandomHSV``, ``RandomNoise``, ``RandomSmooth``): holds the card
+   machine's build of their host C++ functions (uint8 HSV, box blur,
+   affine warp, dilation, Telea inpainting) and the numpy twins to cv2's
+   recorded hashes (``tests/data/pipeline_aug``), times each transform on
+   a 480x640 sample on one thread and the loader at 4 threads with the
+   augmented pipeline beside the flagship's, and runs ``tools.train`` on
+   the flagship with ``synthetic_bop.augmented_pipeline`` (full width,
+   bf16, batch 16, ``AUG_STEPS`` steps, one periodic eval of 32 images at
+   K 512): finite losses, a checkpoint, each step's ms and data wait,
+   every vote-NMS call of the eval held to the plain version.
    Each phase prints its wall time.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed phase exits
@@ -281,6 +294,7 @@ script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import io
 import json
@@ -324,6 +338,7 @@ EVAL_INTERVAL = 10  # trainer steps between evaluations
 FILES_IMAGES = 64
 BACKGROUNDS = 48
 FILES_STEPS = 12
+PROCESS_STEPS = 6  # the process workers' run: their start-up, not its steps, is what it checks
 FILES_WORKERS = 4
 # the mixpbr fine-tune: a train_real split of REAL_IMAGES fixture copies
 # beside train_pbr, MIX_CONFIG (configs/bop) over both, MIX_STEPS steps
@@ -1128,8 +1143,10 @@ def loader_phase(train_config: str, gpu: str) -> None:
 def contention_phase(train_config: str, gpu: str, device: str = "cuda") -> None:
     """The train step's ms at batch 16 (the batch already on the card, CUDA
     events, 10 steps) with the from-files loader idle and with it running
-    flat out in the background (FILES_WORKERS thread or process workers,
-    batches drained as they come), in turns: idle, thread, process, idle."""
+    flat out in the background (FILES_WORKERS thread workers, batches
+    drained as they come), in turns: idle, thread, idle.  (Process workers
+    in the background are not timed here: their start-up took most of this
+    phase's time; phase 7's process run trains with them.)"""
     import threading
 
     from radet_tpu_torch.apis.common import (
@@ -1168,9 +1185,9 @@ def contention_phase(train_config: str, gpu: str, device: str = "cuda") -> None:
             count.append(1)
         it.close()
 
-    runs = {"idle": [], "thread": [], "process": []}
-    produced = {"thread": [], "process": []}
-    for mode in ("idle", "thread", "process", "idle"):
+    runs = {"idle": [], "thread": []}
+    produced = {"thread": []}
+    for mode in ("idle", "thread", "idle"):
         stop, count, loader = threading.Event(), [], None
         if mode != "idle":
             loader = threading.Thread(target=drain, args=(stop, count, mode))
@@ -1188,7 +1205,7 @@ def contention_phase(train_config: str, gpu: str, device: str = "cuda") -> None:
           f"(runs {[round(v, 2) for v in runs['idle']]}); busy in the background with {FILES_WORKERS} "
           + "; ".join(f"{m} workers ({np.mean(produced[m]):.1f} img/s drained) {np.mean(runs[m]):.2f} ms "
                       f"(runs {[round(v, 2) for v in runs[m]]}, {np.mean(runs[m]) / idle - 1:+.1%})"
-                      for m in ("thread", "process")) + f" [{gpu}]")
+                      for m in ("thread",)) + f" [{gpu}]")
     del state, model, tx, step, batch
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -1240,21 +1257,23 @@ def files_phase(train_config: str, gpu: str, eval_opts, memory_ms: float, device
     default) and once with process workers: checks each run's checkpoint
     and its eval's vote-NMS launches, and prints its img/s beside the
     in-memory trainer's (``memory_ms`` per step, same log) and the share of
-    each step spent waiting on the loader.  Returns the thread run's
-    checkpoint directory."""
+    each step spent waiting on the loader; the process run takes
+    PROCESS_STEPS steps.  Returns the thread run's checkpoint directory."""
     for mode in ("thread", "process"):
+        steps = FILES_STEPS if mode == "thread" else PROCESS_STEPS
         work_dir = osp.join(osp.dirname(train_config), f"work_dir_{mode}")
         print(f"train from files: python -m radet_tpu_torch.tools.train {CONFIG} from train_pbr (full width, "
               f"bf16, batch 16, {FILES_WORKERS} loader {mode} workers):")
         # the thread run in a process of its own, as a user starts it
-        iters, dataset, _, run_s, _ = train_cli(train_config, work_dir, FILES_STEPS, mode, eval_opts,
+        iters, dataset, _, run_s, _ = train_cli(train_config, work_dir, steps, mode, eval_opts,
                                                 device=device, fresh=mode == "thread")
-        ms, wait = median_iter(iters)
+        skip = 5 if steps > 8 else 3
+        ms, wait = median_iter(iters, skip)
         print(f"timing: training from files, {mode} workers: {16 * 1000 / ms:.1f} img/s ({ms:.1f} ms/step, median "
-              f"of steps 6-{FILES_STEPS}), loader wait {wait:.1f} ms/step ({wait / ms:.1%} of the step); in "
+              f"of steps {skip + 1}-{steps}), loader wait {wait:.1f} ms/step ({wait / ms:.1%} of the step); in "
               f"memory (same call, same log) {16 * 1000 / memory_ms:.1f} img/s ({memory_ms:.1f} ms/step); "
               f"{len(iters)} steps in {run_s:.1f} s ({'start-up, ' if mode == 'thread' else ''}model build and "
-              f"eval included); {dataset}; checkpoint of step {FILES_STEPS} loads [{gpu}]")
+              f"eval included); {dataset}; checkpoint of step {steps} loads [{gpu}]")
     return osp.join(osp.dirname(train_config), "work_dir_thread", "checkpoints")
 
 
@@ -5294,6 +5313,191 @@ def sampling_phase(gpu: str, repo: Path, files: str, eval_opts, test_opts) -> di
     return out
 
 
+AUG_STEPS = 4  # the augmented train CLI's steps (phase 23)
+AUG_EVAL_IMAGES = 32  # its periodic eval: the first landscape images of the PNG set
+AUG_REPS = 5  # calls timed per transform, after one warm-up
+
+
+def aug_hash_checks(gpu: str) -> int:
+    """Phase 23a: the card machine's build of the new host C++ functions
+    (``color_aug``'s uint8 HSV pair and box blur, ``warp``'s affine warp,
+    dilation and rotation matrix, ``inpaint``'s Telea) on every case of
+    ``make_fixtures.cases`` for the three JPEG fixtures, and the numpy twins
+    on the first fixture's cases, against cv2's recorded SHA-256
+    (tests/data/pipeline_aug/hashes.json).  Returns the outputs checked."""
+    from aug_parity import fixtures as fx  # tests/data/pipeline_aug/make_fixtures.py
+    from radet_tpu_torch.data import color_aug, image_io
+    from synthetic_bop import JPEG_FIXTURES, jpeg_fixtures
+
+    with open(osp.join(fx.HERE, "hashes.json")) as f:
+        hashes = json.load(f)
+    with open(osp.join(JPEG_FIXTURES, "hashes.json")) as f:
+        names = [n for n, _ in sorted(json.load(f).items(), key=lambda kv: kv[1]["record"])]
+    _, records = jpeg_fixtures()
+    ops, twins = fx.port_ops(), fx.port_ops(plain=True)
+    checked, t0 = 0, time.perf_counter()
+    for i, (name, rec) in enumerate(zip(names, records)):
+        img = image_io.imread(osp.join(JPEG_FIXTURES, name))
+        want = hashes["images"][name]
+        if fx.sha(img) != want["rgb_sha256"]:
+            fail(f"the decode of {name} differs from cv2's recorded hash")
+        for case, op, args, twin in fx.cases(img, color_aug.rgb_to_hsv_u8(img), rec["gt_masks"]):
+            for label, fn in [("C++", ops[op])] + ([("numpy twin", twins[op])] if twin and i == 0 else []):
+                if fx.sha(fn(*args)) != want["ops"][case]:
+                    fail(f"{label} {case} on {name} differs from cv2 {hashes['cv2']}'s recorded hash")
+                checked += 1
+    print(f"pipeline transforms: {checked} outputs of the C++ functions (every case of the 3 fixtures) and their "
+          f"numpy twins (the first fixture's cases) equal cv2 {hashes['cv2']}'s recorded SHA-256, "
+          f"{time.perf_counter() - t0:.1f} s [host of {gpu}]")
+    return checked
+
+
+def aug_transform_timing(gpu: str) -> dict:
+    """Phase 23b: each new transform's ms per 480x640 sample (the first JPEG
+    fixture with its record's boxes and masks) on one thread, firing every
+    time (prob 1), mean of AUG_REPS calls after a warm-up; AutoAugment with
+    the smoke's policies, InstaBoost at aug_ratio 1."""
+    import copy
+
+    from radet_tpu_torch.data import image_io
+    from radet_tpu_torch.data.pipeline import build_pipeline
+    from synthetic_bop import AUG_POLICIES, jpeg_fixtures
+
+    jpegs, records = jpeg_fixtures()
+    rec = records[0]
+    base = dict(img=image_io.imdecode(jpegs[0]), img_shape=(480, 640), gt_bboxes=rec["gt_bboxes"],
+                gt_labels=rec["gt_labels"], gt_masks=rec["gt_masks"])
+    cfgs = [dict(type="RandomHSV", h_ratio=0.1, s_ratio=0.3, v_ratio=0.3), dict(type="RandomNoise", noise_ratio=0.02),
+            dict(type="RandomSmooth", max_kernel_size=7)]
+    cfgs += [dict(aug, prob=1.0) for aug in (
+        dict(type="Shear", level=4), dict(type="Rotate", level=10), dict(type="Translate", level=6),
+        dict(type="ColorTransform", level=6), dict(type="EqualizeTransform"), dict(type="BrightnessTransform", level=6),
+        dict(type="ContrastTransform", level=4))]
+    cfgs += [dict(type="AutoAugment", policies=AUG_POLICIES), dict(type="InstaBoost", aug_ratio=1.0)]
+    random.seed(SEED)
+    np.random.seed(SEED)
+    out = {}
+    for cfg in cfgs:
+        t = build_pipeline([cfg])
+        t(copy.deepcopy(base))
+        spent = 0.0
+        for _ in range(AUG_REPS):
+            results = copy.deepcopy(base)
+            t0 = time.perf_counter()
+            t(results)
+            spent += time.perf_counter() - t0
+        out[cfg["type"]] = spent * 1000 / AUG_REPS
+    print("timing: pipeline transforms on a 480x640 sample (the first JPEG fixture, its record's "
+          f"{len(rec['gt_bboxes'])} instances), ms per call, one thread, prob 1, mean of {AUG_REPS}: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in out.items()) + f" [host of {gpu}]")
+    return out
+
+
+def aug_loader_timing(configs: dict, gpu: str) -> dict:
+    """Phase 23c: the loader's img/s at FILES_WORKERS threads, batch 16,
+    over 8 batches after 3 prefetched, for each of ``configs`` (the
+    flagship's pipeline and the augmented one), in turns: flagship,
+    augmented, augmented, flagship."""
+    from radet_tpu_torch.apis.common import build_dataset
+    from radet_tpu_torch.data import DataLoader
+    from radet_tpu_torch.utils import Config
+
+    datasets = {name: build_dataset(Config.fromfile(path), "train") for name, path in configs.items()}
+    names = list(configs)
+    runs = {name: [] for name in names}
+    for name in names + names[::-1]:
+        it = iter(DataLoader(datasets[name], batch_size=16, num_workers=FILES_WORKERS, seed=SEED, infinite=True))
+        for _ in range(3):
+            next(it)
+        t0 = time.perf_counter()
+        for _ in range(8):
+            next(it)
+        runs[name].append(16 * 8 / (time.perf_counter() - t0))
+        it.close()
+    print(f"timing: loader, {FILES_WORKERS} threads, batch 16, img/s over 8 batches (two runs each): "
+          + "; ".join(f"{name} {np.mean(v):.1f} ({', '.join(f'{x:.1f}' for x in v)})" for name, v in runs.items())
+          + f" [host of {gpu}]")
+    return {name: float(np.mean(v)) for name, v in runs.items()}
+
+
+def aug_cli_phase(config: str, gpu: str, eval_opts) -> dict:
+    """Phase 23d: ``tools.train`` (its ``main``, in this process) on the
+    flagship config with the augmented pipeline at full width, bf16, batch
+    16, FILES_WORKERS loader threads, AUG_STEPS steps and one periodic eval
+    of AUG_EVAL_IMAGES landscape images (K = 512) at ``score_thr`` 0: finite
+    losses, a checkpoint, every vote-NMS call of the eval held to the plain
+    version, each step's ms and data wait.  Returns its numbers."""
+    import radet_tpu_torch.models.postprocess as postprocess
+    import radet_tpu_torch.ops.vote_nms_cuda as vnc
+    from radet_tpu_torch.engine import load_weights
+
+    repo = Path(__file__).resolve().parent
+    work_dir = osp.join(osp.dirname(config), "work_dir_aug")
+    val = dict(o.split("=", 1) for o in eval_opts)
+    with open(ast.literal_eval(val["data.val.ann_file"])) as f:
+        coco = json.load(f)
+    keep = {i["id"] for i in coco["images"][:AUG_EVAL_IMAGES]}
+    coco = dict(coco, images=coco["images"][:AUG_EVAL_IMAGES],
+                annotations=[a for a in coco["annotations"] if a["image_id"] in keep])
+    val_file = osp.join(osp.dirname(config), f"val{AUG_EVAL_IMAGES}.json")
+    with open(val_file, "w") as f:
+        json.dump(coco, f)
+    print(f"augmented train CLI: radet_tpu_torch.tools.train.main on {CONFIG} with InstaBoost, AutoAugment (5 "
+          f"policies, all 7 types), RandomHSV, RandomNoise and RandomSmooth in its pipeline (full width, bf16, batch "
+          f"16, {FILES_WORKERS} loader threads), {AUG_STEPS} steps, one eval of {len(coco['images'])} images:")
+    calls = []
+    kernel_nms, postprocess.vote_nms = recorded_vote_nms(calls)
+    vnc.LAUNCHES = 0
+    try:
+        _, log, wall = tool_run(repo, ["-m", "radet_tpu_torch.tools.train", config, "--work-dir", work_dir,
+                                       "--max-iters", AUG_STEPS, "--cfg-options", "log_config.interval=1",
+                                       f"checkpoint_config.interval={AUG_STEPS}", f"evaluation.interval={AUG_STEPS}",
+                                       f"data.workers_per_gpu={FILES_WORKERS}", "test_cfg.score_thr=0.0",
+                                       f"data.val.ann_file={val_file!r}",
+                                       f"data.val.img_prefix={val['data.val.img_prefix']}"],
+                                "the augmented train CLI")
+    finally:
+        postprocess.vote_nms = kernel_nms
+    torch.cuda.synchronize()
+    launches = vnc.LAUNCHES
+    log = log.splitlines()
+    iters = [ln for ln in log if ln.startswith("iter ")]
+    evals = [ln for ln in log if ln.startswith("eval: ")]
+    history = [float(v) for ln in iters for v in re.findall(r" loss (\S+)", ln)]
+    ks = sorted({int(a[0].shape[1]) for a, _, _ in calls})
+    for ln in iters + evals:
+        print(f"  {ln}")
+    if (len(iters) != AUG_STEPS or len(history) != AUG_STEPS or not all(math.isfinite(v) for v in history)
+            or len(evals) != 1 or launches < 1 or launches != len(calls) or ks != [512]
+            or not load_weights(osp.join(work_dir, "checkpoints"))):
+        fail(f"the augmented train CLI: {len(iters)} steps, losses {history}, {len(evals)} evals, vote_nms "
+             f"launches {launches} ({len(calls)} recorded at K {ks}), or no checkpoint")
+    per_step = [float(m) for ln in iters for m in re.findall(r"\| (\S+) ms/iter", ln)]
+    waits = [float(m) for ln in iters for m in re.findall(r"data wait (\S+) ms/iter", ln)]
+    print(f"  each step, ms (data wait ms): " + ", ".join(f"{a:.1f} ({w:.1f})" for a, w in zip(per_step, waits))
+          + f"; {wall:.1f} s in all (model build and eval included); vote_nms launches {launches} at K {ks} [{gpu}]")
+    err = hold_to_plain(calls, "the augmented train CLI's eval")
+    return dict(launches=launches, max_abs_err=err, step_ms_each=per_step, data_wait_ms_each=waits, wall_s=wall,
+                losses=history)
+
+
+def pipeline_aug_phase(gpu: str, files: str, eval_opts) -> dict:
+    """Phase 23: the pipeline transforms (ROADMAP item 12g): the AutoAugment
+    family, InstaBoost, RandomHSV, RandomNoise and RandomSmooth."""
+    from synthetic_bop import write_train_config
+
+    repo = Path(__file__).resolve().parent
+    checked = aug_hash_checks(gpu)
+    ms = aug_transform_timing(gpu)
+    ann, prefix, bg = osp.join(files, "train_pbr.json"), osp.join(files, "train_pbr") + "/", osp.join(files, "backgrounds")
+    configs = {"flagship": osp.join(files, "train_config.py"),
+               "augmented": write_train_config(osp.join(files, "aug_config.py"), str(repo / CONFIG), ann, prefix, bg,
+                                               augmented=True)}
+    img_s = aug_loader_timing(configs, gpu)
+    cli = aug_cli_phase(configs["augmented"], gpu, eval_opts)
+    return dict(checked=checked, transform_ms=ms, loader_img_s=img_s, **cli)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -5305,13 +5509,13 @@ def main() -> None:
               file=sys.stderr)
         sys.exit(1)
     sys.path.insert(0, str(repo))
-    sys.path.append(str(repo / "tests"))  # synthetic_bop: the test data writers
+    sys.path.append(str(repo / "tests"))  # synthetic_bop, aug_parity: the test data writers and fixtures
     config = str(repo / CONFIG)
 
     import radet_tpu_torch.ops.int8_conv_cuda as icc
     import radet_tpu_torch.ops.vote_nms_cuda as vnc
     from radet_tpu_torch import inference_detector, init_detector
-    from radet_tpu_torch.data import color_aug, image_io, tiff
+    from radet_tpu_torch.data import color_aug, image_io, inpaint, tiff, warp
     from radet_tpu_torch.ops import distance_transform
     from radet_tpu_torch.utils import image_write, native
     from radet_tpu_torch.ops.vote_nms import vote_nms_plain
@@ -5331,7 +5535,7 @@ def main() -> None:
         fn()
         return time.perf_counter() - t0
 
-    with ThreadPoolExecutor(8) as pool:
+    with ThreadPoolExecutor(10) as pool:  # every build at once
         builds = [(src, flags, pool.submit(timed, fn)) for src, flags, fn in (
             (vnc.SOURCE, f"nvcc {' '.join(vnc.NVCC_FLAGS)}", vnc.build),
             (icc.SOURCE, f"nvcc {' '.join(icc.NVCC_FLAGS)}", icc.build),
@@ -5340,7 +5544,9 @@ def main() -> None:
             (image_write.JPEG_SOURCE, f"c++ {' '.join(image_write.CXX_FLAGS)}", image_write.build_jpeg_encoder),
             (color_aug.SOURCE, f"c++ {' '.join(color_aug.CXX_FLAGS)}", color_aug.build),
             (distance_transform.SOURCE, f"c++ {' '.join(distance_transform.CXX_FLAGS)}", distance_transform.build),
-            (tiff.SOURCE, f"c++ {' '.join(tiff.CXX_FLAGS)}", tiff.build))]
+            (tiff.SOURCE, f"c++ {' '.join(tiff.CXX_FLAGS)}", tiff.build),
+            (warp.SOURCE, f"c++ {' '.join(warp.CXX_FLAGS)}", warp.build),
+            (inpaint.SOURCE, f"c++ {' '.join(inpaint.CXX_FLAGS)}", inpaint.build))]
         for src, flags, fut in builds:
             print(f"build: {src.relative_to(repo)} -> {native.BUILD_DIR.relative_to(repo)} "
                   f"with {flags}: {fut.result():.2f} s [{gpu}]")
@@ -5514,6 +5720,9 @@ def main() -> None:
 
         # 22. the AnchorHead's sampling recipes: the RPN recipe, the other samplers, coders and generators
         sampling = phase("sampling recipes", sampling_phase, gpu, repo, files, eval_opts, test_opts)
+
+        # 23. the pipeline transforms: the AutoAugment family, InstaBoost, RADet's colour transforms
+        aug = phase("pipeline transforms", pipeline_aug_phase, gpu, files, eval_opts)
     nms_ms, nms_plain_ms, nms_bound_ms, nms_bound_by, _ = nms_times[ANCHOR_MAIN_SHAPE]
 
     print(f"card: {gpu}; smoke {time.perf_counter() - start:.1f} s wall")
@@ -5568,6 +5777,9 @@ def main() -> None:
         # batches of 16; each call held to the plain version
         "voc_launches": {"train_cli_eval": voc["train"]["launches"], "test_cli": voc["test"]["launches"]},
         "voc_max_abs_err": {"train_cli_eval": voc["train"]["max_abs_err"], "test_cli": voc["test"]["max_abs_err"]},
+        # phase 23: the train CLI's periodic eval (K 512, 32 images in batches of 16) with the augmented pipeline
+        "pipeline_aug_launches": {"train_cli_eval": aug["launches"]},
+        "pipeline_aug_max_abs_err": {"train_cli_eval": aug["max_abs_err"]},
     }, {
         "name": "batched_nms (vote_nms.cu, no-vote mode)",
         "route": "cuda",

@@ -29,7 +29,15 @@
 //   and (COLOR_HSV2RGB) on float32 images (PhotoMetricDistortion's), in
 //   OpenCV's float arithmetic: its 8-pixel vector code over the first
 //   w - w % 8 pixels of a row and its scalar code over the rest, with the
-//   multiply-adds its build fuses taken as fmaf (see each function).
+//   multiply-adds its build fuses taken as fmaf (see each function);
+// - radet_rgb_to_hsv_u8, radet_hsv_to_rgb_u8: cv2.cvtColor(COLOR_RGB2HSV)
+//   and (COLOR_HSV2RGB) on uint8 images, H in [0, 180) (RandomHSV's and
+//   InstaBoost's): the forward conversion in cv2's fixed point (12-bit
+//   division tables), the backward one in float32, 255 x truncated in
+//   cv2's vector code and rounded in its scalar tail (see each function);
+// - radet_box_blur: cv2.blur(img, (k, k)) on uint8, the k x k sum over a
+//   BORDER_REFLECT_101 padding divided by k * k and rounded (k odd, so no
+//   sum lies halfway).
 //
 // Images are contiguous HWC uint8.  ctypes releases the interpreter lock
 // around each call, so loader threads run them in parallel.
@@ -206,6 +214,41 @@ RADET_FMA_TARGET
 void hsv_to_rgb_fma(const float* src, float* dst, int64_t n) { hsv_to_rgb_body(src, dst, n); }
 #endif
 
+// HSV (uint8, H in [0, 180)) -> RGB of one row of w pixels: s and v
+// scaled by float(1 / 255), h = H * (6 / 180), sector floor(h) mod 6,
+// f = h - floor(h), the tab v, v (1 - s), v fmaf(-s, f, 1),
+// v fmaf(-s, 1 - f, 1) picked by sector, and each channel 255 x truncated
+// over the first w - w % 32 pixels (cv2's vector code, 32 pixels a step)
+// and rounded over the rest (its scalar code).
+inline __attribute__((always_inline)) void hsv_to_rgb_u8_row(const uint8_t* src, uint8_t* dst, int64_t w) {
+  static const int kSectors[6][3] = {{1, 3, 0}, {1, 0, 2}, {3, 0, 1}, {0, 2, 1}, {0, 1, 3}, {2, 1, 0}};
+  const float hscale = 6.f / 180.f, inv255 = 1.f / 255.f;
+  const int64_t vector_end = w - w % 32;
+  for (int64_t i = 0; i < w; ++i) {
+    const float h = static_cast<float>(src[3 * i]) * hscale;
+    const float s = static_cast<float>(src[3 * i + 1]) * inv255, v = static_cast<float>(src[3 * i + 2]) * inv255;
+    const float whole = std::floor(h), f = h - whole;
+    const float tab[4] = {v, v * (1.f - s), v * std::fmaf(-s, f, 1.f), v * std::fmaf(-s, 1.f - f, 1.f)};
+    const int sector = static_cast<int>(whole) % 6;
+    for (int k = 0; k < 3; ++k) {
+      float x = tab[kSectors[sector][2 - k]] * 255.f;
+      x = i < vector_end ? std::trunc(x) : std::nearbyint(x);
+      dst[3 * i + k] = static_cast<uint8_t>(x > 255.f ? 255.f : x);
+    }
+  }
+}
+
+void hsv_to_rgb_u8(const uint8_t* src, uint8_t* dst, int64_t h, int64_t w) {
+  for (int64_t y = 0; y < h; ++y) hsv_to_rgb_u8_row(src + 3 * y * w, dst + 3 * y * w, w);
+}
+
+#ifdef RADET_HAVE_FMA_CLONE
+RADET_FMA_TARGET
+void hsv_to_rgb_u8_fma(const uint8_t* src, uint8_t* dst, int64_t h, int64_t w) {
+  for (int64_t y = 0; y < h; ++y) hsv_to_rgb_u8_row(src + 3 * y * w, dst + 3 * y * w, w);
+}
+#endif
+
 }  // namespace
 
 extern "C" {
@@ -305,6 +348,91 @@ void radet_hsv_to_rgb_f32(const float* src, float* dst, int64_t pixels) {
   if (have_avx2_fma()) return hsv_to_rgb_fma(src, dst, pixels);
 #endif
   hsv_to_rgb(src, dst, pixels);
+}
+
+// cv2.cvtColor(src, COLOR_RGB2HSV) of `pixels` uint8 RGB pixels: V = max,
+// S = (diff * sdiv[V] + 2^11) >> 12 and H = (h * hdiv[diff] + 2^11) >> 12
+// (+180 when negative) with diff = V - min, h = g - b, b - r + 2 diff or
+// r - g + 4 diff by the maximum's channel (R, then G, then B), and the
+// tables sdiv[x] = round(255 * 2^12 / x), hdiv[x] = round(180 * 2^12 / (6 x)).
+void radet_rgb_to_hsv_u8(const uint8_t* src, uint8_t* dst, int64_t pixels) {
+  constexpr int kShift = 12;
+  static const struct Tables {
+    int sdiv[256], hdiv[256];
+    Tables() {
+      sdiv[0] = hdiv[0] = 0;
+      for (int i = 1; i < 256; ++i) {
+        sdiv[i] = static_cast<int>(std::nearbyint((255 << kShift) / (1. * i)));
+        hdiv[i] = static_cast<int>(std::nearbyint((180 << kShift) / (6. * i)));
+      }
+    }
+  } tables;
+  for (int64_t p = 0; p < pixels; ++p) {
+    const int r = src[3 * p], g = src[3 * p + 1], b = src[3 * p + 2];
+    int v = b, lo = b;
+    if (v < g) v = g;
+    if (v < r) v = r;
+    if (lo > g) lo = g;
+    if (lo > r) lo = r;
+    const int diff = v - lo;
+    const int s = (diff * tables.sdiv[v] + (1 << (kShift - 1))) >> kShift;
+    int h = v == r ? g - b : (v == g ? b - r + 2 * diff : r - g + 4 * diff);
+    h = (h * tables.hdiv[diff] + (1 << (kShift - 1))) >> kShift;
+    if (h < 0) h += 180;
+    dst[3 * p] = static_cast<uint8_t>(h > 255 ? 255 : h);
+    dst[3 * p + 1] = static_cast<uint8_t>(s);
+    dst[3 * p + 2] = static_cast<uint8_t>(v);
+  }
+}
+
+// cv2.cvtColor(src, COLOR_HSV2RGB) of an (h, w, 3) uint8 HSV image.
+void radet_hsv_to_rgb_u8(const uint8_t* src, uint8_t* dst, int64_t h, int64_t w) {
+#ifdef RADET_HAVE_FMA_CLONE
+  if (have_avx2_fma()) return hsv_to_rgb_u8_fma(src, dst, h, w);
+#endif
+  hsv_to_rgb_u8(src, dst, h, w);
+}
+
+// cv2.blur(src, (k, k)) of an (h, w, c) uint8 image, k odd: the k x k sum
+// over a BORDER_REFLECT_101 padding, (sum + k^2 / 2) / k^2.  Returns 0, or
+// 1 when the arguments are out of range.
+int radet_box_blur(const uint8_t* src, uint8_t* dst, int64_t h, int64_t w, int64_t c, int k) {
+  if (h < 1 || w < 1 || c < 1 || k < 1 || !(k & 1)) return 1;
+  const int64_t r = k / 2, row = w * c;
+  const uint32_t area = static_cast<uint32_t>(k) * k;
+  std::vector<uint32_t> rows(h * row);  // horizontal sums, each window slid one pixel at a time
+  std::vector<uint8_t> padded((w + 2 * r) * c);
+  for (int64_t y = 0; y < h; ++y) {
+    const uint8_t* s = src + y * row;
+    for (int64_t x = 0; x < w + 2 * r; ++x)
+      for (int64_t ch = 0; ch < c; ++ch) padded[x * c + ch] = s[reflect101(x - r, w) * c + ch];
+    uint32_t* out = rows.data() + y * row;
+    for (int64_t ch = 0; ch < c; ++ch) {
+      uint32_t acc = 0;
+      for (int64_t j = 0; j < k; ++j) acc += padded[j * c + ch];
+      out[ch] = acc;
+      for (int64_t x = 1; x < w; ++x) {
+        acc += padded[(x + k - 1) * c + ch];
+        acc -= padded[(x - 1) * c + ch];
+        out[x * c + ch] = acc;
+      }
+    }
+  }
+  std::vector<uint32_t> acc(row, 0);  // vertical sums, slid one row at a time
+  for (int64_t j = -r; j <= r; ++j) {
+    const uint32_t* t = rows.data() + reflect101(j, h) * row;
+    for (int64_t i = 0; i < row; ++i) acc[i] += t[i];
+  }
+  for (int64_t y = 0; y < h; ++y) {
+    if (y) {
+      const uint32_t* in = rows.data() + reflect101(y + r, h) * row;
+      const uint32_t* out_row = rows.data() + reflect101(y - r - 1, h) * row;
+      for (int64_t i = 0; i < row; ++i) acc[i] = acc[i] + in[i] - out_row[i];
+    }
+    uint8_t* out = dst + y * row;
+    for (int64_t i = 0; i < row; ++i) out[i] = static_cast<uint8_t>((acc[i] + area / 2) / area);
+  }
+  return 0;
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
 """Host data path: image files without cv2, numpy transforms (CosyPoseAug's
-ops in host C++, polygon masks), the file-backed BOP dataset and its
+ops, uint8 HSV, box blur, affine warps and Telea inpainting in host C++;
+polygon masks), the file-backed BOP dataset and its
 wrappers, sample packing, an in-memory training source and the batching
 loader."""
 

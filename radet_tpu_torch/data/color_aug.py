@@ -30,6 +30,12 @@ gray (14 bits; ``data/image_io.py``); ``rgb_to_hsv_f32`` and
 (``PhotoMetricDistortion``'s), in OpenCV's arithmetic: its AVX2 code takes
 8 pixels a vector and fuses the multiply-adds named in the twins'
 docstrings, its scalar code the last W % 8 pixels of a row.
+``rgb_to_hsv_u8`` and ``hsv_to_rgb_u8`` are its uint8 pair (H in [0, 180);
+``RandomHSV``'s and InstaBoost's): the forward one in cv2's 12-bit fixed
+point, the backward one in float32, each channel's product with 255
+truncated in cv2 5.0's vector code (32 pixels a step) and rounded in its
+scalar code (the last W % 32 pixels of a row).  ``box_blur`` is ``cv2.blur(img, (k, k))``
+(``RandomSmooth``'s).
 
 The ``*_plain`` functions are the numpy twins of the C++ functions, which
 the tests hold equal to them and to cv2; the training path calls the C++
@@ -72,6 +78,9 @@ _API = {
     "radet_rgb_to_gray": ([_P, _P, _I64, _I64, ctypes.c_int], None),
     "radet_rgb_to_hsv_f32": ([_P, _P, _I64, _I64], None),
     "radet_hsv_to_rgb_f32": ([_P, _P, _I64], None),
+    "radet_rgb_to_hsv_u8": ([_P, _P, _I64], None),
+    "radet_hsv_to_rgb_u8": ([_P, _P, _I64, _I64], None),
+    "radet_box_blur": ([_P, _P, _I64, _I64, _I64, ctypes.c_int], ctypes.c_int),
 }
 GRAY_SHIFTS = (14, 15)  # imread's gray of a colour TIFF, cvtColor's COLOR_RGB2GRAY
 
@@ -80,6 +89,8 @@ _FLT_EPSILON = np.finfo(np.float32).eps
 # cv2's float colour conversions run 8 pixels a vector (its AVX2 code); the
 # last W % 8 pixels of a row take its scalar code
 _HSV_LANES = 8
+# its uint8 HSV -> RGB code takes 32 pixels a step
+_HSV_U8_PIXELS = 32
 
 
 def build() -> ctypes.CDLL:
@@ -208,6 +219,41 @@ def hsv_to_rgb_f32(hsv: np.ndarray) -> np.ndarray:
     return out
 
 
+def _hwc3_u8(img: np.ndarray) -> np.ndarray:
+    img = _hwc(img)
+    if img.shape[2] != 3:
+        raise ValueError(f"expected an (H, W, 3) image, got {img.shape}")
+    return img
+
+
+def rgb_to_hsv_u8(img: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(img, cv2.COLOR_RGB2HSV)`` of an (H, W, 3) uint8 image,
+    byte for byte: H in [0, 180), S and V in [0, 255]."""
+    img = _hwc3_u8(img)
+    out = np.empty_like(img)
+    build().radet_rgb_to_hsv_u8(img.ctypes.data, out.ctypes.data, img.shape[0] * img.shape[1])
+    return out
+
+
+def hsv_to_rgb_u8(hsv: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(hsv, cv2.COLOR_HSV2RGB)`` of an (H, W, 3) uint8 image
+    (H in [0, 180)), byte for byte."""
+    hsv = _hwc3_u8(hsv)
+    out = np.empty_like(hsv)
+    build().radet_hsv_to_rgb_u8(hsv.ctypes.data, out.ctypes.data, hsv.shape[0], hsv.shape[1])
+    return out
+
+
+def box_blur(img: np.ndarray, ksize: int) -> np.ndarray:
+    """``cv2.blur(img, (ksize, ksize))`` of an (H, W, C) uint8 image, ksize
+    odd (1 gives a copy), byte for byte."""
+    img = _hwc(img)
+    out = np.empty_like(img)
+    if build().radet_box_blur(img.ctypes.data, out.ctypes.data, *img.shape, int(ksize)):
+        raise ValueError(f"box blur of a {img.shape} image at kernel size {ksize!r} (odd, >= 1)")
+    return out
+
+
 # -------------------------------------------------------------- numpy twins
 
 
@@ -323,6 +369,63 @@ def hsv_to_rgb_f32_plain(hsv: np.ndarray) -> np.ndarray:
     sector = (whole - np.trunc(whole * (_F32(1) / _F32(6))) * _F32(6)).astype(np.int64)
     sector[(sector < 0) | (sector >= 6)] = 0
     return np.take_along_axis(tab, _HSV_SECTORS[sector][..., ::-1], -1)
+
+
+def _hsv_tables():
+    i = np.arange(1, 256, dtype=np.float64)
+    sdiv = np.concatenate([[0], np.rint((255 << 12) / i)]).astype(np.int64)
+    hdiv = np.concatenate([[0], np.rint((180 << 12) / (6 * i))]).astype(np.int64)
+    return sdiv, hdiv
+
+
+def rgb_to_hsv_u8_plain(img: np.ndarray) -> np.ndarray:
+    """numpy twin of :func:`rgb_to_hsv_u8`: V = max, diff = V - min, S =
+    (diff * sdiv[V] + 2^11) >> 12, H = (h * hdiv[diff] + 2^11) >> 12 (+180
+    when negative), h = g - b, b - r + 2 diff or r - g + 4 diff as R, G or B
+    is the maximum (in that order), sdiv[x] = round(255 * 2^12 / x), hdiv[x] =
+    round(180 * 2^12 / (6 x))."""
+    r, g, b = (img[..., i].astype(np.int64) for i in range(3))
+    v = np.maximum(np.maximum(r, g), b)
+    diff = v - np.minimum(np.minimum(r, g), b)
+    sdiv, hdiv = _hsv_tables()
+    s = (diff * sdiv[v] + (1 << 11)) >> 12
+    h = np.where(v == r, g - b, np.where(v == g, b - r + 2 * diff, r - g + 4 * diff))
+    h = (h * hdiv[diff] + (1 << 11)) >> 12
+    h = np.where(h < 0, h + 180, h)
+    return np.stack([np.minimum(h, 255), s, v], -1).astype(np.uint8)
+
+
+def hsv_to_rgb_u8_plain(hsv: np.ndarray) -> np.ndarray:
+    """numpy twin of :func:`hsv_to_rgb_u8`: s, v = S, V times float32(1 /
+    255), h = H * float32(6 / 180), sector floor(h) mod 6, f = h - floor(h),
+    the tab v, v(1 - s), v * fma(-s, f, 1), v * fma(-s, 1 - f, 1) picked by
+    sector, each channel 255 x truncated, or rounded in the last W % 32
+    pixels of a row."""
+    h = hsv[..., 0].astype(np.float32) * (_F32(6) / _F32(180))
+    s = hsv[..., 1].astype(np.float32) * (_F32(1) / _F32(255))
+    v = hsv[..., 2].astype(np.float32) * (_F32(1) / _F32(255))
+    whole = np.floor(h)
+    f = h - whole
+    one = _F32(1)
+    tab = np.stack([v, v * (one - s), v * _fma32(-s, f, one), v * _fma32(-s, one - f, one)], -1)
+    sector = whole.astype(np.int64) % 6
+    rgb = np.take_along_axis(tab, _HSV_SECTORS[sector][..., ::-1], -1) * _F32(255)
+    vector = np.arange(hsv.shape[1]) < hsv.shape[1] // _HSV_U8_PIXELS * _HSV_U8_PIXELS
+    rgb = np.where(vector[:, None], np.trunc(rgb), np.rint(rgb))
+    return np.minimum(rgb, 255).astype(np.uint8)
+
+
+def box_blur_plain(img: np.ndarray, ksize: int) -> np.ndarray:
+    """numpy twin of :func:`box_blur`: int64 sums over a BORDER_REFLECT_101
+    padding, (sum + k^2 // 2) // k^2."""
+    if ksize < 1 or not ksize % 2:
+        raise ValueError(f"box blur at kernel size {ksize!r} (odd, >= 1)")
+    r = ksize // 2
+    h, w = img.shape[:2]
+    x = np.pad(img.astype(np.int64), ((r, r), (r, r), (0, 0)), mode="reflect")
+    rows = sum(x[:, j:j + w] for j in range(ksize))
+    total = sum(rows[i:i + h] for i in range(ksize))
+    return ((total + ksize * ksize // 2) // (ksize * ksize)).astype(np.uint8)
 
 
 PLAIN = SimpleNamespace(blur=gaussian_blur_plain, smooth=smooth_plain, add_weighted=add_weighted_plain,

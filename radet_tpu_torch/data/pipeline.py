@@ -2,6 +2,9 @@
 transforms of ``radet_tpu/data/pipeline.py``, without cv2 or PIL): numpy,
 with ``CosyPoseAug``'s image operations in host C++ (``color_aug``) and
 polygon masks filled by ``poly.fill_poly``, each equal to cv2's output.
+The registry also holds the AutoAugment family (``auto_augment``) and
+``InstaBoost`` (``instaboost``), whose warps (``warp``) and inpainting
+(``inpaint``) are host C++ equal to cv2's too.
 
 Each transform is a callable on a ``results`` dict (keys: img, gt_bboxes,
 gt_labels, gt_masks, img_shape, scale_factor, distance_maps, dist_vals,
@@ -13,10 +16,15 @@ train step.
 The random transforms draw as the JAX package's do, from Python's
 ``random`` (``RandomBackground``, ``CosyPoseAug``, ``RandomFlip``, the
 crops, ``Expand``, ``PhotoMetricDistortion``, ``CutOut``,
-``RandomCenterCropPad``), so that both packages take the same decisions
-from the same seed; a ``seed`` gives a transform a generator of its own.
-``PhotoMetricDistortion`` converts RGB<->HSV in cv2's float32 arithmetic
-(``color_aug.rgb_to_hsv_f32``, ``color_aug.hsv_to_rgb_f32``: host C++).
+``RandomCenterCropPad``, ``RandomHSV``, ``RandomNoise``, ``RandomSmooth``,
+the AutoAugment family, ``InstaBoost``), so that both packages take the
+same decisions from the same seed; a ``seed`` gives a transform a generator
+of its own.  ``PhotoMetricDistortion`` converts RGB<->HSV in cv2's float32
+arithmetic (``color_aug.rgb_to_hsv_f32``, ``color_aug.hsv_to_rgb_f32``),
+``RandomHSV`` in its uint8 arithmetic (``color_aug.rgb_to_hsv_u8``,
+``color_aug.hsv_to_rgb_u8``), and ``RandomSmooth`` blurs with
+``color_aug.box_blur`` (``cv2.blur``): host C++.  ``Albu`` and ``Corrupt``
+bridge to albumentations and imagecorruptions, imported when one is built.
 """
 
 from __future__ import annotations
@@ -33,9 +41,6 @@ import numpy as np
 from . import color_aug
 from .image_io import IMREAD_GRAYSCALE, IMREAD_UNCHANGED, imread, imread_rgb
 from .poly import fill_poly
-
-_OTHER = ("ROADMAP.md Queue 1 item 12g: RandomHSV, RandomNoise, RandomSmooth, Albu, Corrupt, "
-          "the AutoAugment family and InstaBoost")
 
 
 def _generator(seed: Optional[int]) -> Optional[random.Random]:
@@ -650,6 +655,165 @@ class CutOut:
         return results
 
 
+class RandomHSV:
+    """With probability ``prob`` (``random() > prob`` skips), H, S and V of
+    cv2's uint8 HSV scaled in float32 by 1 + ``uniform(-1, 1)`` times each
+    ratio, each clipped (179 for H, 255 else) only when its factor is at
+    least 1, truncated back to uint8 (RADet's ``color_aug.py``)."""
+
+    def __init__(self, h_ratio: float, s_ratio: float, v_ratio: float, prob: float = 1.0, seed: Optional[int] = None):
+        self.h_ratio = h_ratio
+        self.s_ratio = s_ratio
+        self.v_ratio = v_ratio
+        self.prob = prob
+        self.rng = _generator(seed)
+
+    def __call__(self, results: Dict[str, Any]) -> Dict[str, Any]:
+        rng = self.rng or random
+        if rng.random() > self.prob:
+            return results
+        hsv = color_aug.rgb_to_hsv_u8(results["img"]).astype(np.float32)
+        a = rng.uniform(-1, 1) * self.h_ratio + 1
+        b = rng.uniform(-1, 1) * self.s_ratio + 1
+        c = rng.uniform(-1, 1) * self.v_ratio + 1
+        hsv[:, :, 0] *= a
+        hsv[:, :, 1] *= b
+        hsv[:, :, 2] *= c
+        if a >= 1:
+            hsv[:, :, 0] = hsv[:, :, 0].clip(None, 179)
+        if b >= 1:
+            hsv[:, :, 1] = hsv[:, :, 1].clip(None, 255)
+        if c >= 1:
+            hsv[:, :, 2] = hsv[:, :, 2].clip(None, 255)
+        results["img"] = color_aug.hsv_to_rgb_u8(hsv.astype(np.uint8))
+        return results
+
+
+class RandomNoise:
+    """With probability ``prob``, additive Gaussian noise of sigma
+    ``uniform(0, noise_ratio)`` times 255, in float64 from
+    ``np.random.normal`` (a ``RandomState(seed)`` of its own with
+    ``seed``), clipped back to uint8."""
+
+    def __init__(self, noise_ratio: float, prob: float = 1.0, seed: Optional[int] = None):
+        self.noise_ratio = noise_ratio
+        self.prob = prob
+        self.rng = _generator(seed)
+        self.np_rng = None if seed is None else np.random.RandomState(seed)
+
+    def __call__(self, results: Dict[str, Any]) -> Dict[str, Any]:
+        rng = self.rng or random
+        if rng.random() > self.prob:
+            return results
+        img = results["img"].astype(np.float32)
+        sigma = rng.uniform(0, self.noise_ratio)
+        img = img + (self.np_rng or np.random).normal(0, sigma, img.shape) * 255
+        results["img"] = img.clip(0, 255).astype(np.uint8)
+        return results
+
+
+class RandomSmooth:
+    """With probability ``prob``, ``cv2.blur`` at a kernel size drawn by
+    ``random.choice`` from the odd sizes up to ``max_kernel_size`` (1 leaves
+    the image as it is)."""
+
+    def __init__(self, max_kernel_size: int = 7, prob: float = 1.0, seed: Optional[int] = None):
+        self.kernel_sizes = [i * 2 + 1 for i in range(max_kernel_size // 2 + 1)]
+        self.prob = prob
+        self.rng = _generator(seed)
+
+    def __call__(self, results: Dict[str, Any]) -> Dict[str, Any]:
+        rng = self.rng or random
+        if rng.random() > self.prob:
+            return results
+        results["img"] = color_aug.box_blur(results["img"], rng.choice(self.kernel_sizes))
+        return results
+
+
+class Albu:
+    """A bridge to the albumentations library: a ``Compose`` of its
+    transforms built from config dicts over img, gt_bboxes ('pascal_voc')
+    and gt_masks.  The library is imported when the bridge is built, and
+    its absence raises ``ImportError``.  With ``bbox_params``, each box's
+    index rides along (``idx_mapper``) so that the masks of the boxes the
+    library keeps stay aligned with them."""
+
+    def __init__(self, transforms: Sequence[dict], bbox_params: Optional[dict] = None,
+                 skip_img_without_anno: bool = False):
+        try:
+            import albumentations as A
+        except ImportError as e:
+            raise ImportError(
+                "Albu requires the 'albumentations' package (not installed "
+                "in this environment); use the built-in crop/photometric "
+                "transforms instead"
+            ) from e
+        # the module is not kept on self: modules do not pickle, and process workers pickle the pipeline
+        self.skip_img_without_anno = skip_img_without_anno
+
+        def build(cfg):
+            cfg = dict(cfg)
+            t = getattr(A, cfg.pop("type"))
+            if "transforms" in cfg:
+                cfg["transforms"] = [build(c) for c in cfg["transforms"]]
+            return t(**cfg)
+
+        bp = None
+        if bbox_params is not None:
+            bp = A.BboxParams(format="pascal_voc", label_fields=["labels", "idx_mapper"],
+                              **{k: v for k, v in bbox_params.items()
+                                 if k not in ("type", "format", "label_fields", "filter_lost_elements")})
+        self.aug = A.Compose([build(t) for t in transforms], bbox_params=bp)
+        self.with_bboxes = bp is not None
+
+    def __call__(self, results: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+        kwargs = dict(image=results["img"])
+        if self.with_bboxes:
+            kwargs["bboxes"] = [tuple(b) for b in results.get("gt_bboxes", [])]
+            kwargs["labels"] = list(results.get("gt_labels", []))
+            kwargs["idx_mapper"] = list(range(len(kwargs["bboxes"])))
+        if "gt_masks" in results and len(results["gt_masks"]):
+            kwargs["masks"] = [m for m in results["gt_masks"]]
+        out = self.aug(**kwargs)
+        results["img"] = out["image"]
+        results["img_shape"] = out["image"].shape[:2]
+        if self.with_bboxes:
+            boxes = np.asarray(out["bboxes"], np.float32).reshape(-1, 4)
+            if not len(boxes) and self.skip_img_without_anno:
+                return None
+            results["gt_bboxes"] = boxes
+            results["gt_labels"] = np.asarray(out["labels"], np.int64)
+        if "masks" in out:
+            masks = out["masks"]
+            if self.with_bboxes and len(masks):
+                masks = [masks[i] for i in out["idx_mapper"]]  # the masks of the boxes kept
+            results["gt_masks"] = (np.stack(masks, 0) if len(masks)
+                                   else np.zeros((0,) + results["img"].shape[:2], np.uint8))
+        return results
+
+
+class Corrupt:
+    """A bridge to the imagecorruptions library's ``corrupt``, imported when
+    the bridge is built; its absence raises ``ImportError``."""
+
+    def __init__(self, corruption: str, severity: int = 1):
+        try:
+            from imagecorruptions import corrupt  # noqa: F401
+        except ImportError as e:
+            raise ImportError(
+                "Corrupt requires the 'imagecorruptions' package (not "
+                "installed in this environment)"
+            ) from e
+        self.corruption = corruption
+        self.severity = severity
+
+    def __call__(self, results: Dict[str, Any]) -> Dict[str, Any]:
+        from imagecorruptions import corrupt
+
+        results["img"] = corrupt(results["img"], corruption_name=self.corruption, severity=self.severity)
+        return results
+
+
 class GenerateDistanceMap:
     """With GT masks the binary visible mask is the distance map; without
     (``with_gt_mask=False``), each GT's map is estimated from its box by
@@ -854,17 +1018,30 @@ _TRANSFORMS = {
     "FilterAnnotations": FilterAnnotations,
     "Resize": Resize,
     "RandomFlip": RandomFlip,
+    "Pad": Pad,
     "RandomCrop": RandomCrop,
     "MinIoURandomCrop": MinIoURandomCrop,
     "Expand": Expand,
     "PhotoMetricDistortion": PhotoMetricDistortion,
     "CutOut": CutOut,
+    "Albu": Albu,
+    "Corrupt": Corrupt,
     "RandomBackground": RandomBackground,
     "CosyPoseAug": color_aug.CosyPoseAug,
+    "RandomHSV": RandomHSV,
+    "RandomNoise": RandomNoise,
+    "RandomSmooth": RandomSmooth,
     "GenerateDistanceMap": GenerateDistanceMap,
+    "SampleDistanceAtAnchors": SampleDistanceAtAnchors,
     "SegRescale": SegRescale,
     "RandomCenterCropPad": RandomCenterCropPad,
 }
+
+from . import auto_augment as _auto_augment  # noqa: E402  (it imports _generator from here)
+from . import instaboost as _instaboost  # noqa: E402
+
+_TRANSFORMS.update(_auto_augment.TRANSFORMS)
+_TRANSFORMS["InstaBoost"] = _instaboost.InstaBoost
 # formatting entries of reference pipelines: the static numpy collate does their job
 _FORMATTING = ("DefaultFormatBundle", "Collect", "ImageToTensor", "ToTensor")
 
@@ -888,9 +1065,9 @@ def build_pipeline(
     ``MultiScaleFlipAug`` with one scale and ``flip=False`` is unwrapped,
     its scale going to the inner ``Resize``; other test-time augmentation
     raises ``ValueError`` pointing to the ``tta`` config section.
-    ``CosyPoseAug``'s ops (``PillowBlur``, ...) are no pipeline entries of
-    their own and raise ``KeyError``, as in the JAX package; any other type
-    besides these and ``_TRANSFORMS``' raises ``NotImplementedError``."""
+    Any other type outside ``_TRANSFORMS`` raises ``KeyError``, as in the
+    JAX package; ``CosyPoseAug``'s ops (``PillowBlur``, ...) are among them,
+    since they are no pipeline entries of their own."""
     ts = []
 
     def add(t_cfg):
@@ -939,7 +1116,7 @@ def build_pipeline(
         elif t_type in color_aug.OPS:
             raise KeyError(f"unknown transform {t_type}: an op of CosyPoseAug's pipelines")
         else:
-            raise NotImplementedError(f"transform {t_type!r} is not ported ({_OTHER})")
+            raise KeyError(f"unknown transform {t_type}")
 
     for t_cfg in pipeline_cfg:
         add(t_cfg)

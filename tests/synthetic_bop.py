@@ -5,8 +5,9 @@ training records of filled rectangles, the package's 8-bit PNG writer
 (``tiff_bytes``), a BOP test split written with either (PNG, or gray TIFF
 as BOP ITODD's), a BOP training split of given JPEG files with
 ``mask_visib`` PNGs, a config that trains the flagship (or its mixpbr
-fine-tune, or its mask-free variant) from such splits, and a PASCAL VOC
-split of given JPEG files (``write_voc_split``)."""
+fine-tune, its mask-free variant, or its pipeline with the AutoAugment
+family, InstaBoost and RADet's colour transforms) from such splits, and a
+PASCAL VOC split of given JPEG files (``write_voc_split``)."""
 
 import json
 import os
@@ -237,8 +238,36 @@ def write_bop_train_set(root: str, records, jpegs, class_names, split: str = "tr
     return ann_file
 
 
+# the transforms augmented_pipeline adds to a train pipeline: InstaBoost after
+# LoadAnnotations, then after Resize an AutoAugment whose five
+# policies use all seven of its types, RandomHSV, RandomNoise and RandomSmooth
+AUG_POLICIES = [
+    [dict(type="Translate", level=4, prob=0.6), dict(type="EqualizeTransform", prob=0.8)],
+    [dict(type="Shear", level=2, prob=1.0, direction="vertical"),
+     dict(type="Translate", level=6, prob=0.6, direction="vertical")],
+    [dict(type="Rotate", level=10, prob=0.6), dict(type="ColorTransform", level=6, prob=1.0)],
+    [dict(type="BrightnessTransform", level=6, prob=0.5), dict(type="ContrastTransform", level=4, prob=0.5)],
+    [dict(type="Shear", level=4, prob=0.4)],
+]
+AFTER_LOAD = [dict(type="InstaBoost", aug_ratio=0.5)]
+AFTER_RESIZE = [dict(type="AutoAugment", policies=AUG_POLICIES),
+                dict(type="RandomHSV", h_ratio=0.1, s_ratio=0.3, v_ratio=0.3, prob=0.5),
+                dict(type="RandomNoise", noise_ratio=0.02, prob=0.3),
+                dict(type="RandomSmooth", max_kernel_size=7, prob=0.3)]
+
+
+def augmented_pipeline(pipeline):
+    """``pipeline`` (a list of transform configs) with ``AFTER_LOAD`` after
+    its ``LoadAnnotations`` and ``AFTER_RESIZE`` after its ``Resize``."""
+    out = []
+    for t in pipeline:
+        out.append(dict(t))
+        out += [dict(a) for a in {"LoadAnnotations": AFTER_LOAD, "Resize": AFTER_RESIZE}.get(t["type"], [])]
+    return out
+
+
 def write_train_config(path: str, base: str, ann_file: str, img_prefix: str, background_dir: str,
-                       real=None, mask_free=None) -> str:
+                       real=None, mask_free=None, augmented: bool = False) -> str:
     """A config file at ``path`` that is ``base`` training from the given
     split through ``base``'s own ``train_pipeline`` (``CosyPoseAug``
     included), its ``RandomBackground`` reading ``background_dir``.
@@ -249,7 +278,8 @@ def write_train_config(path: str, base: str, ann_file: str, img_prefix: str, bac
     'mbd') the pipeline trains from boxes alone: ``LoadAnnotations``
     without ``with_bop_mask`` (so ``RandomBackground`` skips) and
     ``GenerateDistanceMap(with_gt_mask=False, distance_transform=
-    mask_free)``.  Returns ``path``."""
+    mask_free)``.  With ``augmented``, the pipeline is
+    ``augmented_pipeline``'s.  Returns ``path``."""
     from radet_tpu_torch.utils.config import Config
 
     pipeline = [dict(t) for t in Config.fromfile(base).to_dict()["train_pipeline"]]
@@ -260,6 +290,8 @@ def write_train_config(path: str, base: str, ann_file: str, img_prefix: str, bac
             t["with_bop_mask"] = False
         elif mask_free and t["type"] == "GenerateDistanceMap":
             t.update(with_gt_mask=False, distance_transform=mask_free)
+    if augmented:
+        pipeline = augmented_pipeline(pipeline)
     if real is None:
         train = f"dict(ann_file={ann_file!r}, img_prefix={img_prefix!r}, pipeline=train_pipeline)"
     else:

@@ -521,13 +521,12 @@ def test_unported_training_options_raise(tmp_path):
                                                                                       "CosyPoseAug"]
     ds = InMemoryBOPDataset(synthetic_records(np.random.RandomState(0), 2, IMG_HW, 4),
                             train_transforms(IMG_HW, max_gt=32), max_gt=32)
-    # the periodic eval reaches an unported val transform at step 1 (item 12g)
+    # the periodic eval builds a val pipeline with a bad argument at step 1 (a Shear level above 10)
     eval_cfg = Config.fromfile(FLAGSHIP, TRAIN + [
         "evaluation.interval=1", "data.workers_per_gpu=1", f"data.val.ann_file={ann!r}",
         f"data.val.img_prefix={prefix!r}", "data.val.classes=None",
-        "data.val.pipeline=[{'type': 'LoadImageFromFile'}, {'type': 'RandomHSV', 'h_ratio': 0.1, 's_ratio': 0.1, "
-        "'v_ratio': 0.1}]"])
-    with pytest.raises(NotImplementedError, match="item 12"):
+        "data.val.pipeline=[{'type': 'LoadImageFromFile'}, {'type': 'Shear', 'level': 11}]"])
+    with pytest.raises(ValueError, match="level must be in"):
         train_detector(eval_cfg, work_dir=str(tmp_path), dataset=ds, device="cpu", max_iters=2)
     assert CheckpointManager(str(tmp_path / "checkpoints")).latest_step() == 1  # kept on the way out
     # the anchor heads train (tests/test_torch_anchor_slice.py), under mmdet's samplers too

@@ -266,8 +266,14 @@ def test_random_draws_and_pipeline_entries(tmp_path):
             jax_pipeline.build_pipeline([dict(type=t_type)])
         with pytest.raises(KeyError, match="unknown transform"):
             build_pipeline([dict(type=t_type)])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        build_pipeline([dict(type="RandomHSV", h_ratio=0.1, s_ratio=0.1, v_ratio=0.1)])
+    hsv = dict(type="RandomHSV", h_ratio=0.1, s_ratio=0.1, v_ratio=0.1)
+    results = dict(img=np.random.RandomState(1).randint(0, 256, (8, 40, 3)).astype(np.uint8))
+    outs = []
+    for build in (build_pipeline, jax_pipeline.build_pipeline):
+        random.seed(3)
+        outs.append(build([hsv])(dict(results))["img"])
+    np.testing.assert_array_equal(outs[0], outs[1])
+    assert not np.array_equal(outs[0], results["img"])
 
 
 def test_background_cache_under_loader_threads(tmp_path):

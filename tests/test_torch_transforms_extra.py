@@ -187,14 +187,25 @@ def test_load_mask_from_file_matches_jax(tmp_path):
 
 
 def test_registry_and_refusals():
-    """Every transform of this slice is registered; what stays queued
-    (item 12g) raises naming it; bad arguments raise."""
+    """Every transform of this slice and of the AutoAugment family,
+    InstaBoost and RADet's colour transforms is registered in both packages
+    (the last seven built by ``build_pipeline``, their libraries' bridges
+    raising JAX's ``ImportError`` where the library is absent); an unknown
+    type raises ``KeyError`` in both; bad arguments raise."""
     for t_type in ("LoadMaskFromFile", "FilterAnnotations", "RandomCrop", "MinIoURandomCrop", "Expand",
                    "PhotoMetricDistortion", "CutOut", "SegRescale", "RandomCenterCropPad"):
         assert t_type in pipeline._TRANSFORMS and t_type in jax_pipeline._TRANSFORMS
+    assert list(pipeline._TRANSFORMS) == list(jax_pipeline._TRANSFORMS)
+    built = dict(RandomHSV=dict(h_ratio=0.1, s_ratio=0.1, v_ratio=0.1), RandomNoise=dict(noise_ratio=0.1),
+                 RandomSmooth={}, AutoAugment=dict(policies=[[dict(type="Shear", level=1)]]), InstaBoost={})
     for t_type in ("RandomHSV", "RandomNoise", "RandomSmooth", "Albu", "Corrupt", "AutoAugment", "InstaBoost"):
-        with pytest.raises(NotImplementedError, match="item 12g"):
-            build_pipeline([dict(type=t_type)])
+        assert t_type in pipeline._TRANSFORMS and t_type in jax_pipeline._TRANSFORMS
+        if t_type in built:
+            assert [type(t).__name__ for t in build_pipeline([dict(type=t_type, **built[t_type])]).transforms] == [
+                t_type]
+    for build in (build_pipeline, jax_pipeline.build_pipeline):
+        with pytest.raises(KeyError, match="unknown transform"):
+            build([dict(type="NoSuchTransform")])
     for bad in (dict(crop_size=(10, 10), crop_type="middle"), dict(crop_size=(0, 10)),
                 dict(crop_size=(2.0, 0.5), crop_type="relative"), dict(crop_size=(50, 20), crop_type="absolute_range")):
         with pytest.raises(ValueError):
